@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Builds the port's CUDA kernels from
+``src/repro_torch/kernels/*/csrc/*.cu`` (into the ignored ``build/``),
+then:
+
+1. prints the card's ``nvidia-smi`` name and power limit and what
+   ``ptxas`` reported for each kernel;
+2. holds the decode-attention kernel against its plain PyTorch version
+   (ragged lengths incl. 0 and Smax; bf16 at 2e-2, f32 at 5e-5) and times
+   kernel, plain version and SDPA;
+3. does the same for the flash-attention forward kernel (out and lse;
+   causal lengths 1/37/511/700, window, softcap, q_offset);
+4. serves 8 requests at the full width of ``aiida-demo-110m`` (bf16,
+   random weights from a seed) through ``BatchScheduler`` and checks that
+   every prefill and decode step went through the kernels;
+5. serves 2 requests in float32 on the card and on the CPU (plain
+   versions) and requires identical greedy tokens.
+
+Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+TOL = {"bfloat16": 2e-2, "float32": 5e-5}
+L2_BYTES = 50 * 2**20
+
+ARCH = "aiida-demo-110m"
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_NEW = 4, 1024, 64
+SERVE_PROMPTS = (96, 250, 511, 700)
+N_REQUESTS = 8
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, arg_sets, iters: int = 40) -> float:
+    """Mean ms per call of ``fn(*args)``, cycling through ``arg_sets``
+    (enough copies to exceed the L2 cache, so every call reads its inputs
+    from device memory as the serving path does)."""
+    for args in arg_sets[:3]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    return max(2, -(-2 * L2_BYTES // max(nbytes, 1)))
+
+
+def max_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 2: decode attention
+# ---------------------------------------------------------------------------
+
+def decode_phase(torch, da_ops, da_ref) -> dict:
+    b, h, hkv, hd, smax = 4, 12, 4, 64, 1024
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for lens in ([0, 1, 130, 1023], [1024, 1023, 130, 0]):
+            q = torch.randn(b, h, hd, generator=gen, device="cuda").to(dt)
+            k = torch.randn(b, smax, hkv, hd, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(b, smax, hkv, hd, generator=gen,
+                            device="cuda").to(dt)
+            kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = da_ops.decode_attention(q, k, v, kv)
+            ref = da_ref.decode_attention_ref(q, k, v, kv,
+                                              scale=hd ** -0.5)
+            torch.cuda.synchronize()
+            err = max_err(torch, out, ref)
+            tol = TOL[dt_name]
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"decode {dt_name} {lens}: non-finite output")
+            check(torch.allclose(out.float(), ref.float(), atol=tol,
+                                 rtol=tol),
+                  f"decode {dt_name} {lens}: max abs err {err} > {tol}")
+            for row, n in enumerate(lens):
+                if n == 0:
+                    check(bool((out[row] == 0).all()),
+                          f"decode {dt_name}: kv_len=0 row is not zero")
+            worst = max(worst, err)
+            print(f"decode_attention {dt_name} kv_len={lens}: "
+                  f"max_abs_err={err:.3e} (tol {tol})")
+
+    # timing at the serving phase's shapes: bf16, mid-generation depths
+    dt = torch.bfloat16
+    lens = [n + SERVE_NEW // 2 for n in SERVE_PROMPTS]
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    es = 2
+    cache_bytes = 2 * b * smax * hkv * hd * es
+    sets = []
+    for _ in range(copies_for(cache_bytes)):
+        q = torch.randn(b, h, hd, device="cuda").to(dt)
+        k = torch.randn(b, smax, hkv, hd, device="cuda").to(dt)
+        v = torch.randn(b, smax, hkv, hd, device="cuda").to(dt)
+        sets.append((q, k, v))
+    ms = time_ms(torch, lambda q, k, v: da_ops.decode_attention(q, k, v, kv),
+                 sets)
+    plain_ms = time_ms(
+        torch, lambda q, k, v: da_ref.decode_attention_ref(
+            q, k, v, kv, scale=hd ** -0.5), sets)
+    # library yardstick: SDPA over the same live keys (heads expanded and
+    # moved first, outside the timed call)
+    mask = (torch.arange(smax, device="cuda")[None, :] < kv[:, None])
+    mask = mask[:, None, None, :]
+    lib_sets = [(q[:, :, None, :],
+                 k.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous(),
+                 v.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous())
+                for q, k, v in sets[:copies_for(cache_bytes * h // hkv)]]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, attn_mask=mask),
+                         lib_sets)
+    live = sum(lens)
+    nbytes = (2 * b * h * hd + 2 * live * hkv * hd) * es + 4 * b
+    flops = 4 * live * h * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    print(f"decode_attention timing: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.5f} ms")
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "timed_at": f"B={b} H={h} Hkv={hkv} hd={hd} Smax={smax} bf16 "
+                    f"kv_len={lens}",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 3: flash attention forward
+# ---------------------------------------------------------------------------
+
+def flash_phase(torch, fa_ops, fa_ref) -> dict:
+    h, hkv, hd = 12, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [dict(sq=s, skv=s) for s in (1, 37, 511, 700)]
+    cases += [dict(sq=700, skv=700, window=64),
+              dict(sq=511, skv=511, softcap=30.0),
+              dict(sq=37, skv=42, q_offset=5)]
+    worst = 0.0
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for c in cases:
+            opts = dict(causal=True, window=c.get("window", 0),
+                        scale=hd ** -0.5, softcap=c.get("softcap", 0.0),
+                        q_offset=c.get("q_offset", 0))
+            q = torch.randn(1, c["sq"], h, hd, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(1, c["skv"], hkv, hd, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(1, c["skv"], hkv, hd, generator=gen,
+                            device="cuda").to(dt)
+            out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+            rout, rlse = fa_ref.flash_attention_ref(q, k, v, **opts)
+            torch.cuda.synchronize()
+            tol = TOL[dt_name]
+            err = max(max_err(torch, out, rout), max_err(torch, lse, rlse))
+            check(torch.allclose(out.float(), rout.float(), atol=tol,
+                                 rtol=tol),
+                  f"flash {dt_name} {c}: out max abs err "
+                  f"{max_err(torch, out, rout)} > {tol}")
+            check(torch.allclose(lse, rlse, atol=tol, rtol=tol),
+                  f"flash {dt_name} {c}: lse max abs err "
+                  f"{max_err(torch, lse, rlse)} > {tol}")
+            worst = max(worst, err)
+            print(f"flash_attention_fwd {dt_name} {c}: max_abs_err="
+                  f"{err:.3e} (tol {tol})")
+
+    # timing at the serving phase's prompt lengths, bf16 causal: the mean
+    # per launch, as the main path launches each length equally often
+    dt = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
+           "t_ops": 0.0}
+    for s in SERVE_PROMPTS:
+        nbytes = s * (2 * h + 2 * hkv) * hd * 2 + 4 * h * s
+        sets = [(torch.randn(1, s, h, hd, device="cuda").to(dt),
+                 torch.randn(1, s, hkv, hd, device="cuda").to(dt),
+                 torch.randn(1, s, hkv, hd, device="cuda").to(dt))
+                for _ in range(copies_for(nbytes))]
+        tot["ms"] += time_ms(
+            torch, lambda q, k, v: fa_ops.flash_attention_fwd(q, k, v), sets)
+        tot["plain_ms"] += time_ms(
+            torch, lambda q, k, v: fa_ref.flash_attention_ref(
+                q, k, v, causal=True, window=0, scale=hd ** -0.5,
+                softcap=0.0, q_offset=0), sets[:4], iters=10)
+        lib_sets = [(q.transpose(1, 2).contiguous(),
+                     k.transpose(1, 2).repeat_interleave(h // hkv, 1)
+                     .contiguous(),
+                     v.transpose(1, 2).repeat_interleave(h // hkv, 1)
+                     .contiguous()) for q, k, v in sets]
+        tot["library_ms"] += time_ms(
+            torch, lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
+        pairs = s * (s + 1) // 2
+        tot["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
+        tot["t_ops"] += 4 * hd * h * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+    n = len(SERVE_PROMPTS)
+    mean = {key: val / n for key, val in tot.items()}
+    print(f"flash_attention_fwd timing: kernel {mean['ms']:.4f} ms, plain "
+          f"{mean['plain_ms']:.4f} ms, sdpa {mean['library_ms']:.4f} ms, "
+          f"bound {max(mean['t_bytes'], mean['t_ops']):.5f} ms")
+    return {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:109",
+        "max_abs_err": worst, "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+        "bound_ms": max(mean["t_bytes"], mean["t_ops"]),
+        "bound_by": ("bytes" if mean["t_bytes"] >= mean["t_ops"]
+                     else "operations"),
+        "library_ms": mean["library_ms"],
+        "timed_at": f"B=1 H={h} Hkv={hkv} hd={hd} bf16 causal, mean over "
+                    f"S in {list(SERVE_PROMPTS)}",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: serving
+# ---------------------------------------------------------------------------
+
+def fan_in_scaled(cfg, params):
+    """``params`` with the attention projections rescaled to std
+    1/sqrt(fan-in of their contraction).
+
+    The reference's init rule takes the fan-in from the stacked leaf's
+    shape[-2]: the head count for wq/wk/wv (std 1/sqrt(12) and 1/sqrt(4)
+    where the contraction runs over d_model = 768) and head_dim for wo.
+    At full width that makes attention logits so large that softmax is
+    nearly a hard argmax, which amplifies float32 rounding over 12
+    layers until greedy tokens flip: on the CPU alone, the direct and
+    kernel routes of the same package disagree on the first token. With
+    fan-in-scaled projections identical greedy tokens test the port,
+    not that amplification."""
+    attn = params["layers"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name] = attn[name] * (attn[name].shape[-2] / cfg.d_model) ** 0.5
+    attn["wo"] = attn["wo"] * (attn["wo"].shape[-2]
+                               / (cfg.num_heads * cfg.hd)) ** 0.5
+    return params
+
+
+def serve(torch, cfg, prompts, new_tokens, batch, device, seed=0):
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import BatchScheduler, Request
+
+    bundle = build(cfg)
+    params = fan_in_scaled(cfg, bundle.init_params(
+        torch.Generator().manual_seed(seed), device))
+    sched = BatchScheduler(bundle, params, batch_size=batch,
+                           max_len=SERVE_MAX_LEN, device=device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    return sched, reqs
+
+
+def device_share(torch, fn, n: int) -> dict:
+    """Run ``fn`` ``n`` times under ``torch.profiler``: wall ms per run,
+    the device time the profiler saw per run, the idle share, and the
+    kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    evs = kernels or [e for e in prof.key_averages() if dev_us(e) > 0]
+    device = sum(dev_us(e) for e in evs) / 1e3 / n
+    top = sorted(evs, key=dev_us, reverse=True)[:6]
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
+            "launches_per_run": sum(e.count for e in evs) / n,
+            "top_device_ms": {e.key[:60]: dev_us(e) / 1e3 / n for e in top}}
+
+
+def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
+    from repro_torch.models.registry import build
+    from repro_torch.observability.metrics import get_registry
+    from repro_torch.serving.serve import BatchScheduler, Request
+
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, cfg_full.vocab_size,
+                             (SERVE_PROMPTS[i % len(SERVE_PROMPTS)],),
+                             generator=gen).tolist()
+               for i in range(N_REQUESTS)]
+    bundle = build(cfg_full)
+    params = bundle.init_params(torch.Generator().manual_seed(0), "cuda")
+    sched = BatchScheduler(bundle, params, batch_size=SERVE_BATCH,
+                           max_len=SERVE_MAX_LEN, device="cuda")
+    # warm-up (library handles, allocator) outside the counted run
+    warm = Request(rid=-1, prompt=prompts[0][:16], max_new_tokens=4)
+    sched.submit(warm)
+    sched.run()
+    torch.cuda.synchronize()
+
+    steps = get_registry().counter("serving.decode_steps")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    steps_before = steps.value
+    da_ops.decode_attention.launches = 0
+    fa_ops.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_launches = da_ops.decode_attention.launches
+    flash_launches = fa_ops.flash_attention_fwd.launches
+    decode_steps = steps.value - steps_before
+
+    check(all(r.done and r.finish_reason == "length"
+              and len(r.generated) == SERVE_NEW for r in reqs),
+          "not every request finished with its 64 tokens: "
+          f"{[(r.done, r.finish_reason, len(r.generated)) for r in reqs]}")
+    check(all(0 <= t < cfg_full.vocab_size for r in reqs
+              for t in r.generated), "a generated token is out of vocab")
+    layers = cfg_full.num_layers
+    check(flash_launches == layers * N_REQUESTS,
+          f"flash launches {flash_launches} != {layers} x {N_REQUESTS}")
+    check(decode_launches == layers * decode_steps,
+          f"decode launches {decode_launches} != {layers} x {decode_steps}")
+    tokens = sum(len(r.generated) for r in reqs)
+
+    # per-request prefill and per-step decode time, host clock around work
+    # that ends in a device sync (each step copies its tokens to the host)
+    prefill_ms = []
+    p700 = torch.tensor([prompts[SERVE_PROMPTS.index(700)]], device="cuda")
+    for n in SERVE_PROMPTS:
+        p = torch.tensor([prompts[SERVE_PROMPTS.index(n)]], device="cuda")
+        row = bundle.init_cache(1, SERVE_MAX_LEN, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, _ = sched.prefill_step(sched.params, {"tokens": p}, row)
+        int(tok[0, 0])
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    toks = torch.ones((SERVE_BATCH, 1), dtype=torch.int64, device="cuda")
+    pos = torch.tensor([n + SERVE_NEW // 2 for n in SERVE_PROMPTS],
+                       device="cuda")
+    step_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt, _ = sched.decode_step(sched.params, sched.cache, toks, pos)
+        nxt.cpu()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    step_ms.sort()
+    try:
+        profiled = {
+            "decode_step": device_share(torch, lambda: sched.decode_step(
+                sched.params, sched.cache, toks, pos)[0].cpu(), 5),
+            "prefill_700": device_share(torch, lambda: int(sched.prefill_step(
+                sched.params, {"tokens": p700},
+                bundle.init_cache(1, SERVE_MAX_LEN, "cuda"))[0][0, 0]), 3),
+        }
+    except Exception as e:  # noqa: BLE001 - a profiler fault is reported, not fatal
+        profiled = {"not measured": repr(e)}
+    result = {
+        "requests": N_REQUESTS, "tokens_generated": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "decode_steps": decode_steps,
+        "flash_launches": flash_launches, "decode_launches": decode_launches,
+        "prefill_ms_by_len": dict(zip(map(str, SERVE_PROMPTS), prefill_ms)),
+        "prefill_ms_mean": sum(prefill_ms) / len(prefill_ms),
+        "decode_step_ms_median": step_ms[len(step_ms) // 2],
+        "profile": profiled,
+    }
+    print("serve: " + json.dumps(result))
+    return result
+
+
+def parity_phase(torch, cfg_full) -> dict:
+    cfg32 = cfg_full.replace(dtype="float32", kv_cache_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(1, cfg32.vocab_size, (n,), generator=gen)
+               .tolist() for n in (96, 250)]
+    _, on_card = serve(torch, cfg32, prompts, 8, 2, "cuda")
+    _, on_cpu = serve(torch, cfg32, prompts, 8, 2, "cpu")
+    card = [r.generated for r in on_card]
+    cpu = [r.generated for r in on_cpu]
+    check(card == cpu, f"f32 greedy tokens differ: card {card} cpu {cpu}")
+    print(f"parity f32: card and cpu tokens identical: {card}")
+    return {"tokens": card}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "__init__.py").exists():
+        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    t = time.perf_counter()
+    libs = _build.build_all()
+    print(f"build: {sorted(libs)} in {time.perf_counter() - t:.1f}s")
+    for name in libs:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+    smi = smi_line()
+    print(smi)
+
+    kernels = [decode_phase(torch, da_ops, da_ref),
+               flash_phase(torch, fa_ops, fa_ref)]
+    cfg_full = get_config(ARCH).replace(attn_impl="pallas",
+                                        decode_impl="pallas")
+    served = serve_phase(torch, cfg_full, da_ops, fa_ops)
+    kernels[0]["launches"] = served["decode_launches"]
+    kernels[1]["launches"] = served["flash_launches"]
+    parity = parity_phase(torch, cfg_full)
+
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "device": device, "kernels": kernels,
+         "serve": served, "parity": parity}, indent=1))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in kernels]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:      # any phase failing fails the run, with its trace
+        traceback.print_exc()
+        sys.exit(1)

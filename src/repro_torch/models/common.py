@@ -1,0 +1,325 @@
+"""Common building blocks shared by every architecture family.
+
+Counterpart of ``repro.models.common``. Parameters are plain nested dicts
+of tensors keyed exactly like the reference's pytrees, with the stacked
+leading ``layers`` dimension, so a reference parameter tree maps onto the
+port leaf for leaf (see :mod:`repro_torch.models.convert`).
+
+* Parameters are stored in ``param_dtype`` (fp32 master copies) and used
+  in ``dtype`` (bf16); :func:`cast_for_compute` does that cast once for
+  every weight that the reference casts at each use.
+* Entry points take an explicit ``device``. ``None`` means the card:
+  :func:`resolve_device` raises when there is none rather than carrying on
+  on the CPU.
+* The logical-axis sharding hooks wait for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Mapping
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Devices
+# ---------------------------------------------------------------------------
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    first CUDA card. Without a card and without ``device`` this raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' explicitly to "
+            "run the port on the CPU")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+VOCAB_PAD_MULTIPLE = 256
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def pad_vocab(vocab_size: int, multiple: int = VOCAB_PAD_MULTIPLE) -> int:
+    """Pad the embedding table so it divides any reasonable model axis."""
+    return int(math.ceil(vocab_size / multiple) * multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """A single config type covering all assigned architecture families.
+
+    Field for field the reference's ``ModelConfig``; only the dtype
+    properties differ (torch dtypes)."""
+
+    name: str
+    family: str                      # dense | moe | hybrid | vlm | audio | ssm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+
+    # --- attention options -------------------------------------------------
+    qk_norm: bool = False            # qwen3-style per-head RMSNorm on q/k
+    qkv_bias: bool = False           # qwen2-style bias on qkv projections
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    attn_impl: str = "direct"        # direct | chunked | pallas (= kernel)
+    attn_q_block: int = 512          # chunked q tile
+    attn_kv_block: int = 512         # chunked kv tile
+    attn_softcap: float = 0.0        # grok-style logit soft-capping
+
+    # --- mlp ---------------------------------------------------------------
+    mlp_act: str = "silu"            # silu (SwiGLU) | gelu (GeGLU) | gelu_mlp
+
+    # --- scalar multipliers (granite) ---------------------------------------
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0   # 0 -> default 1/sqrt(head_dim)
+    logits_scaling: float = 1.0
+
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+
+    # --- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_group_size: int = 1024
+    moe_capacity_factor: float = 1.25
+
+    # --- hybrid (recurrentgemma / griffin) ----------------------------------
+    block_pattern: tuple[str, ...] = ()
+    local_window: int = 0
+    d_rnn: int = 0
+    conv_width: int = 4
+    rnn_blocks: int = 16
+
+    # --- xlstm ---------------------------------------------------------------
+    mlstm_proj_factor: float = 2.0
+    slstm_conv_width: int = 4
+    mlstm_chunk: int = 128
+
+    # --- enc-dec (whisper backbone) ------------------------------------------
+    encoder_layers: int = 0
+    num_frames: int = 0
+
+    # --- vlm (llava backbone) -------------------------------------------------
+    num_patches: int = 0
+
+    # --- numerics / infra -----------------------------------------------------
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat_policy: str = "nothing_saveable"
+    unroll_layers: bool = False
+    ce_chunk: int = 0
+    use_pallas: bool = False
+    # decode-attention inner product: 'direct' (einsum over the full cache)
+    # or 'pallas' (the hand-written decode kernel, ragged per-row lengths).
+    decode_impl: str = "direct"
+    kv_cache_dtype: str = "bfloat16"   # 'int8' enables quantised KV cache
+    kv_repeat: int = 1
+    attn_sharding: str = "heads"
+    moe_sharding: str = "expert"
+
+    # ------------------------------------------------------------------
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_vocab(self.vocab_size)
+
+    @property
+    def kv_heads_eff(self) -> int:
+        """KV heads after physical repetition for shardability."""
+        return self.num_kv_heads * self.kv_repeat
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def replace(self, **kw: Any) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape + logical axes + init for one parameter leaf."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones | rglru_lambda
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+ParamTree = Any      # nested dict of tensors
+SpecTree = Any       # nested dict of ParamSpec
+
+
+def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs in sorted-key order, as JAX flattens dicts."""
+    if isinstance(tree, Mapping):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_leaves(tree[k], f"{prefix}{k}/"))
+        return out
+    return [(prefix.rstrip("/"), tree)]
+
+
+def init_params(generator: torch.Generator, spec_tree: SpecTree,
+                dtype: torch.dtype, device: torch.device) -> ParamTree:
+    """Materialise a parameter tree by the reference's init rules.
+
+    Values are drawn on the CPU from ``generator`` (a CPU generator) in
+    sorted-key order and then moved, so one seed gives the same parameters
+    on every device."""
+
+    def draw(s: ParamSpec) -> torch.Tensor:
+        if s.init == "zeros":
+            t = torch.zeros(s.shape, dtype=dtype)
+        elif s.init == "ones":
+            t = torch.ones(s.shape, dtype=dtype)
+        elif s.init == "rglru_lambda":
+            u = 0.9 + 0.099 * torch.rand(s.shape, generator=generator,
+                                         dtype=dtype)
+            a2 = u ** (1.0 / 8.0)
+            t = torch.log(a2 / (1.0 - a2))
+        else:
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            std = s.scale / math.sqrt(max(1, fan_in))
+            t = std * torch.randn(s.shape, generator=generator, dtype=dtype)
+        return t.to(device)
+
+    drawn = {path: draw(s) for path, s in tree_leaves(spec_tree)}
+
+    def rebuild(tree, prefix=""):
+        if isinstance(tree, Mapping):
+            return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        return drawn[prefix.rstrip("/")]
+
+    return rebuild(spec_tree)
+
+
+#: leaves the reference keeps in fp32 at use (norm weights go through
+#: ``rms_norm``'s fp32 math); every other leaf it casts to the activation
+#: dtype at each use
+FP32_LEAVES = frozenset({"ln_attn", "ln_mlp", "ln_final", "q_norm", "k_norm"})
+
+
+def cast_for_compute(params: ParamTree, dtype: torch.dtype,
+                     device: torch.device) -> ParamTree:
+    """Move ``params`` to ``device`` and cast the weights the reference
+    casts at each use to ``dtype`` once. Same numbers, one cast per load
+    instead of one per step."""
+
+    def walk(tree, key=None):
+        if isinstance(tree, Mapping):
+            return {k: walk(v, k) for k, v in tree.items()}
+        t = tree.to(device)
+        return t if key in FP32_LEAVES else t.to(dtype)
+
+    return walk(params)
+
+
+def stacked(spec: ParamSpec, layers: int) -> ParamSpec:
+    """Add a leading layer-stack dimension to a spec."""
+    return ParamSpec(
+        shape=(layers, *spec.shape),
+        axes=("layers", *spec.axes),
+        init=spec.init,
+        scale=spec.scale,
+    )
+
+
+def stack_specs(specs: Mapping[str, Any], layers: int) -> Any:
+    return map_tree(lambda s: stacked(s, layers), specs)
+
+
+def layer_slice(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree (views, so in-place writes land in the
+    stacked tensors)."""
+    return map_tree(lambda t: t[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dt)
+
+
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+         theta: float):
+    """Rotary embeddings. q: (..., S, H, hd), positions: (..., S)."""
+    hd = q.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=q.device) / half)
+    angles = positions[..., :, None].float() * freqs      # (..., S, half)
+    cos = torch.cos(angles)[..., :, None, :]               # (..., S, 1, half)
+    sin = torch.sin(angles)[..., :, None, :]
+
+    def rot(x):
+        x1, x2 = x[..., :half], x[..., half:]
+        xr1 = x1 * cos - x2 * sin
+        xr2 = x2 * cos + x1 * sin
+        return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+_ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    # the reference's "gelu" is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+}
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return _ACTS[name]

@@ -1,0 +1,266 @@
+"""The port's configs, weight bridge, primitives and dense LM against the
+reference, on the CPU, at reduced size in float32.
+
+Parameters come from the reference's own init and cross through numpy;
+inputs are made with numpy from fixed seeds. Logits are held at atol and
+rtol 1e-4 (the two frameworks sum the d-wide products in different
+orders); greedy tokens must be identical.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced_config as j_reduced
+from repro.models import common as j_common
+from repro.models import transformer as j_tf
+from repro.models.registry import build as j_build
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.models import common
+from repro_torch.models import transformer as tf
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.models.registry import build
+from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+ARCH = "aiida-demo-110m"
+DENSE_ARCHS = ["aiida-demo-110m", "qwen3-4b", "qwen2-0.5b", "granite-3-2b",
+               "deepseek-67b"]
+LOGIT_TOL = 1e-4
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _pair_models(arch=ARCH, seed=0, **over):
+    """(reference cfg, bundle, params), (port cfg, bundle, params) with
+    the reference's parameters bridged into the port."""
+    over = dict(dtype="float32", kv_cache_dtype="float32") | over
+    jcfg = j_reduced(arch).replace(**over)
+    jb = j_build(jcfg)
+    jp = jb.init_params(jax.random.PRNGKey(seed))
+    cfg = reduced_config(arch).replace(**over)
+    b = build(cfg)
+    return (jcfg, jb, jp), (cfg, b, params_from_numpy(_np_tree(jp), "cpu"))
+
+
+def _close(got, want, tol=LOGIT_TOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# configs and the weight bridge
+# ---------------------------------------------------------------------------
+
+def test_arch_ids_match_reference():
+    assert ARCH_IDS == J_ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", J_ARCH_IDS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_matches_reference_field_for_field(arch, reduced):
+    mine = (reduced_config if reduced else get_config)(arch)
+    ref = (j_reduced if reduced else j_get_config)(arch)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.hd == ref.hd and mine.padded_vocab == ref.padded_vocab
+    assert mine.kv_heads_eff == ref.kv_heads_eff
+    assert str(mine.activation_dtype).endswith(ref.dtype)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_params_bridge_round_trips_leaf_for_leaf(arch):
+    (_, jb, jp), (_, b, p) = _pair_models(arch)
+    ref = _np_tree(jp)
+    back = params_to_numpy(p)
+    assert jax.tree.structure(ref) == jax.tree.structure(back)
+    for (path, a), bk in zip(jax.tree_util.tree_leaves_with_path(ref),
+                             jax.tree.leaves(back)):
+        assert a.dtype == bk.dtype, path
+        np.testing.assert_array_equal(a, bk, err_msg=str(path))
+    # the port's own init makes the same tree of shapes
+    mine = b.init_params(torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(np.shape, ref) == jax.tree.map(
+        lambda t: tuple(t.shape), mine)
+
+
+def test_init_params_is_seeded_and_follows_the_init_rules():
+    b = build(reduced_config(ARCH))
+    p1 = b.init_params(torch.Generator().manual_seed(3), "cpu")
+    p2 = b.init_params(3, "cpu")
+    for (_, x), (_, y) in zip(common.tree_leaves(p1), common.tree_leaves(p2)):
+        assert torch.equal(x, y)
+    assert torch.equal(p1["ln_final"], torch.ones(128))
+    # the reference's rule: std = 1/sqrt(shape[-2]) of the stacked leaf
+    for name in ("wq", "wo"):
+        w = p1["layers"]["attn"][name]
+        assert w.dtype == torch.float32
+        want = w.shape[-2] ** -0.5
+        assert abs(float(w.std()) - want) < 0.05 * want, name
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_matches():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 3, (2, 5, 64)).astype(np.float32)
+    w = rng.normal(1, 0.1, (64,)).astype(np.float32)
+    got = common.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    _close(got, j_common.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6),
+           5e-5)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_matches(theta):
+    rng = np.random.default_rng(1)
+    q = rng.normal(0, 1, (2, 7, 4, 32)).astype(np.float32)
+    k = rng.normal(0, 1, (2, 7, 2, 32)).astype(np.float32)
+    pos = np.asarray([[0, 1, 2, 3, 4, 5, 6], [9, 10, 11, 12, 13, 14, 900]])
+    got = common.rope(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(pos), theta)
+    want = j_common.rope(jnp.asarray(q), jnp.asarray(k), jnp.asarray(pos),
+                         theta)
+    for g, w in zip(got, want):
+        _close(g, w, 5e-5)
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "gelu_exact"])
+def test_act_fn_matches(name):
+    x = np.linspace(-6, 6, 257).astype(np.float32)
+    _close(common.act_fn(name)(torch.from_numpy(x)),
+           j_common.act_fn(name)(jnp.asarray(x)), 5e-5)
+
+
+# ---------------------------------------------------------------------------
+# the dense LM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("attn_impl", ["direct", "pallas"])
+def test_lm_forward_matches(arch, attn_impl):
+    """qk_norm (qwen3), qkv_bias + tied embeddings (qwen2), the granite
+    multipliers, under both attention routes."""
+    (jcfg, _, jp), (cfg, _, p) = _pair_models(arch, attn_impl=attn_impl)
+    tokens = np.random.default_rng(2).integers(1, 500, (2, 12))
+    want, _ = j_tf.lm_forward(jcfg, jp, {"tokens": jnp.asarray(tokens)})
+    got = tf.lm_forward(cfg, p, {"tokens": torch.from_numpy(tokens)})
+    _close(got, want)
+
+
+@pytest.mark.parametrize("attn_impl", ["direct", "pallas"])
+@pytest.mark.parametrize("decode_impl", ["direct", "pallas"])
+@pytest.mark.parametrize("kv_cache_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_prefill_and_decode_match(attn_impl, decode_impl, kv_cache_dtype,
+                                  per_row):
+    """lm_prefill logits and cache, then two lm_decode_step logits, with a
+    scalar or a per-row position vector; kv_cache_dtype 'bfloat16' means a
+    cache in the activation dtype (float32 here)."""
+    over = dict(attn_impl=attn_impl, decode_impl=decode_impl,
+                kv_cache_dtype=kv_cache_dtype)
+    (jcfg, jb, jp), (cfg, b, p) = _pair_models(**over)
+    rng = np.random.default_rng(3)
+    n, max_len = 10, 32
+    prompt = rng.integers(1, cfg.vocab_size, (2, n))
+    j_logits, j_cache = jax.jit(jb.prefill_fn)(
+        jp, {"tokens": jnp.asarray(prompt)}, jb.init_cache(2, max_len))
+    cache = b.init_cache(2, max_len, "cpu")
+    logits, cache = b.prefill_fn(p, {"tokens": torch.from_numpy(prompt)},
+                                 cache)
+    _close(logits, j_logits)
+    for name in j_cache:
+        # an int8 code may sit one step away where k/v fall on a rounding
+        # boundary (the products are summed in another order)
+        quantized = kv_cache_dtype == "int8" and name in ("k", "v")
+        _close(cache[name], j_cache[name], 1.0 if quantized else LOGIT_TOL)
+    assert torch.equal(logits[:, -1].argmax(-1),
+                       torch.from_numpy(np.asarray(j_logits[:, -1])
+                                        .argmax(-1)))
+
+    j_decode = jax.jit(jb.decode_fn)
+    tok = rng.integers(1, cfg.vocab_size, (2, 1))
+    for step in range(2):
+        pos = np.asarray([n + step, n - 3 + step]) if per_row \
+            else np.asarray(n + step)
+        j_logits, j_cache = j_decode(jp, j_cache, jnp.asarray(tok),
+                                     jnp.asarray(pos, jnp.int32))
+        logits, cache = b.decode_fn(p, cache, torch.from_numpy(tok),
+                                    torch.from_numpy(pos))
+        _close(logits, j_logits)
+        want_tok = np.asarray(j_logits[:, -1, :cfg.vocab_size]).argmax(-1)
+        assert logits[:, -1, :cfg.vocab_size].argmax(-1).tolist() == \
+            want_tok.tolist()
+        tok = want_tok[:, None]
+
+
+def test_cache_write_clamps_past_the_end():
+    """Like the reference's dynamic_update_slice, a position past the end
+    of the cache writes the last slot, never out of range."""
+    from repro_torch.models.attention import _cache_write
+
+    cache = {"k": torch.zeros(2, 4, 1, 2), "v": torch.zeros(2, 4, 1, 2)}
+    k = torch.ones(2, 1, 1, 2)
+    _cache_write(cache, k, 2 * k, torch.tensor([7, 1]), quantized=False)
+    assert cache["k"][0, 3].eq(1).all() and cache["k"][1, 1].eq(1).all()
+    assert cache["k"].sum() == 4 and cache["v"].sum() == 8
+    _cache_write(cache, 3 * k, 3 * k, torch.tensor(9), quantized=False)
+    assert cache["k"][:, 3].eq(3).all()
+
+
+@pytest.mark.parametrize("decode_impl", ["direct", "pallas"])
+def test_prefill_equals_stepwise_decode(decode_impl):
+    """Prefilling N tokens lands in the same state as feeding them one
+    decode step at a time: identical next token and greedy continuation."""
+    cfg = reduced_config(ARCH).replace(dtype="float32",
+                                       kv_cache_dtype="float32",
+                                       decode_impl=decode_impl)
+    bundle = build(cfg)
+    params = bundle.init_params(1, "cpu")
+    prefill = make_prefill_step(bundle)
+    decode = make_decode_step(bundle)
+    n, extra, max_len = 8, 4, 32
+    prompt = torch.from_numpy(
+        np.random.default_rng(4).integers(1, cfg.vocab_size, (1, n)))
+
+    def continue_greedy(tok, cache, pos):
+        seq = [int(tok[0, 0])]
+        for i in range(extra):
+            tok, cache = decode(params, cache, tok.long(),
+                                torch.tensor(pos + i))
+            seq.append(int(tok[0, 0]))
+        return seq
+
+    tok_a, cache_a = prefill(params, {"tokens": prompt},
+                             bundle.init_cache(1, max_len, "cpu"))
+    seq_a = continue_greedy(tok_a, cache_a, n)
+    tok_b, cache_b = prefill(params, {"tokens": prompt[:, :1]},
+                             bundle.init_cache(1, max_len, "cpu"))
+    for i in range(1, n):
+        tok_b, cache_b = decode(params, cache_b, prompt[:, i:i + 1],
+                                torch.tensor(i))
+    seq_b = continue_greedy(tok_b, cache_b, n)
+    assert seq_a == seq_b
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m",
+                                  "whisper-large-v3", "moonshot-v1-16b-a3b",
+                                  "llava-next-34b"])
+def test_families_of_later_slices_raise(arch):
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build(reduced_config(arch))
+
+
+def test_routes_of_later_slices_raise():
+    (_, _, _), (cfg, _, p) = _pair_models(attn_impl="chunked")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tf.lm_forward(cfg, p, {"tokens": torch.ones(1, 4, dtype=torch.long)})
