@@ -13,12 +13,30 @@ then:
    (ragged lengths incl. 0 and Smax; bf16 at 2e-2, f32 at 5e-5) and times
    kernel, plain version and SDPA;
 3. does the same for the flash-attention forward kernel (out and lse;
-   causal lengths 1/37/511/700, window, softcap, q_offset);
+   causal lengths 1/37/511/700, window, softcap, q_offset, and the
+   training shape B = 8, S = 1024) and times it at the serving and at the
+   training shapes;
 4. serves 8 requests at the full width of ``aiida-demo-110m`` (bf16,
    random weights from a seed) through ``BatchScheduler`` and checks that
    every prefill and decode step went through the kernels;
 5. serves 2 requests in float32 on the card and on the CPU (plain
-   versions) and requires identical greedy tokens.
+   versions) and requires identical greedy tokens;
+6. holds the two flash-attention backward kernels (dq pass, dk/dv pass)
+   against their plain version on the card (MHA, GQA 4x, G = 3; S = 96,
+   250, 1024; window, softcap, q_offset; f32 at 1e-4, bf16 at 2e-2, and
+   each output's error within 1e-4 / 1e-2 of its norm), checks them again
+   at the training shape (B = 8, S = 1024, bf16) and times each pass, the
+   plain version and SDPA's backward there;
+7. trains ``aiida-demo-110m`` at full width (bf16 activations, fp32
+   parameters, AdamW, the config's remat policy) for 6 steps of 8 x 1024
+   tokens through ``make_train_step`` and checks every loss is finite and
+   every step launched 24 flash forwards (forward + remat recompute), 12
+   dq and 12 dk/dv passes; prints tokens/s, ms per step, peak memory and a
+   profiled step;
+8. takes one full-width float32 train step's gradients on the card and on
+   the CPU (plain versions) from the same parameters and batch, and holds
+   loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
+   norm) together.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -28,6 +46,7 @@ without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -40,12 +59,18 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL = {"bfloat16": 2e-2, "float32": 5e-5}
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# a backward output's error as a share of that output's norm: the
+# elementwise bound above is loose for the small gradients of late rows
+BWD_NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 L2_BYTES = 50 * 2**20
 
 ARCH = "aiida-demo-110m"
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_NEW = 4, 1024, 64
 SERVE_PROMPTS = (96, 250, 511, 700)
 N_REQUESTS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+PARITY_BATCH, PARITY_SEQ = 2, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -89,6 +114,26 @@ def copies_for(nbytes: int) -> int:
 
 def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def bwd_close(torch, got, want, dt_name: str, what: str) -> dict:
+    """Hold backward outputs (dq, dk, dv) against the plain version's:
+    elementwise at ``BWD_TOL`` and as a share of each output's norm at
+    ``BWD_NORM_TOL``. Returns each output's max abs error and, under
+    ``share_<name>``, its error as a share of its norm."""
+    tol, norm_tol = BWD_TOL[dt_name], BWD_NORM_TOL[dt_name]
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{what}: non-finite {name}")
+        errs[name] = max_err(torch, g, w)
+        check(torch.allclose(g, w, atol=tol, rtol=tol),
+              f"{what}: {name} max abs err {errs[name]} > {tol}")
+        share = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        check(share <= norm_tol,
+              f"{what}: {name} error is {share:.3e} of its norm > {norm_tol}")
+        errs[f"share_{name}"] = share
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -217,52 +262,89 @@ def flash_phase(torch, fa_ops, fa_ref) -> dict:
             print(f"flash_attention_fwd {dt_name} {c}: max_abs_err="
                   f"{err:.3e} (tol {tol})")
 
-    # timing at the serving phase's prompt lengths, bf16 causal: the mean
-    # per launch, as the main path launches each length equally often
+    # the training path's shape, bf16 causal: out and lse against the
+    # plain version (the backward check in phase 6 takes them as given)
     dt = torch.bfloat16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
-           "t_ops": 0.0}
-    for s in SERVE_PROMPTS:
-        nbytes = s * (2 * h + 2 * hkv) * hd * 2 + 4 * h * s
-        sets = [(torch.randn(1, s, h, hd, device="cuda").to(dt),
-                 torch.randn(1, s, hkv, hd, device="cuda").to(dt),
-                 torch.randn(1, s, hkv, hd, device="cuda").to(dt))
-                for _ in range(copies_for(nbytes))]
-        tot["ms"] += time_ms(
-            torch, lambda q, k, v: fa_ops.flash_attention_fwd(q, k, v), sets)
-        tot["plain_ms"] += time_ms(
-            torch, lambda q, k, v: fa_ref.flash_attention_ref(
-                q, k, v, causal=True, window=0, scale=hd ** -0.5,
-                softcap=0.0, q_offset=0), sets[:4], iters=10)
-        lib_sets = [(q.transpose(1, 2).contiguous(),
-                     k.transpose(1, 2).repeat_interleave(h // hkv, 1)
-                     .contiguous(),
-                     v.transpose(1, 2).repeat_interleave(h // hkv, 1)
-                     .contiguous()) for q, k, v in sets]
-        tot["library_ms"] += time_ms(
-            torch, lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
-        pairs = s * (s + 1) // 2
-        tot["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
-        tot["t_ops"] += 4 * hd * h * pairs / PEAK_FLOPS["bfloat16"] * 1e3
-    n = len(SERVE_PROMPTS)
-    mean = {key: val / n for key, val in tot.items()}
-    print(f"flash_attention_fwd timing: kernel {mean['ms']:.4f} ms, plain "
-          f"{mean['plain_ms']:.4f} ms, sdpa {mean['library_ms']:.4f} ms, "
-          f"bound {max(mean['t_bytes'], mean['t_ops']):.5f} ms")
+    opts = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+                q_offset=0)
+    q = torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, generator=gen,
+                    device="cuda").to(dt)
+    k = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hkv, hd, generator=gen,
+                    device="cuda").to(dt)
+    v = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hkv, hd, generator=gen,
+                    device="cuda").to(dt)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+    rout, rlse = fa_ref.flash_attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    tol = TOL["bfloat16"]
+    err = max(max_err(torch, out, rout), max_err(torch, lse, rlse))
+    check(torch.allclose(out.float(), rout.float(), atol=tol, rtol=tol)
+          and torch.allclose(lse, rlse, atol=tol, rtol=tol),
+          f"flash bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}: max abs err {err} > "
+          f"{tol}")
+    worst = max(worst, err)
+    print(f"flash_attention_fwd bfloat16 B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"(training shape): max_abs_err={err:.3e} (tol {tol})")
+    del q, k, v, out, lse, rout, rlse
+
+    # serving: the mean per launch over the prompt lengths, as the serving
+    # path launches each length equally often
+    serve = [fwd_timing(torch, fa_ops, fa_ref, 1, s, h, hkv, hd)
+             for s in SERVE_PROMPTS]
+    serve = {key: sum(t[key] for t in serve) / len(serve) for key in serve[0]}
+    serve["timed_at"] = (f"B=1 H={h} Hkv={hkv} hd={hd} bf16 causal, mean "
+                         f"over S in {list(SERVE_PROMPTS)}")
+    train = fwd_timing(torch, fa_ops, fa_ref, TRAIN_BATCH, TRAIN_SEQ, h, hkv,
+                       hd)
+    train["timed_at"] = (f"B={TRAIN_BATCH} S={TRAIN_SEQ} H={h} Hkv={hkv} "
+                         f"hd={hd} bf16 causal")
+    for path, t in (("serve", serve), ("train", train)):
+        t["bound_ms"] = max(t["t_bytes"], t["t_ops"])
+        t["bound_by"] = "bytes" if t["t_bytes"] >= t["t_ops"] else "operations"
+        print(f"flash_attention_fwd timing ({path}, {t['timed_at']}): kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
+    # the row's headline numbers are the serving shapes'; both paths'
+    # numbers are under ``timing_by_path``
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:109",
-        "max_abs_err": worst, "ms": mean["ms"], "plain_ms": mean["plain_ms"],
-        "bound_ms": max(mean["t_bytes"], mean["t_ops"]),
-        "bound_by": ("bytes" if mean["t_bytes"] >= mean["t_ops"]
-                     else "operations"),
-        "library_ms": mean["library_ms"],
-        "timed_at": f"B=1 H={h} Hkv={hkv} hd={hd} bf16 causal, mean over "
-                    f"S in {list(SERVE_PROMPTS)}",
+        "max_abs_err": worst,
+        **{key: serve[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "timed_at")},
+        "timing_by_path": {"serve": serve, "train": train},
     }
+
+
+def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd) -> dict:
+    """Kernel, plain and SDPA ms of one bf16 causal forward at (b, s), and
+    the two terms of its bound."""
+    dt = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = b * s * (2 * h + 2 * hkv) * hd * 2 + 4 * b * h * s
+    sets = [(torch.randn(b, s, h, hd, device="cuda").to(dt),
+             torch.randn(b, s, hkv, hd, device="cuda").to(dt),
+             torch.randn(b, s, hkv, hd, device="cuda").to(dt))
+            for _ in range(copies_for(nbytes))]
+    ms = time_ms(torch, lambda q, k, v: fa_ops.flash_attention_fwd(q, k, v),
+                 sets)
+    plain_ms = time_ms(
+        torch, lambda q, k, v: fa_ref.flash_attention_ref(
+            q, k, v, causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+            q_offset=0), sets[:4], iters=10)
+    lib_sets = [(q.transpose(1, 2).contiguous(),
+                 k.transpose(1, 2).repeat_interleave(h // hkv, 1)
+                 .contiguous(),
+                 v.transpose(1, 2).repeat_interleave(h // hkv, 1)
+                 .contiguous()) for q, k, v in sets]
+    library_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
+                         lib_sets)
+    pairs = b * s * (s + 1) // 2
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "t_ops": 4 * hd * h * pairs / PEAK_FLOPS["bfloat16"] * 1e3}
 
 
 # ---------------------------------------------------------------------------
@@ -411,16 +493,13 @@ def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
         nxt.cpu()
         step_ms.append((time.perf_counter() - t) * 1e3)
     step_ms.sort()
-    try:
-        profiled = {
-            "decode_step": device_share(torch, lambda: sched.decode_step(
-                sched.params, sched.cache, toks, pos)[0].cpu(), 5),
-            "prefill_700": device_share(torch, lambda: int(sched.prefill_step(
-                sched.params, {"tokens": p700},
-                bundle.init_cache(1, SERVE_MAX_LEN, "cuda"))[0][0, 0]), 3),
-        }
-    except Exception as e:  # noqa: BLE001 - a profiler fault is reported, not fatal
-        profiled = {"not measured": repr(e)}
+    profiled = {
+        "decode_step": device_share(torch, lambda: sched.decode_step(
+            sched.params, sched.cache, toks, pos)[0].cpu(), 5),
+        "prefill_700": device_share(torch, lambda: int(sched.prefill_step(
+            sched.params, {"tokens": p700},
+            bundle.init_cache(1, SERVE_MAX_LEN, "cuda"))[0][0, 0]), 3),
+    }
     result = {
         "requests": N_REQUESTS, "tokens_generated": tokens,
         "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -449,6 +528,254 @@ def parity_phase(torch, cfg_full) -> dict:
     check(card == cpu, f"f32 greedy tokens differ: card {card} cpu {cpu}")
     print(f"parity f32: card and cpu tokens identical: {card}")
     return {"tokens": card}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: flash attention backward
+# ---------------------------------------------------------------------------
+
+def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [dict(s=96, h=4, hkv=4), dict(s=250, h=8, hkv=2),
+             dict(s=1024, h=12, hkv=4), dict(s=250, h=12, hkv=4, window=64),
+             dict(s=250, h=12, hkv=4, softcap=30.0),
+             dict(s=96, skv=128, h=12, hkv=4, q_offset=32)]
+    hd = 64
+    worst = {"dq": 0.0, "dkv": 0.0, "share_dq": 0.0, "share_dkv": 0.0}
+
+    def note(errs):
+        for key, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            worst[key] = max(worst[key], *(errs[n] for n in names))
+            worst[f"share_{key}"] = max(worst[f"share_{key}"],
+                                        *(errs[f"share_{n}"] for n in names))
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        for c in cases:
+            sq, skv = c["s"], c.get("skv", c["s"])
+            opts = dict(causal=True, window=c.get("window", 0),
+                        scale=hd ** -0.5, softcap=c.get("softcap", 0.0),
+                        q_offset=c.get("q_offset", 0))
+            q = torch.randn(2, sq, c["h"], hd, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(2, skv, c["hkv"], hd, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(2, skv, c["hkv"], hd, generator=gen,
+                            device="cuda").to(dt)
+            do = torch.randn(2, sq, c["h"], hd, generator=gen,
+                             device="cuda").to(dt)
+            out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+            got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+            want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                  **opts)
+            torch.cuda.synchronize()
+            tol = BWD_TOL[dt_name]
+            errs = bwd_close(torch, got, want, dt_name,
+                             f"flash bwd {dt_name} {c}")
+            note(errs)
+            print(f"flash_attention_bwd {dt_name} {c}: max_abs_err " +
+                  " ".join(f"{n}={e:.3e}" for n, e in errs.items()) +
+                  f" (tol {tol}, {BWD_NORM_TOL[dt_name]} of the norm)")
+
+    # the training phase's shapes, bf16 causal: checked on the first input
+    # set (whose plain backward is also the one timed), then timed
+    b, s, h, hkv, dt = TRAIN_BATCH, TRAIN_SEQ, 12, 4, torch.bfloat16
+    opts = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+                q_offset=0)
+    q_bytes, kv_bytes, row_bytes = (b * s * h * hd * 2, b * s * hkv * hd * 2,
+                                    b * h * s * 4)
+    # what each pass reads: q, do; k, v; lse, delta (out only makes delta)
+    nbytes_in = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+    sets = []
+    for _ in range(copies_for(nbytes_in + q_bytes)):
+        q = torch.randn(b, s, h, hd, device="cuda").to(dt)
+        k = torch.randn(b, s, hkv, hd, device="cuda").to(dt)
+        v = torch.randn(b, s, hkv, hd, device="cuda").to(dt)
+        do = torch.randn(b, s, h, hd, device="cuda").to(dt)
+        out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        sets.append((q, k, v, do, out, lse, delta))
+    dq_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
+                    fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  opts), sets, iters=20)
+    dkv_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
+                     fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    opts), sets, iters=20)
+    q, k, v, do, out, lse, delta = sets[0]
+    got = (fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, opts),
+           *fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, opts))
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+    torch.cuda.synchronize()
+    errs = bwd_close(torch, got, want, "bfloat16",
+                     f"flash bwd bfloat16 B={b} S={s} (training shape)")
+    note(errs)
+    print(f"flash_attention_bwd bfloat16 B={b} S={s} (training shape): "
+          "max_abs_err " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+          + f" (tol {BWD_TOL['bfloat16']}, {BWD_NORM_TOL['bfloat16']} of the "
+          "norm)")
+    del got, want
+    plain_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
+                       fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                      **opts),
+                       sets[:1], iters=3)
+    # library yardstick: SDPA's backward (both passes and its own delta)
+    # with the KV heads expanded outside the timed call
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = []
+    for q, k, v, do, *_ in sets:
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt = k.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous() \
+            .requires_grad_(True)
+        vt = v.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous() \
+            .requires_grad_(True)
+        lib.append((sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt),
+                    do.transpose(1, 2).contiguous()))
+    library_ms = time_ms(torch, lambda o, ins, g: torch.autograd.grad(
+        o, ins, g, retain_graph=True), lib, iters=20)
+    del lib, sets
+
+    pairs = b * h * s * (s + 1) // 2
+    rows = []
+    for name, ms, products, out_bytes, line in (
+            ("dq", dq_ms, 3, q_bytes, 298),
+            ("dkv", dkv_ms, 4, 2 * kv_bytes, 329)):
+        t_bytes = (nbytes_in + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = products * 2 * hd * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+        rows.append({
+            "name": f"flash_attention_bwd_{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
+            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+            "max_norm_share": worst[f"share_{name}"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "timed_at": f"B={b} S={s} H={h} Hkv={hkv} hd={hd} bf16 causal; "
+                        "plain_ms and library_ms are the whole backward "
+                        "(dq, dk and dv in one call)",
+        })
+        print(f"flash_attention_bwd_{name} timing: kernel {ms:.4f} ms, "
+              f"plain (whole bwd) {plain_ms:.4f} ms, sdpa bwd (whole) "
+              f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: training
+# ---------------------------------------------------------------------------
+
+def train_phase(torch, cfg_full, fa_ops) -> dict:
+    from repro_torch.models.registry import build
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    cfg = cfg_full
+    bundle = build(cfg)
+    tcfg = TrainConfig()
+    state = init_train_state(bundle, tcfg, 0, "cuda")
+    step_fn = make_train_step(bundle, tcfg)
+    data = TokenStream(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  batch_size=TRAIN_BATCH, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                data.next_batch().items()} for _ in range(TRAIN_STEPS + 1)]
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    # forward + the remat recompute, unless the policy saves everything
+    recompute = cfg.remat_policy not in ("off", "everything_saveable")
+    per_step = (cfg.num_layers * (2 if recompute else 1), cfg.num_layers,
+                cfg.num_layers)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    losses, step_ms, launches = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = [c.launches for c in counters]
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append([c.launches - n for c, n in zip(counters, before)])
+        losses.append(float(metrics["loss"]))
+    totals = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated()
+
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(all(tuple(n) == per_step for n in launches),
+          f"launches per step (fwd, dq, dkv) {launches} != {per_step}")
+    check(int(state["step"]) == TRAIN_STEPS, "step counter did not advance")
+    timed = sorted(step_ms[1:])                    # step 1 is warm-up
+    median = timed[len(timed) // 2]
+
+    box = {"state": state}
+
+    def one_step():
+        box["state"], m = step_fn(box["state"], batches[-1])
+        float(m["loss"])
+
+    profiled = device_share(torch, one_step, 1)
+    result = {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "remat_policy": cfg.remat_policy, "losses": losses,
+        "step_ms": step_ms, "step_ms_median": median,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+        "peak_memory_bytes": peak,
+        "launches_per_step_fwd_dq_dkv": list(per_step),
+        "launches": dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"), totals)),
+        "profile": profiled,
+    }
+    print("train: " + json.dumps(result))
+    return result
+
+
+def train_parity_phase(torch, cfg_full) -> dict:
+    from repro_torch.models.common import map_tree, tree_leaves
+    from repro_torch.models.registry import build
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optim import clip_by_global_norm
+    from repro_torch.training.train_step import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_full.replace(dtype="float32")
+    bundle = build(cfg)
+    params = fan_in_scaled(cfg, bundle.init_params(
+        torch.Generator().manual_seed(7), "cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in TokenStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PARITY_SEQ,
+        batch_size=PARITY_BATCH, seed=1)).next_batch().items()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = map_tree(lambda t: t.to(dev), params)
+        (loss, _), grads = value_and_grad(
+            bundle, p, {k: t.to(dev) for k, t in batch.items()})
+        _, norm = clip_by_global_norm(grads, 1.0)
+        runs[dev] = (float(loss), float(norm),
+                     {k: g.cpu() for k, g in tree_leaves(grads)})
+    (l_card, n_card, g_card), (l_cpu, n_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+          f"f32 loss card {l_card} cpu {l_cpu}")
+    check(abs(n_card - n_cpu) <= 1e-4 * abs(n_cpu),
+          f"f32 grad_norm card {n_card} cpu {n_cpu}")
+    leaf_err = {}
+    for key, g in g_card.items():
+        ref = g_cpu[key]
+        leaf_err[key] = float((g - ref).norm() / ref.norm().clamp_min(1e-30))
+        check(leaf_err[key] <= 1e-3,
+              f"f32 gradient {key}: relative error {leaf_err[key]}")
+    result = {"loss": [l_card, l_cpu], "grad_norm": [n_card, n_cpu],
+              "worst_leaf_rel_err": max(leaf_err.values()),
+              "leaf_rel_err": leaf_err}
+    print(f"train parity f32: loss card {l_card:.7f} cpu {l_cpu:.7f}, "
+          f"grad_norm card {n_card:.6f} cpu {n_cpu:.6f}, worst leaf "
+          f"{result['worst_leaf_rel_err']:.3e}")
+    return result
 
 
 def main() -> int:
@@ -487,9 +814,26 @@ def main() -> int:
     cfg_full = get_config(ARCH).replace(attn_impl="pallas",
                                         decode_impl="pallas")
     served = serve_phase(torch, cfg_full, da_ops, fa_ops)
-    kernels[0]["launches"] = served["decode_launches"]
-    kernels[1]["launches"] = served["flash_launches"]
     parity = parity_phase(torch, cfg_full)
+    kernels += flash_bwd_phase(torch, fa_ops, fa_ref)
+    trained = train_phase(torch, cfg_full, fa_ops)
+    train_parity = train_parity_phase(torch, cfg_full)
+    # launches on each main path (serving, training), each counted from 0
+    by_path = {
+        "decode_attention": {"serve": served["decode_launches"]},
+        "flash_attention_fwd": {"serve": served["flash_launches"],
+                                "train": trained["launches"][
+                                    "flash_attention_fwd"]},
+        "flash_attention_bwd_dq": {"train": trained["launches"][
+            "flash_attention_bwd_dq"]},
+        "flash_attention_bwd_dkv": {"train": trained["launches"][
+            "flash_attention_bwd_dkv"]},
+    }
+    for kern in kernels:
+        kern["launches_by_path"] = by_path[kern["name"]]
+        kern["launches"] = sum(by_path[kern["name"]].values())
+        check(kern["launches"] > 0, f"{kern['name']} never launched on a "
+                                    "main path")
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -497,7 +841,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "device": device, "kernels": kernels,
-         "serve": served, "parity": parity}, indent=1))
+         "serve": served, "parity": parity, "train": trained,
+         "train_parity": train_parity}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

@@ -111,13 +111,18 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def require_aligned_rows(name: str, t) -> None:
-    """The kernels read rows of ``t`` with 16-byte loads: unit stride on the
-    last dim, every other stride a multiple of 16 bytes, and a 16-byte
-    aligned base."""
+def rows_aligned(t) -> bool:
+    """Whether the kernels can read rows of ``t`` with 16-byte loads: unit
+    stride on the last dim, every other stride a multiple of 16 bytes, and
+    a 16-byte aligned base."""
     vec = 16 // t.element_size()
-    if (t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1])
-            or t.data_ptr() % 16):
+    return (t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def require_aligned_rows(name: str, t) -> None:
+    """Raise unless :func:`rows_aligned`."""
+    if not rows_aligned(t):
         raise ValueError(f"{name} must have unit stride on its last dim and "
                          f"16-byte aligned rows; strides {t.stride()}")
 

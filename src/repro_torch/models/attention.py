@@ -4,9 +4,11 @@ Counterpart of ``repro.models.attention``. Implementations
 (``cfg.attn_impl``):
 
 * ``direct``  — one einsum; the right choice for short sequences.
-* ``pallas``  — the hand-written flash-attention forward kernel
-                (:mod:`repro_torch.kernels.flash_attention`); the name is
-                the reference's, so one config drives both packages.
+* ``pallas``  — the hand-written flash-attention kernels
+                (:mod:`repro_torch.kernels.flash_attention`): the forward,
+                and the dq and dk/dv passes when autograd takes a
+                gradient; the name is the reference's, so one config
+                drives both packages.
 * ``chunked`` — waits for a later slice of the port.
 
 The KV cache is updated in place: :func:`attn_decode` and
@@ -137,9 +139,9 @@ def _chunked_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
 
 def _kernel_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
                       window) -> torch.Tensor:
-    """The flash-attention forward kernel (``attn_impl='pallas'``); only
-    causal attention over the sequence itself takes it, as in the
-    reference."""
+    """The flash-attention kernels (``attn_impl='pallas'``), differentiable
+    through their autograd Function; only causal attention over the
+    sequence itself takes them, as in the reference."""
     if not causal:
         return _chunked_attention(cfg, q, k, v, q_pos, k_pos, causal=causal,
                                   window=window)

@@ -22,6 +22,8 @@ from typing import Any, Callable, Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 # ---------------------------------------------------------------------------
 # Devices
@@ -323,3 +325,85 @@ _ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return _ACTS[name]
+
+
+# ---------------------------------------------------------------------------
+# Remat policy resolution
+# ---------------------------------------------------------------------------
+
+#: per policy name, the aten ops whose outputs the backward keeps: ()
+#: keeps none (full recompute), None keeps everything (no recompute).
+#: ``dots_with_no_batch_dims_saveable`` keeps the matmuls without a batch
+#: dimension (``mm``/``addmm``), ``dots_saveable`` the batched ones too.
+_SAVED_OPS: dict[str, tuple[str, ...] | None] = {
+    "none": (),
+    "nothing_saveable": (),
+    "dots_saveable": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "everything_saveable": None,
+}
+
+
+def remat_policy(name: str) -> tuple[str, ...] | None:
+    """The aten ops whose outputs the named policy saves (see
+    ``_SAVED_OPS``); the names are the reference's."""
+    if name not in _SAVED_OPS:
+        raise ValueError(f"unknown remat policy {name!r}; options "
+                         f"{sorted(_SAVED_OPS)}")
+    return _SAVED_OPS[name]
+
+
+def _saving(op_names: tuple[str, ...]) -> Callable[[], Any]:
+    """A ``context_fn`` for :func:`checkpoint` that saves the outputs of
+    the named aten ops and recomputes the rest."""
+    ops = {getattr(torch.ops.aten, n).default for n in op_names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def maybe_remat(fn: Callable, policy_name: str) -> Callable:
+    """``fn`` under activation checkpointing by the named policy (``off``
+    and ``everything_saveable``: ``fn`` itself). Remat changes what the
+    backward recomputes, never a value."""
+    saved = None if policy_name == "off" else remat_policy(policy_name)
+    if saved is None:
+        return fn
+    kw = {"context_fn": _saving(saved)} if saved else {}
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy loss with padded-vocab masking
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(
+    logits: torch.Tensor,              # (B, S, Vp) any float dtype
+    labels: torch.Tensor,              # (B, S) integer
+    mask: torch.Tensor | None,         # (B, S) float/bool, 1 = contributes
+    vocab_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over masked tokens; padded vocab entries are neutralised.
+    Returns (loss, denom = max(sum(mask), 1)), both fp32."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vp != vocab_size:
+        pad_bias = torch.where(
+            torch.arange(vp, device=logits.device) < vocab_size, 0.0, -1e30)
+        logits = logits + pad_bias
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    total = (nll * mask).sum()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    return total / denom, denom

@@ -7,9 +7,10 @@ entry points the scheduler drives:
     decode_fn(params, cache, tokens, pos)   -> (logits, cache)
     init_cache(batch_size, max_len, device) -> cache dict
     init_params(generator, device)          -> parameter dict
+    loss_fn(params, batch)                  -> (loss, metrics)
 
-``loss_fn`` comes with the training slice; the hybrid, ssm and audio
-families, MoE and the VLM prefix with theirs.
+The hybrid, ssm and audio families, MoE and the VLM prefix come with
+their slices.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class ModelBundle:
     specs: Any
     prefill_fn: Callable
     decode_fn: Callable
+    loss_fn: Callable
 
     def init_params(self, generator: torch.Generator | int,
                     device: str | torch.device | None = None) -> Any:
@@ -60,4 +62,5 @@ def build(cfg: ModelConfig) -> ModelBundle:
         prefill_fn=lambda p, b, c: transformer.lm_prefill(cfg, p, b, c),
         decode_fn=lambda p, c, t, pos: transformer.lm_decode_step(
             cfg, p, c, t, pos),
+        loss_fn=lambda p, b: transformer.lm_loss(cfg, p, b),
     )

@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.models.transformer``. The layer stack is a Python
 loop over parameters stacked along a leading ``layers`` dimension (the
-reference scans over it). The KV cache is updated in place. Training
-(``lm_loss``), MoE layers and the VLM patch prefix wait for later slices
-of the port.
+reference scans over it), each layer under the config's remat policy.
+The KV cache is updated in place. MoE layers and the VLM patch prefix wait
+for later slices of the port.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -19,7 +20,9 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     layer_slice,
+    maybe_remat,
     rms_norm,
+    softmax_cross_entropy,
     stack_specs,
 )
 
@@ -88,7 +91,33 @@ def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any],
 
 
 # ---------------------------------------------------------------------------
-# Full forward
+# Layer stack
+# ---------------------------------------------------------------------------
+
+def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Pre-norm block."""
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    x = x + cfg.residual_multiplier * attn.attn_forward(
+        cfg, lp["attn"], h, positions, causal=True)
+    return _mlp_residual(cfg, lp, x)
+
+
+def _stack_forward(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
+                   positions: torch.Tensor) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Every layer, each under ``cfg.remat_policy``. Returns (x, aux_loss);
+    dense layers add no auxiliary loss."""
+    body = maybe_remat(
+        lambda h, lp: _layer_forward(cfg, lp, h, positions),
+        cfg.remat_policy)
+    for i in range(cfg.num_layers):
+        x = body(x, layer_slice(params["layers"], i))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Full forward / loss
 # ---------------------------------------------------------------------------
 
 def lm_forward(cfg: ModelConfig, params: dict[str, Any],
@@ -97,13 +126,56 @@ def lm_forward(cfg: ModelConfig, params: dict[str, Any],
     _require_dense(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], i)
-        hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        x = x + cfg.residual_multiplier * attn.attn_forward(
-            cfg, lp["attn"], hn, positions, causal=True)
-        x = _mlp_residual(cfg, lp, x)
+    x, _ = _stack_forward(cfg, params, x, positions)
     return lm_logits(cfg, params, x)
+
+
+def _chunked_ce(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor | None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streamed CE: each sequence chunk's logits are computed under a
+    checkpoint, so the (B, S, Vp) fp32 tensor never exists. The loss is
+    the sum of the chunks' unnormalised sums over the sum of their
+    denominators, as in the reference."""
+    b, s, _ = x.shape
+    c = min(cfg.ce_chunk, s)
+    while s % c:
+        c //= 2
+
+    def chunk_loss(xi, li, mi):
+        logits = lm_logits(cfg, params, xi)
+        loss, denom = softmax_cross_entropy(logits, li, mi, cfg.vocab_size)
+        return loss * denom, denom                       # un-normalised sum
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        mi = (mask[:, i:i + c] if mask is not None
+              else torch.ones((b, c), dtype=torch.float32, device=x.device))
+        ls, dn = checkpoint(chunk_loss, x[:, i:i + c], labels[:, i:i + c],
+                            mi, use_reentrant=False)
+        tot, den = tot + ls, den + dn
+    return tot / torch.clamp_min(den, 1.0), den
+
+
+def lm_loss(cfg: ModelConfig, params: dict[str, Any],
+            batch: dict[str, torch.Tensor]
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(CE + 0.01 aux, {ce_loss, aux_loss, tokens}) over ``batch``'s
+    tokens, labels and optional mask."""
+    _require_dense(cfg)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    x = embed_tokens(cfg, params, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = _stack_forward(cfg, params, x, positions)
+    if cfg.ce_chunk:
+        loss, denom = _chunked_ce(cfg, params, x, labels, mask)
+    else:
+        loss, denom = softmax_cross_entropy(lm_logits(cfg, params, x),
+                                            labels, mask, cfg.vocab_size)
+    total = loss + 0.01 * aux
+    return total, {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ Run on a machine with the card:
 
 Imports neither JAX nor ``repro``: the machine with the card has no JAX.
 Each kernel is held against its plain version on the same CUDA inputs at
-the reference's tolerances (bf16 2e-2, f32 5e-5).
+the reference's tolerances (bf16 2e-2, f32 5e-5; the backward passes at
+f32 1e-4, given the same out, lse and do).
 """
 
 import pytest
@@ -16,11 +17,15 @@ import torch
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+from repro_torch.models.common import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -92,11 +97,79 @@ def test_flash_kernel_matches_plain_version(cuda, sq, skv, opts, dtype):
     torch.testing.assert_close(lse, rlse, atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def test_flash_kernel_refuses_a_gradient(cuda):
-    q = torch.zeros(1, 8, 4, 32, device=cuda, requires_grad=True)
-    k = torch.zeros(1, 8, 2, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa_ops.flash_attention(q, k, k)
+@pytest.mark.parametrize("b,sq,skv,h,hkv,hd,opts", [
+    (2, 96, 96, 4, 4, 32, {}),                         # MHA
+    (1, 250, 250, 8, 2, 64, {}),                       # GQA 4x, ragged
+    (2, 250, 250, 12, 4, 64, {"window": 64}),          # G = 3
+    (1, 130, 130, 12, 4, 128, {"softcap": 30.0}),
+    (2, 37, 42, 12, 4, 64, {"q_offset": 5}),
+    (1, 40, 70, 4, 2, 64, {"q_offset": 30, "window": 16}),
+    (1, 1024, 1024, 12, 4, 64, {}),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, skv, h, hkv, hd,
+                                               opts, dtype):
+    """Both backward passes against ``flash_attention_bwd_ref`` given the
+    same out, lse and do (fp32 1e-4, bf16 2e-2 abs+rel), and each output's
+    error as a share of its norm (fp32 1e-4, bf16 1e-2)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, (b, sq, h, hd), dtype, cuda)
+    k = _randn(gen, (b, skv, hkv, hd), dtype, cuda)
+    v = _randn(gen, (b, skv, hkv, hd), dtype, cuda)
+    do = _randn(gen, (b, sq, h, hd), dtype, cuda)
+    full = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+                q_offset=0) | opts
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, **full)
+    before = (fa_ops.flash_attention_bwd_dq.launches,
+              fa_ops.flash_attention_bwd_dkv.launches)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **full)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_bwd_dq.launches,
+            fa_ops.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, **full)
+    tol = BWD_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+        share = (g.float() - w.float()).norm() / w.float().norm()
+        assert share <= BWD_NORM_TOL[dtype], (name, float(share))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Reduced aiida-demo-110m in float32 through the kernels (card) and
+    the plain versions (CPU): a train step's loss and gradients from the
+    same parameters and batch agree (loss 1e-4, each leaf 1e-3 of its
+    norm)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build
+    from repro_torch.training.train_step import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("aiida-demo-110m").replace(
+        dtype="float32", attn_impl="pallas")
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 65), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = bundle.init_params(0, dev)
+        fwd = fa_ops.flash_attention_fwd.launches
+        (loss, _), grads = value_and_grad(
+            bundle, params, {k: t.to(dev) for k, t in batch.items()})
+        if dev.type == "cuda":
+            assert fa_ops.flash_attention_fwd.launches - fwd == \
+                2 * cfg.num_layers   # forward + remat recompute
+        runs.append((loss.cpu(), {k: g.cpu() for k, g in
+                                  tree_leaves(grads)}))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    torch.testing.assert_close(l_card, l_cpu, atol=0, rtol=1e-4)
+    for key, g in g_card.items():
+        err = float((g - g_cpu[key]).norm() / g_cpu[key].norm().clamp_min(
+            1e-30))
+        assert err < 1e-3, f"{key}: relative error {err}"
 
 
 def test_served_tokens_match_the_cpu(cuda):

@@ -20,7 +20,9 @@ from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_fref
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_bwd,
                                                      flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -310,3 +312,124 @@ def test_flash_attention_rejects_bad_inputs():
         flash_attention(q, torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32))
     with pytest.raises(ValueError, match="cuda"):
         flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward
+# ---------------------------------------------------------------------------
+
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+BWD_CASES = [
+    # the shapes of the reference's forward sweep (tests/test_kernels.py)
+    dict(b=1, s=64, h=4, hkv=4, hd=32),                  # MHA
+    dict(b=2, s=128, h=8, hkv=2, hd=64),                 # GQA 4x
+    dict(b=1, s=96, h=6, hkv=1, hd=32),                  # MQA, non-pow2
+    dict(b=1, s=96, h=12, hkv=4, hd=64, window=32),      # G = 3, window
+    dict(b=1, s=64, h=4, hkv=2, hd=32, softcap=5.0),
+    dict(b=1, s=32, skv=64, h=4, hkv=2, hd=32, q_offset=32),
+]
+
+
+def _bwd_inputs(rng, c, dtype):
+    skv = c.get("skv", c["s"])
+    std = 2.0 if c.get("softcap") else 1.0
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(
+        rng, c["b"], c["s"], skv, c["h"], c["hkv"], c["hd"], dtype, std=std)
+    jdo, tdo = _pair(rng.normal(0, 1, (c["b"], c["s"], c["h"], c["hd"])),
+                     dtype)
+    opts = dict(causal=True, window=c.get("window", 0),
+                scale=c["hd"] ** -0.5, softcap=c.get("softcap", 0.0),
+                q_offset=c.get("q_offset", 0))
+    return (jq, jk, jv, jdo), (tq, tk, tv, tdo), opts
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_reference_kernel(case, dtype):
+    """The port's backward (plain version on CPU tensors) against the
+    reference's two backward kernels in interpret mode, on the same out,
+    lse and do."""
+    rng = np.random.default_rng(17)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo), opts = _bwd_inputs(rng, case,
+                                                             dtype)
+    out, lse = flash_attention_fwd(tq, tk, tv, **opts)
+    got = flash_attention_bwd(tq, tk, tv, out, lse, tdo, **opts)
+    j_out = jnp.asarray(out.float().numpy(), J_DT[dtype])
+    want = j_flash_kernel.flash_attention_bwd(
+        jq, jk, jv, j_out, jnp.asarray(lse.numpy()), jdo, block_q=32,
+        block_kv=32, interpret=True, **opts)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(_np(g), _np(w), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (1, 3, 5)],
+                         ids=lambda c: "-".join(f"{k}{v}"
+                                                for k, v in c.items()))
+def test_flash_attention_autograd_matches_reference_vjp(case):
+    """Gradients through the port's autograd Function against the
+    reference's custom VJP (atol 1e-3, the reference's own gradient test)."""
+    rng = np.random.default_rng(18)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo), opts = _bwd_inputs(rng, case,
+                                                             "float32")
+    _, vjp = jax.vjp(lambda q, k, v: j_flash(q, k, v, block_q=32,
+                                             block_kv=32, **opts),
+                     jq, jk, jv)
+    want = vjp(jdo)
+    ts = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    got = torch.autograd.grad(flash_attention(*ts, **opts), ts, tdo)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
+
+
+@pytest.mark.parametrize("s,opts", [(100, {}), (100, {"window": 30}),
+                                    (37, {"softcap": 4.0}),
+                                    (61, {"q_offset": 9})])
+def test_flash_attention_bwd_ragged_matches_autograd(s, opts):
+    """Lengths no 32-row tile divides (the reference shrinks its tiles
+    there): the Function's gradients equal torch autograd through the
+    plain forward."""
+    rng = np.random.default_rng(19)
+    _, (tq, tk, tv) = _flash_inputs(rng, 2, s, s + opts.get("q_offset", 0),
+                                    12, 4, 64, "float32")
+    tdo = torch.from_numpy(rng.normal(0, 1, tq.shape).astype(np.float32))
+    full = dict(causal=True, window=0, scale=0.125, softcap=0.0,
+                q_offset=0) | opts
+    ts = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    got = torch.autograd.grad(flash_attention(*ts, **full), ts, tdo)
+    rs = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    want = torch.autograd.grad(flash_attention_ref(*rs, **full)[0], rs, tdo)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_bwd_takes_an_expanded_cotangent():
+    """``.sum()`` hands the backward a stride-0 cotangent; the result
+    equals the one for a materialised cotangent of ones."""
+    rng = np.random.default_rng(20)
+    _, (tq, tk, tv) = _flash_inputs(rng, 1, 40, 40, 4, 2, 32, "float32")
+    ts = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    flash_attention(*ts).sum().backward()
+    ones = torch.ones_like(tq)
+    want = torch.autograd.grad(flash_attention(tq.requires_grad_(True), tk,
+                                               tv), tq, ones)[0]
+    torch.testing.assert_close(ts[0].grad, want)
+
+
+def test_flash_attention_bwd_keyless_rows_give_zero():
+    """A negative q_offset leaves early rows with no live key: lse = -inf
+    there, and the backward gives p = 0, never NaN."""
+    rng = np.random.default_rng(21)
+    _, (tq, tk, tv) = _flash_inputs(rng, 1, 16, 16, 4, 2, 32, "float32")
+    tdo = torch.ones_like(tq)
+    opts = dict(causal=True, window=0, scale=32 ** -0.5, softcap=0.0,
+                q_offset=-4)
+    out, lse = flash_attention_fwd(tq, tk, tv, **opts)
+    assert torch.isinf(lse[..., :4]).all()
+    dq, dk, dv = flash_attention_bwd(tq, tk, tv, out, lse, tdo, **opts)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all()
+    assert (dq[:, :4] == 0).all()

@@ -235,6 +235,7 @@ IMPORT_PROG = textwrap.dedent("""
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
     print("MODULES", len(names))
+    print("NAMES", " ".join(names))
     print("BAD", bad)
 """)
 
@@ -248,6 +249,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES")[1].split()[0])
     assert n >= 25, proc.stdout
+    names = proc.stdout.split("NAMES")[1].split("\n")[0].split()
+    for mod in ("training.data", "training.optim", "training.train_step",
+                "training.checkpoint", "launch.train"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
