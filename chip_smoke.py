@@ -36,7 +36,22 @@ then:
 8. takes one full-width float32 train step's gradients on the card and on
    the CPU (plain versions) from the same parameters and batch, and holds
    loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
-   norm) together.
+   norm) together;
+9. holds the RG-LRU scan kernel against its plain sequential version
+   (B in 1/4, S in 1/37/1000/4096, D in 48/96/2560, fp32 and bf16 inputs,
+   nonzero h0; 5e-5) and its backward (the reversed scan, through the
+   autograd Function) against autograd of the plain version at
+   (2, 1024, 2560) and (3, 333, 100) (1e-4), and times kernel and plain
+   version at the prefill shape (4, 4096, 2560);
+10. serves ``recurrentgemma-2b`` at full width and depth (26 layers, bf16,
+   random weights from a seed, the config's chunked attention over a
+   2048-slot ring, the scan kernel): 4 prompts of 4096 tokens, 64 greedy
+   tokens each, through the serving steps; checks 18 scan launches in
+   the prefill and none in the decode steps; prints prefill and decode
+   times, tokens/s, peak memory and a profiled prefill and decode step;
+11. serves the first 3 layers of the same parameters in float32 on the
+   card and on the CPU (2 prompts of 2560 tokens, past the window, 8 new
+   tokens) and requires identical greedy tokens.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -71,6 +86,12 @@ SERVE_PROMPTS = (96, 250, 511, 700)
 N_REQUESTS = 8
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
 PARITY_BATCH, PARITY_SEQ = 2, 256
+
+HYBRID = "recurrentgemma-2b"
+RG_D = 2560                        # its d_rnn
+SERVE_RG_BATCH, SERVE_RG_PROMPT, SERVE_RG_NEW = 4, 4096, 64
+PARITY_RG_BATCH, PARITY_RG_PROMPT, PARITY_RG_NEW, PARITY_RG_LAYERS = \
+    2, 2560, 8, 3
 
 
 class SmokeFailure(RuntimeError):
@@ -364,12 +385,19 @@ def fan_in_scaled(cfg, params):
     kernel routes of the same package disagree on the first token. With
     fan-in-scaled projections identical greedy tokens test the port,
     not that amplification."""
-    attn = params["layers"]["attn"]
-    for name in ("wq", "wk", "wv"):
-        attn[name] = attn[name] * (attn[name].shape[-2] / cfg.d_model) ** 0.5
-    attn["wo"] = attn["wo"] * (attn["wo"].shape[-2]
-                               / (cfg.num_heads * cfg.hd)) ** 0.5
+    params["layers"]["attn"] = _scaled_attn(cfg, params["layers"]["attn"])
     return params
+
+
+def _scaled_attn(cfg, attn):
+    """A copy of one attention parameter dict (stacked or not) with the
+    projections rescaled as :func:`fan_in_scaled` says."""
+    out = dict(attn)
+    for name in ("wq", "wk", "wv"):
+        out[name] = attn[name] * (attn[name].shape[-2] / cfg.d_model) ** 0.5
+    out["wo"] = attn["wo"] * (attn["wo"].shape[-2]
+                              / (cfg.num_heads * cfg.hd)) ** 0.5
+    return out
 
 
 def serve(torch, cfg, prompts, new_tokens, batch, device, seed=0):
@@ -414,11 +442,33 @@ def device_share(torch, fn, n: int) -> dict:
                if getattr(e, "device_type", None) == DeviceType.CUDA]
     evs = kernels or [e for e in prof.key_averages() if dev_us(e) > 0]
     device = sum(dev_us(e) for e in evs) / 1e3 / n
-    top = sorted(evs, key=dev_us, reverse=True)[:6]
+    top, by_kind = {}, {}
+    for e in sorted(evs, key=dev_us, reverse=True):
+        ms = dev_us(e) / 1e3 / n
+        if len(top) < 8 or e.key[:60] in top:
+            top[e.key[:60]] = top.get(e.key[:60], 0.0) + ms
+        by_kind[kernel_kind(e.key)] = by_kind.get(kernel_kind(e.key), 0.0) + ms
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
             "launches_per_run": sum(e.count for e in evs) / n,
-            "top_device_ms": {e.key[:60]: dev_us(e) / 1e3 / n for e in top}}
+            "top_device_ms": top, "device_ms_by_kind": by_kind}
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind, by its name: one of the port's kernels,
+    a matmul (cuBLAS), elementwise, a reduction, or other."""
+    low = name.lower()
+    for kind in ("decode_attention", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv", "rglru_scan"):
+        if kind in low:
+            return kind
+    if any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
+        return "matmul"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduction"
+    return "other"
 
 
 def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
@@ -778,6 +828,278 @@ def train_parity_phase(torch, cfg_full) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def rglru_phase(torch, rg_ops, rg_ref) -> dict:
+    """The scan kernel against the plain sequential scan: a forward sweep
+    (B, S, D, fp32 and bf16 inputs, nonzero h0; 5e-5 abs and rel), the
+    backward through the autograd Function against autograd through the
+    plain version (1e-4), then kernel and plain timed at the prefill
+    shape."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def inputs(b, s, d, dt, g=gen):
+        a = (0.5 + 0.5 * torch.rand(b, s, d, generator=g, device="cuda"))
+        x = torch.randn(b, s, d, generator=g, device="cuda")
+        h0 = torch.randn(b, d, generator=g, device="cuda")
+        return a.to(dt), x.to(dt), h0
+
+    worst = 0.0
+    tol = TOL["float32"]
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for b in (1, 4):
+            for s in (1, 37, 1000, 4096):
+                for d in (48, 96, RG_D):
+                    a, x, h0 = inputs(b, s, d, dt)
+                    hs, h_last = rg_ops.rglru_scan(a, x, h0)
+                    rhs, rh_last = rg_ref.rglru_scan_ref(a, x, h0)
+                    torch.cuda.synchronize()
+                    err = max(max_err(torch, hs, rhs),
+                              max_err(torch, h_last, rh_last))
+                    check(hs.dtype == torch.float32 and hs.shape == (b, s, d)
+                          and h_last.shape == (b, d),
+                          f"rglru {dt_name} {(b, s, d)}: outputs "
+                          f"{hs.dtype} {tuple(hs.shape)} "
+                          f"{tuple(h_last.shape)}")
+                    check(torch.allclose(hs, rhs, atol=tol, rtol=tol)
+                          and torch.allclose(h_last, rh_last, atol=tol,
+                                             rtol=tol),
+                          f"rglru {dt_name} {(b, s, d)}: max abs err {err} "
+                          f"> {tol}")
+                    worst = max(worst, err)
+        print(f"rglru_scan {dt_name} forward sweep B in (1, 4), S in (1, 37, "
+              f"1000, 4096), D in (48, 96, {RG_D}): max_abs_err so far "
+              f"{worst:.3e} (tol {tol})")
+
+    # backward: the kernel's autograd Function (forward scan, reversed scan)
+    # against autograd through the plain loop, for random cotangents
+    btol = BWD_TOL["float32"]
+    bwd_worst = 0.0
+    for b, s, d in ((2, 1024, RG_D), (3, 333, 100)):
+        a, x, h0 = inputs(b, s, d, torch.float32)
+        ghs = torch.randn(b, s, d, generator=gen, device="cuda")
+        ghl = torch.randn(b, d, generator=gen, device="cuda")
+        grads = []
+        for fn in (rg_ops.rglru_scan, rg_ref.rglru_scan_ref):
+            ins = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+            hs, h_last = fn(*ins)
+            grads.append(torch.autograd.grad(
+                (hs * ghs).sum() + (h_last * ghl).sum(), ins))
+        torch.cuda.synchronize()
+        for name, g, w in zip(("da", "dx", "dh0"), *grads):
+            err = max_err(torch, g, w)
+            check(torch.allclose(g, w, atol=btol, rtol=btol),
+                  f"rglru bwd {(b, s, d)}: {name} max abs err {err} > {btol}")
+            bwd_worst = max(bwd_worst, err)
+        print(f"rglru_scan backward {(b, s, d)}: max_abs_err {bwd_worst:.3e} "
+              f"(tol {btol})")
+
+    # timing at the prefill shape: fp32 a and bx, as rglru_gates gives them
+    b, s, d = SERVE_RG_BATCH, SERVE_RG_PROMPT, RG_D
+    elems = b * s * d
+    nbytes = 12 * elems + 8 * b * d       # a, x in; hs out; h0 in, h_last out
+    sets = [inputs(b, s, d, torch.float32, None)
+            for _ in range(copies_for(8 * elems))]
+    ms = time_ms(torch, rg_ops.rglru_scan, sets, iters=20)
+    plain_ms = time_ms(torch, rg_ref.rglru_scan_ref, sets[:1], iters=2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * elems / PEAK_FLOPS["float32"] * 1e3
+    del sets
+    print(f"rglru_scan timing (B={b} S={s} D={d} fp32): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms, "
+          "library none")
+    return {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:52",
+        "max_abs_err": worst, "bwd_max_abs_err": bwd_worst,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no single PyTorch call computes a linear recurrence
+        "library_ms": None,
+        "timed_at": f"B={b} S={s} D={d} fp32 a and x",
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: hybrid (recurrentgemma-2b) serving
+# ---------------------------------------------------------------------------
+
+def hybrid_params(torch, cfg):
+    """fp32 master parameters of ``cfg`` on the host, from a seed. Drawn
+    once: the serving and the parity phases both take them."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build
+
+    t = time.perf_counter()
+    params = build(cfg).init_params(torch.Generator().manual_seed(10), "cpu")
+    n = sum(p.numel() for _, p in tree_leaves(params))
+    print(f"{cfg.name} parameters: {n} (fp32, drawn on the host in "
+          f"{time.perf_counter() - t:.1f}s)")
+    return params
+
+
+def greedy(torch, bundle, params, prompts, new_tokens, max_len, device):
+    """Prefill a batch of equal-length prompts, then ``new_tokens - 1``
+    greedy decode steps, through the serving steps. Returns the
+    (B, new_tokens) tokens, the host ms of the prefill and of each decode
+    step, the rglru launches of the prefill and of the decode steps, and
+    the state the run leaves."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    cache = bundle.init_cache(len(prompts), max_len, device)
+    toks = torch.tensor(prompts, device=device)
+    n = toks.shape[1]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    before = rg_ops.rglru_scan.launches
+    t = time.perf_counter()
+    tok, cache = prefill(params, {"tokens": toks}, cache)
+    out = [tok.cpu()]                    # the host reads every step's tokens
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    mid = rg_ops.rglru_scan.launches
+    step_ms = []
+    for i in range(new_tokens - 1):
+        t = time.perf_counter()
+        tok, cache = decode(params, cache, tok.long(),
+                            torch.tensor(n + i, device=device))
+        out.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = (mid - before, rg_ops.rglru_scan.launches - mid)
+    return torch.cat(out, dim=1), prefill_ms, step_ms, launches, cache
+
+
+def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
+    """Full-width, full-depth serving in bf16: 4 prompts of 4096 tokens
+    (past the 2048-slot ring, so the prefill's ring wraps), 64 greedy
+    tokens each. Every prefill must launch the scan kernel once per RG-LRU
+    layer and no decode step may launch it."""
+    from repro_torch.models.common import cast_for_compute
+    from repro_torch.models.registry import build
+    from repro_torch.models.rglru import layer_kinds
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    bundle = build(cfg)
+    n_rglru = layer_kinds(cfg).count("rglru")
+    t = time.perf_counter()
+    dev_params = cast_for_compute(params, cfg.activation_dtype,
+                                  torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"hybrid weights on the card in {time.perf_counter() - t:.1f}s")
+    gen = torch.Generator().manual_seed(11)
+    prompts = torch.randint(1, cfg.vocab_size,
+                            (SERVE_RG_BATCH, SERVE_RG_PROMPT),
+                            generator=gen).tolist()
+    max_len = SERVE_RG_PROMPT + SERVE_RG_NEW
+    # warm-up (library handles, allocator) outside the counted run
+    greedy(torch, bundle, dev_params, [p[:512] for p in prompts], 2, 1024,
+           "cuda")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
+        torch, bundle, dev_params, prompts, SERVE_RG_NEW, max_len, "cuda")
+    wall = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(tuple(tokens.shape) == (SERVE_RG_BATCH, SERVE_RG_NEW),
+          f"hybrid tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "a generated token is out of vocab")
+    check(pre_l == n_rglru,
+          f"rglru launches per prefill {pre_l} != {n_rglru}")
+    check(dec_l == 0,
+          f"rglru launches in {SERVE_RG_NEW - 1} decode steps {dec_l} != 0")
+    check(launches["rglru_scan"] == n_rglru,
+          f"rglru launches in the run {launches['rglru_scan']} != {n_rglru}")
+    check(all(bool(torch.isfinite(t.float()).all()) for st in cache
+              for t in st.values()), "non-finite serving state")
+
+    # one profiled prefill, and decode steps from the state the run left
+    prefill = make_prefill_step(bundle)
+    decode = make_decode_step(bundle)
+    toks = torch.tensor(prompts, device="cuda")
+    last = tokens[:, -1:].to("cuda").long()
+    pos = torch.tensor(max_len - 1, device="cuda")
+    profiled = {
+        "prefill": device_share(torch, lambda: prefill(
+            dev_params, {"tokens": toks},
+            bundle.init_cache(SERVE_RG_BATCH, max_len, "cuda"))[0].cpu(), 1),
+        "decode_step": device_share(torch, lambda: decode(
+            dev_params, cache, last, pos)[0].cpu(), 5),
+    }
+    decode_median = sorted(step_ms)[len(step_ms) // 2]
+    result = {
+        "batch": SERVE_RG_BATCH, "prompt": SERVE_RG_PROMPT,
+        "new_tokens": SERVE_RG_NEW, "layers": cfg.num_layers,
+        "rglru_layers": n_rglru, "window": cfg.local_window,
+        "attn_impl": cfg.attn_impl, "wall_s": wall,
+        "tokens_per_s": SERVE_RG_BATCH * SERVE_RG_NEW / wall,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": SERVE_RG_BATCH * SERVE_RG_PROMPT
+        / (prefill_ms / 1e3),
+        "decode_step_ms_median": decode_median,
+        "decode_tokens_per_s": SERVE_RG_BATCH / (decode_median / 1e3),
+        "peak_memory_bytes": peak,
+        "rglru_launches_prefill": pre_l, "rglru_launches_decode": dec_l,
+        "launches": launches,
+        "first_tokens": tokens[:, :8].tolist(),
+        "profile": profiled,
+    }
+    print("hybrid serve: " + json.dumps(result))
+    return result
+
+
+def hybrid_parity_phase(torch, cfg, params) -> dict:
+    """The first Griffin unit (rglru, rglru, attn) of the same parameters
+    at full width in float32, on the card (scan kernel) and on the CPU
+    (plain versions): identical greedy tokens for prompts past the
+    window."""
+    from repro_torch.models.common import cast_for_compute
+    from repro_torch.models.registry import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.replace(num_layers=PARITY_RG_LAYERS, dtype="float32",
+                      kv_cache_dtype="float32")
+    layers = [dict(lp, kind_attn=dict(lp["kind_attn"], attn=_scaled_attn(
+        cfg, lp["kind_attn"]["attn"]))) if "kind_attn" in lp else lp
+        for lp in params["layers"][:PARITY_RG_LAYERS]]
+    sub = {"embedding": params["embedding"], "layers": layers,
+           "ln_final": params["ln_final"]}
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(12)
+    prompts = torch.randint(1, cfg.vocab_size,
+                            (PARITY_RG_BATCH, PARITY_RG_PROMPT),
+                            generator=gen).tolist()
+    max_len = PARITY_RG_PROMPT + PARITY_RG_NEW
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = cast_for_compute(sub, torch.float32, torch.device(dev))
+        runs[dev] = greedy(torch, bundle, p, prompts, PARITY_RG_NEW,
+                           max_len, dev)
+    card, cpu = runs["cuda"][0].tolist(), runs["cpu"][0].tolist()
+    check(card == cpu, f"hybrid f32 greedy tokens differ: card {card} "
+                       f"cpu {cpu}")
+    check(runs["cuda"][3] == (2, 0),
+          f"hybrid parity rglru launches (prefill, decode) "
+          f"{runs['cuda'][3]} != (2, 0)")
+    print(f"hybrid parity f32 ({PARITY_RG_LAYERS} layers, B="
+          f"{PARITY_RG_BATCH}, prompt {PARITY_RG_PROMPT}): card and cpu "
+          f"tokens identical: {card}")
+    return {"tokens": card, "prefill_ms": {d: r[1] for d, r in runs.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -796,6 +1118,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -818,6 +1142,15 @@ def main() -> int:
     kernels += flash_bwd_phase(torch, fa_ops, fa_ref)
     trained = train_phase(torch, cfg_full, fa_ops)
     train_parity = train_parity_phase(torch, cfg_full)
+    kernels.append(rglru_phase(torch, rg_ops, rg_ref))
+    cfg_rg = get_config(HYBRID).replace(use_pallas=True)
+    rg_params = hybrid_params(torch, cfg_rg)
+    counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd,
+                fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv,
+                rg_ops.rglru_scan)
+    hybrid = hybrid_serve_phase(torch, cfg_rg, rg_params, counters)
+    hybrid_parity = hybrid_parity_phase(torch, cfg_rg, rg_params)
+    del rg_params
     # launches on each main path (serving, training), each counted from 0
     by_path = {
         "decode_attention": {"serve": served["decode_launches"]},
@@ -828,6 +1161,7 @@ def main() -> int:
             "flash_attention_bwd_dq"]},
         "flash_attention_bwd_dkv": {"train": trained["launches"][
             "flash_attention_bwd_dkv"]},
+        "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
     }
     for kern in kernels:
         kern["launches_by_path"] = by_path[kern["name"]]
@@ -842,7 +1176,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "device": device, "kernels": kernels,
          "serve": served, "parity": parity, "train": trained,
-         "train_parity": train_parity}, indent=1))
+         "train_parity": train_parity, "hybrid_serve": hybrid,
+         "hybrid_parity": hybrid_parity}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

@@ -9,11 +9,15 @@ Counterpart of ``repro.models.attention``. Implementations
                 and the dq and dk/dv passes when autograd takes a
                 gradient; the name is the reference's, so one config
                 drives both packages.
-* ``chunked`` — waits for a later slice of the port.
+* ``chunked`` — online-softmax loop over KV blocks of ``attn_kv_block``
+                (flash-attention recurrence in plain PyTorch), whose
+                temporaries are ``O(S * kv_block)`` instead of ``O(S^2)``.
 
 The KV cache is updated in place: :func:`attn_decode` and
 :func:`prefill_into_cache` write into the tensors of the cache dict they
-are given (the reference returns a new pytree) and return that dict.
+are given (the reference returns a new pytree) and return that dict. With
+``window > 0`` the cache is a ring buffer: position ``pos`` lives in slot
+``pos % window``.
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.common import ModelConfig, ParamSpec, rms_norm, rope
 
 NEG_INF = -2.0e30
-
-_LATER = "waits for a later slice of the PyTorch port"
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +136,37 @@ def _direct_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
 
 def _chunked_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
                        window) -> torch.Tensor:
-    raise NotImplementedError(f"attn_impl='chunked' {_LATER}")
+    """Online-softmax loop over KV blocks; O(Sq * kv_block) temporaries.
+    The block is ``attn_kv_block``, halved until it divides Skv."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    blk = min(cfg.attn_kv_block, skv)
+    while skv % blk:
+        blk //= 2
+    # the scale is folded into q in fp32, then q is rounded back
+    qg = (q.float() * _scale(cfg, hd)).reshape(b, sq, hkv, g, hd).to(q.dtype)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    den = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(0, skv, blk):
+        kb, vb = k[:, j:j + blk], v[:, j:j + blk]
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, kb).float()
+        logits = _softcap(logits, cfg.attn_softcap)
+        logits = logits + _mask_bias(q_pos, k_pos[j:j + blk], causal=causal,
+                                     window=window)[None, None, None]
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        den = den * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkh->bkgsh", p.to(q.dtype), vb)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp_min(den[..., None], 1e-30)
+    # (b, hkv, g, sq, hd) -> (b, sq, h, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
 def _kernel_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
@@ -255,18 +287,24 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     """One-token decode. x: (B, 1, D); pos: a scalar int tensor (current
     position), or a (B,) int vector of per-row positions (continuous
     batching: each slot writes its k/v at, and attends up to, its own
-    depth). Writes the new k/v into ``cache`` in place."""
-    if window > 0:
-        raise NotImplementedError(f"ring-buffer (window > 0) decode {_LATER}")
+    depth). Writes the new k/v into ``cache`` in place.
+
+    For ``window > 0`` the cache is a ring buffer of ``window`` slots: the
+    new k/v goes to slot ``pos % window`` and keys are masked by recency.
+    Ring buffers take a scalar ``pos`` only (every row in lockstep)."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device)
     per_row = pos.dim() == 1
+    if per_row and window > 0:
+        raise ValueError("per-row decode positions are incompatible with "
+                         "ring-buffer (windowed) KV caches")
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.use_rope:
         posv = pos.reshape(-1, 1) if per_row else pos.reshape(1, 1)
         q, k = rope(q, k, posv, cfg.rope_theta)
 
-    _cache_write(cache, k, v, pos, cfg.kv_cache_dtype == "int8")
+    write_pos = pos % window if window > 0 else pos
+    _cache_write(cache, k, v, write_pos, cfg.kv_cache_dtype == "int8")
     ck, cv = _cache_read(cfg, cache)
     max_len = ck.shape[1]
     hkv, h, hd = ck.shape[2], q.shape[2], q.shape[-1]
@@ -274,15 +312,22 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     scale = _scale(cfg, hd)
 
     # Decode-kernel path: the ragged per-row lengths go straight to the
-    # kernel. Soft-capping stays on the masked-einsum path below.
-    if cfg.decode_impl == "pallas" and not cfg.attn_softcap:
+    # kernel. Ring buffers and soft-capping stay on the masked-einsum path
+    # below.
+    if cfg.decode_impl == "pallas" and window == 0 and not cfg.attn_softcap:
         kv_len = (pos if per_row else pos.expand(b)) + 1
         out = da_ops.decode_attention(q[:, 0], ck, cv, kv_len.int(),
                                       scale=float(scale))
         return _out_proj(p, out[:, None], x.dtype), cache
 
     slots = torch.arange(max_len, device=x.device)
-    if per_row:
+    if window > 0:
+        # slot -> absolute position of the entry it holds (the ring wraps)
+        cycle = (pos // window) * window
+        k_pos = torch.where(slots <= pos % window, cycle + slots,
+                            cycle - window + slots)
+        valid = (k_pos >= 0) & (k_pos > pos - window) & (k_pos <= pos)
+    elif per_row:
         valid = slots[None, :] <= pos[:, None]               # (B, Smax)
     else:
         valid = slots <= pos
@@ -303,25 +348,31 @@ def prefill_into_cache(cfg: ModelConfig, p: dict[str, torch.Tensor],
                        x: torch.Tensor, positions: torch.Tensor,
                        cache: dict[str, torch.Tensor], *, window: int = 0
                        ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Prefill attention that also writes the prompt's k/v into positions
-    [0, S) of ``cache`` in place."""
-    if window > 0:
-        raise NotImplementedError(f"ring-buffer (window > 0) prefill {_LATER}")
+    """Prefill attention that also writes the prompt's k/v into ``cache``
+    in place: into positions [0, S), or with ``window > 0`` the last
+    ``min(window, S)`` entries into their ring slots ``pos % window``."""
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.use_rope:
         q, k = rope(q, k, positions, cfg.rope_theta)
     s = x.shape[1]
-    if s > cache["k"].shape[1]:
-        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+    kc, vc, n = k, v, s
+    if window > 0:
+        # the last min(window, S) entries, put in slot order
+        n = min(window, s)
+        slot = (torch.arange(n, device=k.device) + (s - n)) % window
+        order = torch.argsort(slot)
+        kc, vc = k[:, s - n:][:, order], v[:, s - n:][:, order]
+    if n > cache["k"].shape[1]:
+        raise ValueError(f"a prompt of {n} tokens does not fit a cache of "
                          f"{cache['k'].shape[1]} positions")
     if cfg.kv_cache_dtype == "int8":
-        kq, ksc = quantize_kv(k)
-        vq, vsc = quantize_kv(v)
+        kq, ksc = quantize_kv(kc)
+        vq, vsc = quantize_kv(vc)
         upd = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
     else:
-        upd = {"k": k, "v": v}
+        upd = {"k": kc, "v": vc}
     for name, u in upd.items():
-        cache[name][:, :s] = u
+        cache[name][:, :n] = u
     out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, positions,
                                 causal=True, window=window)
     return _out_proj(p, out, x.dtype), cache

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.common``. Parameters are plain nested dicts
 of tensors keyed exactly like the reference's pytrees, with the stacked
-leading ``layers`` dimension, so a reference parameter tree maps onto the
+leading ``layers`` dimension (the hybrid keeps the reference's list of
+per-layer dicts instead), so a reference parameter tree maps onto the
 port leaf for leaf (see :mod:`repro_torch.models.convert`).
 
 * Parameters are stored in ``param_dtype`` (fp32 master copies) and used
@@ -17,6 +18,7 @@ port leaf for leaf (see :mod:`repro_torch.models.convert`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Mapping
 
@@ -192,20 +194,28 @@ SpecTree = Any       # nested dict of ParamSpec
 
 
 def map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict, keeping its keys."""
+    """Apply ``fn`` to every leaf of a nest of dicts and lists, keeping its
+    keys and list order."""
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
 def tree_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(path, leaf)`` pairs in sorted-key order, as JAX flattens dicts."""
+    """``(path, leaf)`` pairs in the order JAX flattens a tree: dicts by
+    sorted key, lists by index (the index is the path element)."""
     if isinstance(tree, Mapping):
-        out = []
-        for k in sorted(tree):
-            out.extend(tree_leaves(tree[k], f"{prefix}{k}/"))
-        return out
-    return [(prefix.rstrip("/"), tree)]
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, list):
+        items = list(enumerate(tree))
+    else:
+        return [(prefix.rstrip("/"), tree)]
+    out = []
+    for k, v in items:
+        out.extend(tree_leaves(v, f"{prefix}{k}/"))
+    return out
 
 
 def init_params(generator: torch.Generator, spec_tree: SpecTree,
@@ -237,15 +247,21 @@ def init_params(generator: torch.Generator, spec_tree: SpecTree,
     def rebuild(tree, prefix=""):
         if isinstance(tree, Mapping):
             return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [rebuild(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
         return drawn[prefix.rstrip("/")]
 
     return rebuild(spec_tree)
 
 
-#: leaves the reference keeps in fp32 at use (norm weights go through
-#: ``rms_norm``'s fp32 math); every other leaf it casts to the activation
-#: dtype at each use
-FP32_LEAVES = frozenset({"ln_attn", "ln_mlp", "ln_final", "q_norm", "k_norm"})
+#: leaves the reference keeps in fp32 at use: norm weights go through
+#: ``rms_norm``'s fp32 math, and the hybrid's RG-LRU gates (``lam``,
+#: ``w_a``, ``w_i``, ``b_a``, ``b_i``) and causal conv (``conv_w``,
+#: ``conv_b``) are read in fp32; every other leaf it casts to the
+#: activation dtype at each use
+FP32_LEAVES = frozenset({"ln_attn", "ln_mlp", "ln_final", "q_norm", "k_norm",
+                         "ln", "lam", "w_a", "w_i", "b_a", "b_i", "conv_w",
+                         "conv_b"})
 
 
 def cast_for_compute(params: ParamTree, dtype: torch.dtype,
@@ -257,6 +273,8 @@ def cast_for_compute(params: ParamTree, dtype: torch.dtype,
     def walk(tree, key=None):
         if isinstance(tree, Mapping):
             return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, key) for v in tree]
         t = tree.to(device)
         return t if key in FP32_LEAVES else t.to(dtype)
 
@@ -286,6 +304,22 @@ def layer_slice(tree: Any, i: int) -> Any:
 # ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
+
+@functools.cache
+def _rounded(c: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def mul_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x * c`` with ``c`` first rounded to ``x``'s dtype.
+
+    JAX rounds a Python scalar to the array's dtype before it multiplies
+    (a weakly typed constant); PyTorch would keep it in fp32 and round only
+    the product, which moves a bf16 result by one ulp in a fifth to a third
+    of the elements (``x * 0.22``, ``x * 2560 ** 0.5``). Rounding ``c`` on
+    the host first gives the reference's numbers and no extra kernel."""
+    return x * _rounded(float(c), x.dtype)
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype

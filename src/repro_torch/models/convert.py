@@ -2,9 +2,9 @@
 
 The port keeps the reference's keys and shapes (stacked leading ``layers``
 dim, ``wq (d, h, hd)``, ``wo (h, hd, d)``), so the bridge is a per-leaf
-copy. The reference side is a nested dict of numpy arrays (fp32 master
-copies, e.g. ``jax.tree.map(np.asarray, params)``); neither direction
-imports JAX.
+copy. The reference side is a nest of dicts (and, for the hybrid's
+layers, lists) of numpy arrays (fp32 master copies, e.g.
+``jax.tree.map(np.asarray, params)``); neither direction imports JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from repro_torch.models.common import map_tree, resolve_device
 
 def params_from_numpy(tree: Any, device: str | torch.device | None = None
                       ) -> Any:
-    """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
+    """Nest of dicts and lists of numpy arrays -> the same nest of tensors
+    on ``device``."""
     dev = resolve_device(device)
     return map_tree(
         lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)

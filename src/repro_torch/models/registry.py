@@ -5,12 +5,13 @@ entry points the scheduler drives:
 
     prefill_fn(params, batch, cache)        -> (logits, cache)
     decode_fn(params, cache, tokens, pos)   -> (logits, cache)
-    init_cache(batch_size, max_len, device) -> cache dict
+    init_cache(batch_size, max_len, device) -> cache (a dict; the hybrid's
+                                               is a list of per-layer dicts)
     init_params(generator, device)          -> parameter dict
     loss_fn(params, batch)                  -> (loss, metrics)
 
-The hybrid, ssm and audio families, MoE and the VLM prefix come with
-their slices.
+Dense LMs and the hybrid (recurrentgemma / Griffin) are built here; the
+ssm and audio families, MoE and the VLM prefix come with their slices.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import rglru, transformer
 from repro_torch.models.common import (ModelConfig, init_params,
                                        resolve_device)
 
@@ -34,6 +35,7 @@ class ModelBundle:
     prefill_fn: Callable
     decode_fn: Callable
     loss_fn: Callable
+    cache_fn: Callable         # (batch_size, max_len, device) -> cache
 
     def init_params(self, generator: torch.Generator | int,
                     device: str | torch.device | None = None) -> Any:
@@ -47,20 +49,35 @@ class ModelBundle:
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: str | torch.device | None = None) -> Any:
-        return transformer.init_lm_cache(self.cfg, batch_size, max_len,
-                                         resolve_device(device))
+        """The serving cache on ``device`` (the card when None): the
+        stacked KV cache of an LM, the per-layer state list of the
+        hybrid."""
+        return self.cache_fn(batch_size, max_len, resolve_device(device))
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family not in LM_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family waits for a later slice of the "
-            "PyTorch port")
-    return ModelBundle(
-        cfg=cfg,
-        specs=transformer.make_lm_specs(cfg),
-        prefill_fn=lambda p, b, c: transformer.lm_prefill(cfg, p, b, c),
-        decode_fn=lambda p, c, t, pos: transformer.lm_decode_step(
-            cfg, p, c, t, pos),
-        loss_fn=lambda p, b: transformer.lm_loss(cfg, p, b),
-    )
+    if cfg.family in LM_FAMILIES:
+        return ModelBundle(
+            cfg=cfg,
+            specs=transformer.make_lm_specs(cfg),
+            prefill_fn=lambda p, b, c: transformer.lm_prefill(cfg, p, b, c),
+            decode_fn=lambda p, c, t, pos: transformer.lm_decode_step(
+                cfg, p, c, t, pos),
+            loss_fn=lambda p, b: transformer.lm_loss(cfg, p, b),
+            cache_fn=lambda bsz, ml, dev: transformer.init_lm_cache(
+                cfg, bsz, ml, dev),
+        )
+    if cfg.family == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            specs=rglru.make_griffin_specs(cfg),
+            prefill_fn=lambda p, b, c: rglru.griffin_prefill(cfg, p, b, c),
+            decode_fn=lambda p, c, t, pos: rglru.griffin_decode_step(
+                cfg, p, c, t, pos),
+            loss_fn=lambda p, b: rglru.griffin_loss(cfg, p, b),
+            cache_fn=lambda bsz, ml, dev: rglru.init_griffin_state(
+                cfg, bsz, ml, dev),
+        )
+    raise NotImplementedError(
+        f"the {cfg.family!r} family waits for a later slice of the "
+        "PyTorch port")

@@ -21,6 +21,7 @@ from repro_torch.models.common import (
     ParamSpec,
     layer_slice,
     maybe_remat,
+    mul_scalar,
     rms_norm,
     softmax_cross_entropy,
     stack_specs,
@@ -68,7 +69,7 @@ def embed_tokens(cfg: ModelConfig, params: dict[str, Any],
                  tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table in the activation dtype."""
     emb = params["embedding"].to(cfg.activation_dtype)
-    return emb[tokens] * cfg.embedding_multiplier
+    return mul_scalar(emb[tokens], cfg.embedding_multiplier)
 
 
 def lm_logits(cfg: ModelConfig, params: dict[str, Any],
@@ -87,7 +88,8 @@ def lm_logits(cfg: ModelConfig, params: dict[str, Any],
 def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any],
                   h: torch.Tensor) -> torch.Tensor:
     hn = rms_norm(h, lp["ln_mlp"], cfg.norm_eps)
-    return h + cfg.residual_multiplier * mlp_mod.mlp_forward(cfg, lp["mlp"], hn)
+    return h + mul_scalar(mlp_mod.mlp_forward(cfg, lp["mlp"], hn),
+                          cfg.residual_multiplier)
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +100,9 @@ def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
     """Pre-norm block."""
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    x = x + cfg.residual_multiplier * attn.attn_forward(
-        cfg, lp["attn"], h, positions, causal=True)
+    x = x + mul_scalar(attn.attn_forward(cfg, lp["attn"], h, positions,
+                                         causal=True),
+                       cfg.residual_multiplier)
     return _mlp_residual(cfg, lp, x)
 
 
@@ -202,7 +205,7 @@ def lm_prefill(cfg: ModelConfig, params: dict[str, Any],
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         a, _ = attn.prefill_into_cache(cfg, lp["attn"], hn, positions,
                                        layer_slice(cache, i))
-        x = _mlp_residual(cfg, lp, x + cfg.residual_multiplier * a)
+        x = _mlp_residual(cfg, lp, x + mul_scalar(a, cfg.residual_multiplier))
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
@@ -218,5 +221,5 @@ def lm_decode_step(cfg: ModelConfig, params: dict[str, Any],
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         a, _ = attn.attn_decode(cfg, lp["attn"], hn, layer_slice(cache, i),
                                 pos)
-        x = _mlp_residual(cfg, lp, x + cfg.residual_multiplier * a)
+        x = _mlp_residual(cfg, lp, x + mul_scalar(a, cfg.residual_multiplier))
     return lm_logits(cfg, params, x), cache

@@ -8,7 +8,9 @@ Run on a machine with the card:
 Imports neither JAX nor ``repro``: the machine with the card has no JAX.
 Each kernel is held against its plain version on the same CUDA inputs at
 the reference's tolerances (bf16 2e-2, f32 5e-5; the backward passes at
-f32 1e-4, given the same out, lse and do).
+f32 1e-4, given the same out, lse and do). The RG-LRU scan returns fp32
+whatever its inputs, so its forward is held at 5e-5 for bf16 inputs too;
+its gradients come back in the inputs' dtype and are held at BWD_TOL.
 """
 
 import pytest
@@ -19,6 +21,8 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models.common import tree_leaves
 
 pytestmark = pytest.mark.cuda
@@ -195,4 +199,88 @@ def test_served_tokens_match_the_cpu(cuda):
             sched.submit(r)
         sched.run()
         runs.append([r.generated for r in reqs])
+    assert runs[0] == runs[1]
+
+
+def _scan_inputs(gen, b, s, d, dtype, device):
+    a = 0.5 + 0.5 * torch.rand(b, s, d, generator=gen, device=device)
+    x = torch.randn(b, s, d, generator=gen, device=device)
+    h0 = torch.randn(b, d, generator=gen, device=device)
+    return a.to(dtype), x.to(dtype), h0
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 1, 1), (2, 37, 48), (3, 17, 33),
+                                   (1, 300, 100), (2, 1000, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_plain_version(cuda, b, s, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    a, x, h0 = _scan_inputs(gen, b, s, d, dtype, cuda)
+    before = rg_ops.rglru_scan.launches
+    hs, h_last = rg_ops.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg_ops.rglru_scan.launches == before + 1
+    want_hs, want_last = rglru_scan_ref(a, x, h0)
+    assert hs.dtype == h_last.dtype == torch.float32
+    torch.testing.assert_close(hs, want_hs, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(h_last, want_last, atol=5e-5, rtol=5e-5)
+    # the reverse flag the backward uses
+    rhs, rlast = rg_ops._scan(a, x, h0, reverse=True)
+    want_hs, want_last = rglru_scan_ref(a, x, h0, reverse=True)
+    torch.testing.assert_close(rhs, want_hs, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(rlast, want_last, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 37, 48), (1, 300, 100),
+                                   (2, 1000, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_backward_matches_plain_autograd(cuda, b, s, d, dtype):
+    """The autograd Function (forward kernel, reversed-scan kernel) against
+    autograd through the plain loop, for random cotangents."""
+    gen = torch.Generator(device=cuda).manual_seed(b * s)
+    a, x, h0 = _scan_inputs(gen, b, s, d, dtype, cuda)
+    ghs = torch.randn(b, s, d, generator=gen, device=cuda)
+    ghl = torch.randn(b, d, generator=gen, device=cuda)
+    grads = []
+    for fn in (rg_ops.rglru_scan, rglru_scan_ref):
+        ins = [t.clone().requires_grad_(True) for t in (a, x, h0)]
+        hs, h_last = fn(*ins)
+        grads.append(torch.autograd.grad(
+            (hs * ghs).sum() + (h_last * ghl).sum(), ins))
+    tol = BWD_TOL[dtype]
+    for name, g, w in zip(("da", "dx", "dh0"), *grads):
+        assert g.dtype == w.dtype, name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_hybrid_served_tokens_match_the_cpu(cuda):
+    """Reduced recurrentgemma-2b in float32 with the scan kernel, a prompt
+    past the window: greedy tokens on the card equal those on the CPU,
+    and the card's prefill launched the kernel once per RG-LRU layer."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("recurrentgemma-2b").replace(
+        dtype="float32", kv_cache_dtype="float32", use_pallas=True,
+        attn_impl="chunked", attn_kv_block=16)
+    bundle = build(cfg)
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 45),
+                           generator=torch.Generator().manual_seed(3))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = bundle.init_params(0, dev)
+        before = rg_ops.rglru_scan.launches
+        tok, state = prefill(params, {"tokens": prompt.to(dev)},
+                             bundle.init_cache(2, 64, dev))
+        if dev.type == "cuda":
+            assert rg_ops.rglru_scan.launches - before == 2
+        seq = [tok.cpu()]
+        for i in range(5):
+            tok, state = decode(params, state, tok.long(),
+                                torch.tensor(45 + i, device=dev))
+            seq.append(tok.cpu())
+        runs.append(torch.cat(seq, dim=1).tolist())
     assert runs[0] == runs[1]

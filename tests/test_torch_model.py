@@ -146,7 +146,7 @@ def test_act_fn_matches(name):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
-@pytest.mark.parametrize("attn_impl", ["direct", "pallas"])
+@pytest.mark.parametrize("attn_impl", ["direct", "pallas", "chunked"])
 def test_lm_forward_matches(arch, attn_impl):
     """qk_norm (qwen3), qkv_bias + tied embeddings (qwen2), the granite
     multipliers, under both attention routes."""
@@ -252,15 +252,71 @@ def test_prefill_equals_stepwise_decode(decode_impl):
     assert seq_a == seq_b
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m",
-                                  "whisper-large-v3", "moonshot-v1-16b-a3b",
-                                  "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-large-v3",
+                                  "moonshot-v1-16b-a3b", "llava-next-34b"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="later slice"):
         build(reduced_config(arch))
 
 
-def test_routes_of_later_slices_raise():
-    (_, _, _), (cfg, _, p) = _pair_models(attn_impl="chunked")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tf.lm_forward(cfg, p, {"tokens": torch.ones(1, 4, dtype=torch.long)})
+def test_routes_of_later_slices_raise(tmp_path):
+    """The multi-device meshes wait for their slice; the launcher says so
+    before it builds anything."""
+    from repro_torch.launch.train import main
+
+    with pytest.raises(NotImplementedError, match="multi-device slice"):
+        main(["--arch", ARCH, "--reduced", "--device", "cpu",
+              "--data-mesh", "2", "--ckpt-dir", str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# bf16: constants rounded as JAX rounds them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", [0.22, 12.0, 2560 ** 0.5, 128 ** 0.5])
+def test_bf16_scalings_match_jax_element_for_element(c):
+    """JAX rounds a Python-float constant to bf16 before it multiplies a
+    bf16 array; ``mul_scalar`` must give the same bits (granite's
+    residual 0.22 and embedding 12.0, the Griffin embedding scales at full
+    and reduced width). A plain ``x * c`` in PyTorch differs in a fifth to
+    a third of the elements at 0.22 and 2560 ** 0.5."""
+    x = np.random.default_rng(0).normal(0, 1, 10_000).astype(np.float32)
+    want = np.asarray((jnp.asarray(x, jnp.bfloat16) * c).astype(jnp.float32))
+    got = common.mul_scalar(torch.from_numpy(x).bfloat16(), c)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+def test_bf16_embedding_and_residual_scaling_match_jax(arch):
+    """The embedding scalings of the dense LM (granite's multiplier) and of
+    the hybrid (sqrt(d_model)), and granite's residual branch, in bf16
+    against the reference's own code, bit for bit."""
+    from repro_torch.models import rglru as rg
+
+    jcfg = j_reduced(arch).replace(d_model=2560)
+    cfg = reduced_config(arch).replace(d_model=2560)
+    rng = np.random.default_rng(1)
+    emb = rng.normal(0, 1, (64, 2560)).astype(np.float32)
+    tokens = rng.integers(0, 64, (2, 9))
+    if arch == "granite-3-2b":
+        want = j_tf.embed_tokens(jcfg, {"embedding": jnp.asarray(emb)},
+                                 jnp.asarray(tokens))
+        got = tf.embed_tokens(cfg, {"embedding": torch.from_numpy(emb)},
+                              torch.from_numpy(tokens))
+    else:      # the reference's griffin_forward scales inline
+        want = jnp.take(jnp.asarray(emb, jnp.bfloat16), jnp.asarray(tokens),
+                        axis=0) * (jcfg.d_model ** 0.5)
+        got = rg._embed(cfg, {"embedding": torch.from_numpy(emb)},
+                        torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    # the residual branch: x + rm * a in the reference
+    x, a = (rng.normal(0, 1, (4, 2560)).astype(np.float32) for _ in range(2))
+    jx, ja = (jnp.asarray(v, jnp.bfloat16) for v in (x, a))
+    tx, ta = (torch.from_numpy(v).bfloat16() for v in (x, a))
+    want = jx + jcfg.residual_multiplier * ja
+    got = tx + common.mul_scalar(ta, cfg.residual_multiplier)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))

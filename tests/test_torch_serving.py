@@ -223,6 +223,31 @@ def test_entry_points_without_device_raise_where_there_is_no_card(
             call()
 
 
+def test_recurrent_family_rejected():
+    """Twin of tests/test_serving.py's: the scheduler splices per-slot KV
+    rows and refuses the hybrid, whose state has none."""
+    cfg = reduced_config("recurrentgemma-2b")
+    bundle = build(cfg)
+    params = bundle.init_params(0, "cpu")
+    with pytest.raises(ValueError, match="recurrent"):
+        BatchScheduler(bundle, params, batch_size=1, max_len=16,
+                       device="cpu")
+
+
+def test_hybrid_entry_points_without_device_raise_where_there_is_no_card(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = build(reduced_config("recurrentgemma-2b"))
+    for call in (lambda: b.init_params(0), lambda: b.init_cache(1, 16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # with the CPU named, they run there
+    assert b.init_params(0, "cpu")["layers"][0]["kind_rglru"]["lam"] \
+        .device.type == "cpu"
+    state = b.init_cache(2, 16, "cpu")
+    assert len(state) == 3 and state[2]["k"].shape[1] == 16
+
+
 IMPORT_PROG = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.path.insert(0, {src!r})
