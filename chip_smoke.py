@@ -51,7 +51,24 @@ then:
    times, tokens/s, peak memory and a profiled prefill and decode step;
 11. serves the first 3 layers of the same parameters in float32 on the
    card and on the CPU (2 prompts of 2560 tokens, past the window, 8 new
-   tokens) and requires identical greedy tokens.
+   tokens) and requires identical greedy tokens;
+12. holds the chunkwise mLSTM kernel against its plain chunkwise version
+   (hs at 5e-5 / 2e-2, the fp32 state at 5e-5) and the sequential oracle
+   (hs 1e-4, C 1e-3, m 1e-5, or, where the plain version is itself
+   farther, no farther than it plus the first bar) over B in 1/4, H = 4,
+   S in 1/37/96/2048 (L = 1, 37, 32, 96, 128), hd in 64/512, fp32 and
+   bf16 q/k/v, zero and nonzero carried state, and times kernel and plain
+   version at the prefill shape (4, 4, 2048, 512) bf16;
+13. serves ``xlstm-350m`` at full width and depth (24 layers, sLSTM at
+   7/15/23, bf16, random weights from a seed, the mLSTM kernel): 4
+   prompts of 2048 tokens, 32 greedy tokens each, through the serving
+   steps; checks 21 mLSTM launches in the prefill, none in the decode
+   steps and none of the other kernels; prints prefill and decode times,
+   tokens/s, peak memory and a profiled 512-token prefill and decode step;
+14. serves the first 8 layers of the same parameters (the sLSTM at 7
+   included) in float32 on the card and on the CPU (2 prompts of 1024
+   tokens, 8 new tokens) and requires identical greedy tokens (reporting
+   the top-2 logit margin where they differ).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -60,6 +77,7 @@ without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -92,6 +110,13 @@ RG_D = 2560                        # its d_rnn
 SERVE_RG_BATCH, SERVE_RG_PROMPT, SERVE_RG_NEW = 4, 4096, 64
 PARITY_RG_BATCH, PARITY_RG_PROMPT, PARITY_RG_NEW, PARITY_RG_LAYERS = \
     2, 2560, 8, 3
+
+XLSTM = "xlstm-350m"
+X_HD = 512                         # its mLSTM head dim, 2 * 1024 / 4
+SERVE_X_BATCH, SERVE_X_PROMPT, SERVE_X_NEW = 4, 2048, 32
+SERVE_X_PROFILED = 512
+PARITY_X_BATCH, PARITY_X_PROMPT, PARITY_X_NEW, PARITY_X_LAYERS = \
+    2, 1024, 8, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -459,7 +484,7 @@ def kernel_kind(name: str) -> str:
     a matmul (cuBLAS), elementwise, a reduction, or other."""
     low = name.lower()
     for kind in ("decode_attention", "flash_fwd", "flash_bwd_dq",
-                 "flash_bwd_dkv", "rglru_scan"):
+                 "flash_bwd_dkv", "rglru_scan", "mlstm_chunk"):
         if kind in low:
             return kind
     if any(t in low for t in ("nvjet", "gemm", "xmma", "cutlass")):
@@ -929,27 +954,28 @@ def rglru_phase(torch, rg_ops, rg_ref) -> dict:
 # phases 10 and 11: hybrid (recurrentgemma-2b) serving
 # ---------------------------------------------------------------------------
 
-def hybrid_params(torch, cfg):
-    """fp32 master parameters of ``cfg`` on the host, from a seed. Drawn
-    once: the serving and the parity phases both take them."""
+def host_params(torch, cfg, seed):
+    """fp32 master parameters of ``cfg`` on the host, from ``seed``. Drawn
+    once: a family's serving and parity phases both take them."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.registry import build
 
     t = time.perf_counter()
-    params = build(cfg).init_params(torch.Generator().manual_seed(10), "cpu")
+    params = build(cfg).init_params(torch.Generator().manual_seed(seed),
+                                    "cpu")
     n = sum(p.numel() for _, p in tree_leaves(params))
     print(f"{cfg.name} parameters: {n} (fp32, drawn on the host in "
           f"{time.perf_counter() - t:.1f}s)")
     return params
 
 
-def greedy(torch, bundle, params, prompts, new_tokens, max_len, device):
+def greedy(torch, bundle, params, prompts, new_tokens, max_len, device,
+           counter):
     """Prefill a batch of equal-length prompts, then ``new_tokens - 1``
     greedy decode steps, through the serving steps. Returns the
     (B, new_tokens) tokens, the host ms of the prefill and of each decode
-    step, the rglru launches of the prefill and of the decode steps, and
-    the state the run leaves."""
-    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    step, the launches ``counter`` (a kernel wrapper) counted in the
+    prefill and in the decode steps, and the state the run leaves."""
     from repro_torch.serving.serve import make_decode_step, make_prefill_step
 
     prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
@@ -958,12 +984,12 @@ def greedy(torch, bundle, params, prompts, new_tokens, max_len, device):
     n = toks.shape[1]
     if device == "cuda":
         torch.cuda.synchronize()
-    before = rg_ops.rglru_scan.launches
+    before = counter.launches
     t = time.perf_counter()
     tok, cache = prefill(params, {"tokens": toks}, cache)
     out = [tok.cpu()]                    # the host reads every step's tokens
     prefill_ms = (time.perf_counter() - t) * 1e3
-    mid = rg_ops.rglru_scan.launches
+    mid = counter.launches
     step_ms = []
     for i in range(new_tokens - 1):
         t = time.perf_counter()
@@ -971,7 +997,7 @@ def greedy(torch, bundle, params, prompts, new_tokens, max_len, device):
                             torch.tensor(n + i, device=device))
         out.append(tok.cpu())
         step_ms.append((time.perf_counter() - t) * 1e3)
-    launches = (mid - before, rg_ops.rglru_scan.launches - mid)
+    launches = (mid - before, counter.launches - mid)
     return torch.cat(out, dim=1), prefill_ms, step_ms, launches, cache
 
 
@@ -980,6 +1006,7 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
     (past the 2048-slot ring, so the prefill's ring wraps), 64 greedy
     tokens each. Every prefill must launch the scan kernel once per RG-LRU
     layer and no decode step may launch it."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.models.common import cast_for_compute
     from repro_torch.models.registry import build
     from repro_torch.models.rglru import layer_kinds
@@ -998,8 +1025,9 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
                             generator=gen).tolist()
     max_len = SERVE_RG_PROMPT + SERVE_RG_NEW
     # warm-up (library handles, allocator) outside the counted run
+    scan = rg_ops.rglru_scan
     greedy(torch, bundle, dev_params, [p[:512] for p in prompts], 2, 1024,
-           "cuda")
+           "cuda", scan)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1007,7 +1035,8 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
         c.launches = 0
     t = time.perf_counter()
     tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
-        torch, bundle, dev_params, prompts, SERVE_RG_NEW, max_len, "cuda")
+        torch, bundle, dev_params, prompts, SERVE_RG_NEW, max_len, "cuda",
+        scan)
     wall = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
@@ -1065,6 +1094,7 @@ def hybrid_parity_phase(torch, cfg, params) -> dict:
     at full width in float32, on the card (scan kernel) and on the CPU
     (plain versions): identical greedy tokens for prompts past the
     window."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.models.common import cast_for_compute
     from repro_torch.models.registry import build
 
@@ -1087,7 +1117,7 @@ def hybrid_parity_phase(torch, cfg, params) -> dict:
     for dev in ("cuda", "cpu"):
         p = cast_for_compute(sub, torch.float32, torch.device(dev))
         runs[dev] = greedy(torch, bundle, p, prompts, PARITY_RG_NEW,
-                           max_len, dev)
+                           max_len, dev, rg_ops.rglru_scan)
     card, cpu = runs["cuda"][0].tolist(), runs["cpu"][0].tolist()
     check(card == cpu, f"hybrid f32 greedy tokens differ: card {card} "
                        f"cpu {cpu}")
@@ -1098,6 +1128,311 @@ def hybrid_parity_phase(torch, cfg, params) -> dict:
           f"{PARITY_RG_BATCH}, prompt {PARITY_RG_PROMPT}): card and cpu "
           f"tokens identical: {card}")
     return {"tokens": card, "prefill_ms": {d: r[1] for d, r in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phases 12 to 14: the chunkwise mLSTM and xlstm-350m serving
+# ---------------------------------------------------------------------------
+
+def mlstm_inputs(torch, gen, b, h, s, hd, dt, state):
+    """The reference's sweep inputs (``tests/test_kernels.py:258-265``) on
+    the card; with ``state``, a nonzero finite (C0, n0, m0)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = (randn(b, h, s, hd).to(dt) for _ in range(3))
+    li = randn(b, h, s)
+    lf = -(1 + 0.5 * randn(b, h, s)).abs()
+    if state:
+        C0, n0, m0 = 0.5 * randn(b, h, hd, hd), 0.5 * randn(b, h, hd), \
+            randn(b, h)
+    else:
+        C0 = torch.zeros((b, h, hd, hd), device="cuda")
+        n0 = torch.zeros((b, h, hd), device="cuda")
+        m0 = torch.full((b, h), -1e30, device="cuda")
+    return q, k, v, li, lf, C0, n0, m0
+
+
+def mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name, what) -> dict:
+    """One sweep case: the kernel against the plain chunkwise version (hs
+    at TOL, the fp32 state at 5e-5) and against the sequential oracle at
+    the reference's bars, absolute (bf16 hs at the bf16 bar, absolute and
+    relative). Where the chunkwise formulation itself (the plain version,
+    the kernel body's arithmetic) is farther from the oracle than a bar,
+    the kernel may be no farther than it is plus the kernel-vs-plain bar:
+    at S = 2048 its exponents carry the rounding of cumsums near -128, and
+    the reference's own kernel is 1.4e-4 to 2.5e-4 from its oracle in hs.
+    Returns the errors, and the plain version's where it passes a bar."""
+    tol = TOL[dt_name]
+    q = ins[0]
+    hs, st = ml_ops.mlstm_chunk(*ins, chunk=chunk)
+    phs, pst = ml_ref.mlstm_chunkwise_ref(*ins, chunk=chunk)
+    ohs, ost = ml_ref.mlstm_recurrent_ref(*ins)
+    torch.cuda.synchronize()
+    check(hs.dtype == q.dtype and hs.shape == q.shape
+          and all(t.dtype == torch.float32 for t in st),
+          f"{what}: outputs {hs.dtype} {tuple(hs.shape)}")
+    check(all(bool(torch.isfinite(t.float()).all()) for t in (hs, *st)),
+          f"{what}: non-finite output")
+    err = max_err(torch, hs, phs)
+    check(torch.allclose(hs.float(), phs.float(), atol=tol, rtol=tol),
+          f"{what}: hs vs plain {err} > {tol}")
+    for name, g, w in zip("Cnm", st, pst):
+        e = max_err(torch, g, w)
+        check(torch.allclose(g, w, atol=5e-5, rtol=5e-5),
+              f"{what}: {name} vs plain {e} > 5e-5")
+        err = max(err, e)
+    out, beyond = {"plain": err}, {}
+    bars = {"hs": 1e-4 if dt_name == "float32" else tol, "C": 1e-3,
+            "m": 1e-5}
+    for name, g, p, w in (("hs", hs, phs, ohs), ("C", st[0], pst[0], ost[0]),
+                          ("m", st[2], pst[2], ost[2])):
+        e, pe = max_err(torch, g, w), max_err(torch, p, w)
+        bar = bars[name]
+        if pe > bar:
+            beyond[name] = pe
+            bar = pe + (tol if name == "hs" else 5e-5)
+        rtol = bars[name] if g.dtype == torch.bfloat16 else 0.0
+        check(torch.allclose(g.float(), w.float(), atol=bar, rtol=rtol),
+              f"{what}: {name} vs oracle {e} > {bar} (plain version {pe})")
+        out[f"oracle_{name}"] = e
+    return out, beyond
+
+
+def mlstm_phase(torch, ml_ops, ml_ref) -> dict:
+    """The chunkwise mLSTM kernel against its plain versions
+    (:func:`mlstm_case`) over a sweep: B in 1/4, H = 4, S in 1/37/96/2048
+    with chunks giving L = 1, 37, 32, 96, 128; hd in 64/512; fp32 and bf16
+    q/k/v; zero and nonzero carried state. Then the kernel and the plain
+    chunkwise version timed at the prefill shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    lengths = ((1, 128), (37, 128), (37, 16), (96, 128), (96, 64),
+               (SERVE_X_PROMPT, 128))
+    worst = {}
+    beyond = {}       # the plain version's worst oracle error past a bar
+    cases = 0
+    for dt_name, b, (s, chunk), hd, state in itertools.product(
+            ("float32", "bfloat16"), (1, SERVE_X_BATCH), lengths, (64, X_HD),
+            (False, True)):
+        what = (f"mlstm {dt_name} B={b} S={s} chunk={chunk} hd={hd} "
+                f"state={state}")
+        ins = mlstm_inputs(torch, gen, b, 4, s, hd, getattr(torch, dt_name),
+                           state)
+        errs, past = mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name,
+                                what)
+        for name, e in errs.items():
+            key = f"{dt_name}_{name}"
+            worst[key] = max(worst.get(key, 0.0), e)
+        for name, e in past.items():
+            beyond[name] = max(beyond.get(name, 0.0), e)
+        cases += 1
+    print(f"mlstm_chunk sweep, {cases} cases: worst errors {worst}; the "
+          f"plain chunkwise version's own oracle error where it passes a "
+          f"bar: {beyond}")
+
+    # timing at the prefill shape: bf16 q/k/v, zero initial state
+    b, h, s, hd = SERVE_X_BATCH, 4, SERVE_X_PROMPT, X_HD
+    L = ml_ref.chunk_len(s, 128)
+    qkv_bytes = 3 * b * h * s * hd * 2
+    sets = [mlstm_inputs(torch, gen, b, h, s, hd, torch.bfloat16, False)
+            for _ in range(copies_for(qkv_bytes))]
+    ms = time_ms(torch, lambda *a: ml_ops.mlstm_chunk(*a, chunk=L), sets,
+                 iters=10)
+    plain_ms = time_ms(torch,
+                       lambda *a: ml_ref.mlstm_chunkwise_ref(*a, chunk=L),
+                       sets, iters=4)
+    del sets
+    state_bytes = 4 * b * h * (hd * hd + hd + 1)
+    nbytes = (4 * b * h * s * hd * 2        # q, k, v in, hs out (bf16)
+              + 2 * b * h * s * 4           # li, lf
+              + 2 * state_bytes)            # (C0, n0, m0) in, (C, n, m) out
+    nc = s // L
+    # per (b, h, chunk): q k^T and att v (2 L^2 hd each), q C and the
+    # k^T v update (2 L hd^2 each)
+    flops = b * h * nc * (4 * L * L * hd + 4 * L * hd * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    print(f"mlstm_chunk timing (B={b} H={h} S={s} hd={hd} L={L} bf16): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.1f} GFLOP), library none")
+    return {
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:91",
+        "max_abs_err": max(worst["float32_plain"], worst["bfloat16_plain"]),
+        "errors": worst, "plain_oracle_err_past_bar": beyond,
+        "cases": cases, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        # no single PyTorch call computes a chunkwise mLSTM
+        "library_ms": None,
+        "timed_at": f"B={b} H={h} S={s} hd={hd} L={L} bf16 q/k/v",
+    }
+
+
+def ssm_serve_phase(torch, cfg, params, counters) -> dict:
+    """Full-width, full-depth xlstm-350m serving in bf16: 4 prompts of
+    2048 tokens, 32 greedy tokens each, through the serving steps. Every
+    prefill must launch the mLSTM kernel once per mLSTM layer (21), no
+    decode step may launch it, and no other kernel runs."""
+    from repro_torch.kernels.mlstm_chunk import ops as ml_ops
+    from repro_torch.models.common import cast_for_compute
+    from repro_torch.models.registry import build
+    from repro_torch.models.xlstm import slstm_positions
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    bundle = build(cfg)
+    n_mlstm = cfg.num_layers - len(slstm_positions(cfg))
+    t = time.perf_counter()
+    dev_params = cast_for_compute(params, cfg.activation_dtype,
+                                  torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"xlstm weights on the card in {time.perf_counter() - t:.1f}s")
+    gen = torch.Generator().manual_seed(15)
+    prompts = torch.randint(1, cfg.vocab_size,
+                            (SERVE_X_BATCH, SERVE_X_PROMPT),
+                            generator=gen).tolist()
+    max_len = SERVE_X_PROMPT + SERVE_X_NEW
+    mlstm = ml_ops.mlstm_chunk
+    # warm-up (library handles, allocator) outside the counted run
+    greedy(torch, bundle, dev_params, [p[:256] for p in prompts], 2, 512,
+           "cuda", mlstm)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
+        torch, bundle, dev_params, prompts, SERVE_X_NEW, max_len, "cuda",
+        mlstm)
+    wall = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(tuple(tokens.shape) == (SERVE_X_BATCH, SERVE_X_NEW),
+          f"xlstm tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "a generated token is out of vocab")
+    check(pre_l == n_mlstm,
+          f"mlstm launches per prefill {pre_l} != {n_mlstm}")
+    check(dec_l == 0,
+          f"mlstm launches in {SERVE_X_NEW - 1} decode steps {dec_l} != 0")
+    others = {k: n for k, n in launches.items() if k != "mlstm_chunk"}
+    check(launches["mlstm_chunk"] == n_mlstm and not any(others.values()),
+          f"launches in the xlstm run {launches}")
+    check(all(bool(torch.isfinite(t.float()).all()) for st in cache
+              for t in st.values()), "non-finite serving state")
+
+    # profiled: a decode step from the state the run left, and a prefill
+    # of 512-token prompts (the 2048-token prefill's sLSTM loop makes ~2e5
+    # launches, too many events for a tractable trace)
+    prefill = make_prefill_step(bundle)
+    decode = make_decode_step(bundle)
+    short = torch.tensor([p[:SERVE_X_PROFILED] for p in prompts],
+                         device="cuda")
+    last = tokens[:, -1:].to("cuda").long()
+    pos = torch.tensor(max_len - 1, device="cuda")
+    profiled = {
+        f"prefill_{SERVE_X_PROFILED}": device_share(torch, lambda: prefill(
+            dev_params, {"tokens": short},
+            bundle.init_cache(SERVE_X_BATCH, max_len, "cuda"))[0].cpu(), 1),
+        "decode_step": device_share(torch, lambda: decode(
+            dev_params, cache, last, pos)[0].cpu(), 5),
+    }
+    decode_median = sorted(step_ms)[len(step_ms) // 2]
+    result = {
+        "batch": SERVE_X_BATCH, "prompt": SERVE_X_PROMPT,
+        "new_tokens": SERVE_X_NEW, "layers": cfg.num_layers,
+        "mlstm_layers": n_mlstm, "wall_s": wall,
+        "tokens_per_s": SERVE_X_BATCH * SERVE_X_NEW / wall,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": SERVE_X_BATCH * SERVE_X_PROMPT
+        / (prefill_ms / 1e3),
+        "decode_step_ms_median": decode_median,
+        "decode_tokens_per_s": SERVE_X_BATCH / (decode_median / 1e3),
+        "peak_memory_bytes": peak,
+        "mlstm_launches_prefill": pre_l, "mlstm_launches_decode": dec_l,
+        "launches": launches,
+        "first_tokens": tokens[:, :8].tolist(),
+        "profile": profiled,
+    }
+    print("xlstm serve: " + json.dumps(result))
+    return result
+
+
+def greedy_margins(torch, bundle, params, prompts, new_tokens, max_len,
+                   device):
+    """Greedy tokens through the bundle's prefill and decode functions (the
+    ones the serving steps wrap), with each step's top-2 logit margin."""
+    tok_all, margins = [], []
+    with torch.no_grad():
+        cache = bundle.init_cache(len(prompts), max_len, device)
+        logits, cache = bundle.prefill_fn(
+            params, {"tokens": torch.tensor(prompts, device=device)}, cache)
+        for i in range(new_tokens):
+            lg = logits[:, -1, :bundle.cfg.vocab_size].float()
+            top = lg.topk(2, dim=-1).values
+            margins.append((top[:, 0] - top[:, 1]).cpu())
+            tok = lg.argmax(dim=-1)[:, None]
+            tok_all.append(tok.cpu())
+            if i + 1 < new_tokens:
+                logits, cache = bundle.decode_fn(
+                    params, cache, tok,
+                    torch.tensor(len(prompts[0]) + i, device=device))
+    return torch.cat(tok_all, dim=1), torch.stack(margins, dim=1)
+
+
+def ssm_parity_phase(torch, cfg, params) -> dict:
+    """The first 8 layers of the same parameters (seven mLSTM, the sLSTM
+    at position 7) at full width in float32, on the card (mLSTM kernel)
+    and on the CPU (plain versions): identical greedy tokens. Where they
+    differ, the CPU's top-2 logit margin at that step is reported and the
+    phase fails."""
+    from repro_torch.kernels.mlstm_chunk import ops as ml_ops
+    from repro_torch.models.common import cast_for_compute
+    from repro_torch.models.registry import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.replace(num_layers=PARITY_X_LAYERS, dtype="float32")
+    sub = dict(params, layers=params["layers"][:PARITY_X_LAYERS])
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(16)
+    prompts = torch.randint(1, cfg.vocab_size,
+                            (PARITY_X_BATCH, PARITY_X_PROMPT),
+                            generator=gen).tolist()
+    max_len = PARITY_X_PROMPT + PARITY_X_NEW
+    runs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = cast_for_compute(sub, torch.float32, torch.device(dev))
+        before = ml_ops.mlstm_chunk.launches
+        t = time.perf_counter()
+        runs[dev] = greedy_margins(torch, bundle, p, prompts, PARITY_X_NEW,
+                                   max_len, dev)
+        secs[dev] = time.perf_counter() - t
+        if dev == "cuda":
+            launched = ml_ops.mlstm_chunk.launches - before
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    if not torch.equal(card, cpu):
+        row, step = (card != cpu).nonzero()[0].tolist()
+        margin = float(runs["cpu"][1][row, step])
+        raise SmokeFailure(
+            f"xlstm f32 greedy tokens differ: card {card.tolist()} cpu "
+            f"{cpu.tolist()}; first at row {row} step {step}, where the "
+            f"CPU's top-2 logit margin is {margin:.3e}")
+    n_mlstm = PARITY_X_LAYERS - 1
+    check(launched == n_mlstm,
+          f"xlstm parity mlstm launches {launched} != {n_mlstm}")
+    print(f"xlstm parity f32 ({PARITY_X_LAYERS} layers, B={PARITY_X_BATCH}, "
+          f"prompt {PARITY_X_PROMPT}): card and cpu tokens identical: "
+          f"{card.tolist()}; smallest top-2 margin "
+          f"{float(runs['cpu'][1].min()):.3e}")
+    return {"tokens": card.tolist(),
+            "min_margin": float(runs["cpu"][1].min()),
+            "seconds": secs}
 
 
 def main() -> int:
@@ -1118,6 +1453,8 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mlstm_chunk import ops as ml_ops
+    from repro_torch.kernels.mlstm_chunk import ref as ml_ref
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan import ref as rg_ref
 
@@ -1144,14 +1481,22 @@ def main() -> int:
     train_parity = train_parity_phase(torch, cfg_full)
     kernels.append(rglru_phase(torch, rg_ops, rg_ref))
     cfg_rg = get_config(HYBRID).replace(use_pallas=True)
-    rg_params = hybrid_params(torch, cfg_rg)
+    rg_params = host_params(torch, cfg_rg, 10)
     counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd,
                 fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv,
                 rg_ops.rglru_scan)
     hybrid = hybrid_serve_phase(torch, cfg_rg, rg_params, counters)
     hybrid_parity = hybrid_parity_phase(torch, cfg_rg, rg_params)
     del rg_params
-    # launches on each main path (serving, training), each counted from 0
+    kernels.append(mlstm_phase(torch, ml_ops, ml_ref))
+    cfg_x = get_config(XLSTM).replace(use_pallas=True)
+    x_params = host_params(torch, cfg_x, 14)
+    ssm = ssm_serve_phase(torch, cfg_x, x_params,
+                          (*counters, ml_ops.mlstm_chunk))
+    ssm_parity = ssm_parity_phase(torch, cfg_x, x_params)
+    del x_params
+    # launches on each main path (serving, training, hybrid and ssm
+    # serving), each counted from 0
     by_path = {
         "decode_attention": {"serve": served["decode_launches"]},
         "flash_attention_fwd": {"serve": served["flash_launches"],
@@ -1162,6 +1507,7 @@ def main() -> int:
         "flash_attention_bwd_dkv": {"train": trained["launches"][
             "flash_attention_bwd_dkv"]},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
+        "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
     for kern in kernels:
         kern["launches_by_path"] = by_path[kern["name"]]
@@ -1177,7 +1523,8 @@ def main() -> int:
         {"nvidia_smi": smi, "device": device, "kernels": kernels,
          "serve": served, "parity": parity, "train": trained,
          "train_parity": train_parity, "hybrid_serve": hybrid,
-         "hybrid_parity": hybrid_parity}, indent=1))
+         "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
+         "ssm_parity": ssm_parity}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

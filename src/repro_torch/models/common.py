@@ -254,14 +254,23 @@ def init_params(generator: torch.Generator, spec_tree: SpecTree,
     return rebuild(spec_tree)
 
 
-#: leaves the reference keeps in fp32 at use: norm weights go through
-#: ``rms_norm``'s fp32 math, and the hybrid's RG-LRU gates (``lam``,
-#: ``w_a``, ``w_i``, ``b_a``, ``b_i``) and causal conv (``conv_w``,
-#: ``conv_b``) are read in fp32; every other leaf it casts to the
-#: activation dtype at each use
+#: leaves the reference keeps in fp32 at use: norm weights and biases go
+#: through ``rms_norm``'s or ``layer_norm``'s fp32 math; the hybrid's
+#: RG-LRU gates (``lam``, ``w_a``, ``w_i``, ``b_a``, ``b_i``) and causal
+#: conv (``conv_w``, ``conv_b``) are read in fp32; so are the xLSTM's
+#: mLSTM gates (``w_i``, ``b_i``, ``w_f``, ``b_f``), group-norm scale, and
+#: the sLSTM's recurrent weights (``r_*``, applied to its fp32 state) and
+#: gate biases. Every other leaf the reference casts to the activation
+#: dtype at each use. The xLSTM's keys occur in no dense or hybrid tree, so
+#: one set serves every family; the sLSTM's block-diagonal ``w_i`` and
+#: ``w_f``, which share a key with the mLSTM's gates, stay fp32 and are
+#: cast at use to the same values.
 FP32_LEAVES = frozenset({"ln_attn", "ln_mlp", "ln_final", "q_norm", "k_norm",
                          "ln", "lam", "w_a", "w_i", "b_a", "b_i", "conv_w",
-                         "conv_b"})
+                         "conv_b",
+                         # the xLSTM (ssm family)
+                         "ln_b", "ln_final_b", "w_f", "b_f", "gn_scale",
+                         "r_i", "r_f", "r_z", "r_o", "b_z", "b_o"})
 
 
 def cast_for_compute(params: ParamTree, dtype: torch.dtype,
@@ -327,6 +336,47 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in fp32: the population variance ``mean((x - mu)^2)``,
+    ``rsqrt(var + eps)``, weight and bias applied in fp32."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
+
+
+def causal_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over time. w: (width, C); b: (C,); x: (B, S,
+    C); state: the last ``width - 1`` inputs, (B, width - 1, C). Taps are
+    summed in fp32 in the reference's order. Returns (out in x's dtype,
+    new state)."""
+    width = w.shape[0]
+    dt = x.dtype
+    if state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = state.to(dt)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(width):
+        out = out + xp[:, j:j + s].float() * w[j].float()
+    out = out + b.float()
+    return out.to(dt), xp[:, xp.shape[1] - (width - 1):]
+
+
+def store_state(state: dict[str, torch.Tensor],
+                new: dict[str, torch.Tensor]) -> None:
+    """Write a recurrent layer's new state into ``state`` in place."""
+    for name, t in new.items():
+        state[name].copy_(t)
 
 
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,

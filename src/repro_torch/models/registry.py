@@ -6,12 +6,14 @@ entry points the scheduler drives:
     prefill_fn(params, batch, cache)        -> (logits, cache)
     decode_fn(params, cache, tokens, pos)   -> (logits, cache)
     init_cache(batch_size, max_len, device) -> cache (a dict; the hybrid's
-                                               is a list of per-layer dicts)
+                                               and the xLSTM's are lists of
+                                               per-layer dicts)
     init_params(generator, device)          -> parameter dict
     loss_fn(params, batch)                  -> (loss, metrics)
 
-Dense LMs and the hybrid (recurrentgemma / Griffin) are built here; the
-ssm and audio families, MoE and the VLM prefix come with their slices.
+Dense LMs, the hybrid (recurrentgemma / Griffin) and the ssm family
+(xLSTM) are built here; the audio family, MoE and the VLM prefix come
+with their slices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import rglru, transformer
+from repro_torch.models import rglru, transformer, xlstm
 from repro_torch.models.common import (ModelConfig, init_params,
                                        resolve_device)
 
@@ -50,8 +52,8 @@ class ModelBundle:
     def init_cache(self, batch_size: int, max_len: int,
                    device: str | torch.device | None = None) -> Any:
         """The serving cache on ``device`` (the card when None): the
-        stacked KV cache of an LM, the per-layer state list of the
-        hybrid."""
+        stacked KV cache of an LM, the per-layer state list of the hybrid
+        and of the xLSTM."""
         return self.cache_fn(batch_size, max_len, resolve_device(device))
 
 
@@ -76,6 +78,17 @@ def build(cfg: ModelConfig) -> ModelBundle:
                 cfg, p, c, t, pos),
             loss_fn=lambda p, b: rglru.griffin_loss(cfg, p, b),
             cache_fn=lambda bsz, ml, dev: rglru.init_griffin_state(
+                cfg, bsz, ml, dev),
+        )
+    if cfg.family == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            specs=xlstm.make_xlstm_specs(cfg),
+            prefill_fn=lambda p, b, c: xlstm.xlstm_prefill(cfg, p, b, c),
+            decode_fn=lambda p, c, t, pos: xlstm.xlstm_decode_step(
+                cfg, p, c, t, pos),
+            loss_fn=lambda p, b: xlstm.xlstm_loss(cfg, p, b),
+            cache_fn=lambda bsz, ml, dev: xlstm.init_xlstm_state(
                 cfg, bsz, ml, dev),
         )
     raise NotImplementedError(

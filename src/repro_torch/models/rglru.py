@@ -30,10 +30,12 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
+    causal_conv,
     maybe_remat,
     mul_scalar,
     rms_norm,
     softmax_cross_entropy,
+    store_state,
 )
 
 RG_LRU_C = 8.0
@@ -176,20 +178,7 @@ def _causal_conv(p: dict[str, torch.Tensor], x: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv over time. x: (B, S, dr); state: (B, w-1, dr).
     Taps are summed in fp32 in the reference's order."""
-    w = p["conv_w"].shape[0]
-    dt = x.dtype
-    if state is None:
-        pad = x.new_zeros((x.shape[0], w - 1, x.shape[2]))
-    else:
-        pad = state.to(dt)
-    xp = torch.cat([pad, x], dim=1)
-    s = x.shape[1]
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for j in range(w):
-        out = out + xp[:, j:j + s].float() * p["conv_w"][j].float()
-    out = out + p["conv_b"].float()
-    new_state = xp[:, xp.shape[1] - (w - 1):]
-    return out.to(dt), new_state
+    return causal_conv(p["conv_w"], p["conv_b"], x, state)
 
 
 def rglru_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
@@ -306,13 +295,6 @@ def init_griffin_state(cfg: ModelConfig, batch: int, max_len: int,
     return states
 
 
-def _store(state: dict[str, torch.Tensor],
-           new: dict[str, torch.Tensor]) -> None:
-    """Write a recurrent layer's new state into ``state`` in place."""
-    for name, t in new.items():
-        state[name].copy_(t)
-
-
 def griffin_prefill(cfg: ModelConfig, params: dict[str, Any],
                     batch: dict[str, torch.Tensor],
                     states: list[dict[str, torch.Tensor]]
@@ -325,7 +307,7 @@ def griffin_prefill(cfg: ModelConfig, params: dict[str, Any],
         if kind == "rglru":
             out, ns = rglru_block_forward(cfg, p["kind_rglru"], x,
                                           use_pallas=cfg.use_pallas)
-            _store(st, ns)
+            store_state(st, ns)
             x = x + out
         else:
             h = rms_norm(x, p["kind_attn"]["ln"], cfg.norm_eps)
@@ -348,7 +330,7 @@ def griffin_decode_step(cfg: ModelConfig, params: dict[str, Any],
     for p, kind, st in zip(params["layers"], layer_kinds(cfg), states):
         if kind == "rglru":
             out, ns = rglru_block_decode(cfg, p["kind_rglru"], x, st)
-            _store(st, ns)
+            store_state(st, ns)
             x = x + out
         else:
             h = rms_norm(x, p["kind_attn"]["ln"], cfg.norm_eps)

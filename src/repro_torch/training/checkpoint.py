@@ -24,7 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import resolve_device, tree_leaves
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
@@ -97,11 +97,12 @@ def _read_leaf(ckpt_dir: str, entry: dict) -> np.ndarray:
 
 def restore_checkpoint(directory: str, step: int | None = None, *,
                        target: Any = None,
-                       device: str | torch.device = "cpu") -> Any:
+                       device: str | torch.device | None = None) -> Any:
     """The state saved at ``step`` (the latest when None) as a nested dict
-    of tensors on ``device``. ``target``, a nested dict, gives the
-    structure to fill (every one of its leaves must be in the
-    checkpoint); without it the manifest's paths give the structure."""
+    of tensors on ``device`` (the card when None). ``target``, a nested
+    dict, gives the structure to fill (every one of its leaves must be in
+    the checkpoint); without it the manifest's paths give the structure."""
+    device = resolve_device(device)
     if step is None:
         step = latest_step(directory)
         if step is None:

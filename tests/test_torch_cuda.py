@@ -11,6 +11,9 @@ the reference's tolerances (bf16 2e-2, f32 5e-5; the backward passes at
 f32 1e-4, given the same out, lse and do). The RG-LRU scan returns fp32
 whatever its inputs, so its forward is held at 5e-5 for bf16 inputs too;
 its gradients come back in the inputs' dtype and are held at BWD_TOL.
+The chunkwise mLSTM kernel's hs (in q's dtype) is held at TOL, its fp32
+state at 5e-5, and, in fp32, both against the sequential oracle at the
+reference's bars (hs 1e-4, C 1e-3, m 1e-5).
 """
 
 import pytest
@@ -21,6 +24,9 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
+from repro_torch.kernels.mlstm_chunk import ops as ml_ops
+from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunkwise_ref,
+                                                 mlstm_recurrent_ref)
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models.common import tree_leaves
@@ -282,5 +288,123 @@ def test_hybrid_served_tokens_match_the_cpu(cuda):
             tok, state = decode(params, state, tok.long(),
                                 torch.tensor(45 + i, device=dev))
             seq.append(tok.cpu())
+        runs.append(torch.cat(seq, dim=1).tolist())
+    assert runs[0] == runs[1]
+
+
+def _mlstm_inputs(gen, b, h, s, hd, dtype, device, state):
+    """The reference's sweep inputs (``tests/test_kernels.py:258-265``);
+    with ``state``, a nonzero finite (C0, n0, m0)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, k, v = (randn(b, h, s, hd).to(dtype) for _ in range(3))
+    li = randn(b, h, s)
+    lf = -(1 + 0.5 * randn(b, h, s)).abs()
+    if state:
+        C0, n0, m0 = 0.5 * randn(b, h, hd, hd), 0.5 * randn(b, h, hd), \
+            randn(b, h)
+    else:
+        C0 = torch.zeros((b, h, hd, hd), device=device)
+        n0 = torch.zeros((b, h, hd), device=device)
+        m0 = torch.full((b, h), -1e30, device=device)
+    return q, k, v, li, lf, C0, n0, m0
+
+
+@pytest.mark.parametrize("b,h,s,hd,chunk", [
+    (1, 2, 64, 32, 16),
+    (2, 3, 37, 64, 128),      # L = 37, one chunk
+    (1, 4, 96, 64, 64),       # L = 32
+    (2, 2, 129, 32, 128),     # odd S past the chunk: L = 1
+    (2, 1, 300, 96, 128),     # L = 4
+    (1, 4, 256, 512, 128),    # the full head dim, L = 128
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True])
+def test_mlstm_kernel_matches_plain_version(cuda, b, h, s, hd, chunk, dtype,
+                                            state):
+    gen = torch.Generator(device=cuda).manual_seed(s + hd)
+    ins = _mlstm_inputs(gen, b, h, s, hd, dtype, cuda, state)
+    before = ml_ops.mlstm_chunk.launches
+    hs, (C, n, m) = ml_ops.mlstm_chunk(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ml_ops.mlstm_chunk.launches == before + 1
+    assert hs.dtype == dtype and hs.shape == (b, h, s, hd)
+    want_hs, want_state = mlstm_chunkwise_ref(*ins, chunk=chunk)
+    tol = TOL[dtype]
+    torch.testing.assert_close(hs.float(), want_hs.float(), atol=tol,
+                               rtol=tol)
+    for got, want in zip((C, n, m), want_state):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+    if dtype == torch.float32:
+        ohs, (oC, _, om) = mlstm_recurrent_ref(*ins)
+        torch.testing.assert_close(hs, ohs, atol=1e-4, rtol=0)
+        torch.testing.assert_close(C, oC, atol=1e-3, rtol=0)
+        torch.testing.assert_close(m, om, atol=1e-5, rtol=0)
+
+
+def test_mlstm_kernel_reads_transposed_views(cuda):
+    """q, k, v as the model hands them over: (B, S, H, hd) transposed to
+    (B, H, S, hd), read through their strides."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ins = list(_mlstm_inputs(gen, 2, 4, 96, 64, torch.bfloat16, cuda, True))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in ins[:3]]
+    assert not views[0].is_contiguous()
+    hs, state = ml_ops.mlstm_chunk(*views, *ins[3:], chunk=32)
+    want_hs, want_state = ml_ops.mlstm_chunk(*ins, chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, want_hs)
+    for got, want in zip(state, want_state):
+        assert torch.equal(got, want)
+
+
+def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ins = list(_mlstm_inputs(gen, 1, 2, 256, 64, torch.float32, cuda,
+                             False))
+    with pytest.raises(ValueError, match="at most 128"):
+        ml_ops.mlstm_chunk(*ins, chunk=256)
+    odd = list(_mlstm_inputs(gen, 1, 2, 16, 48, torch.float32, cuda, False))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ml_ops.mlstm_chunk(*odd, chunk=16)
+    strided = [torch.stack([t, t], dim=-1)[..., 0] for t in ins[:3]]
+    assert strided[0].stride(-1) == 2
+    with pytest.raises(ValueError, match="unit stride"):
+        ml_ops.mlstm_chunk(*strided, *ins[3:], chunk=128)
+    with pytest.raises(ValueError, match="one device"):
+        ml_ops.mlstm_chunk(*ins[:7], ins[7].cpu(), chunk=128)
+
+
+def test_xlstm_served_tokens_match_the_cpu(cuda):
+    """Reduced xlstm-350m in float32 with the mLSTM kernel: greedy tokens
+    on the card equal those on the CPU, and the card's prefill launched
+    the kernel once per mLSTM layer and its decode steps never."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("xlstm-350m").replace(dtype="float32",
+                                               use_pallas=True)
+    bundle = build(cfg)
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 96),
+                           generator=torch.Generator().manual_seed(3))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        params = bundle.init_params(0, dev)
+        before = ml_ops.mlstm_chunk.launches
+        tok, state = prefill(params, {"tokens": prompt.to(dev)},
+                             bundle.init_cache(2, 128, dev))
+        mid = ml_ops.mlstm_chunk.launches
+        seq = [tok.cpu()]
+        for i in range(5):
+            tok, state = decode(params, state, tok.long(),
+                                torch.tensor(96 + i, device=dev))
+            seq.append(tok.cpu())
+        if dev.type == "cuda":
+            assert (mid - before, ml_ops.mlstm_chunk.launches - mid) == (7, 0)
         runs.append(torch.cat(seq, dim=1).tolist())
     assert runs[0] == runs[1]

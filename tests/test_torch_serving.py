@@ -276,7 +276,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert n >= 25, proc.stdout
     names = proc.stdout.split("NAMES")[1].split("\n")[0].split()
     for mod in ("training.data", "training.optim", "training.train_step",
-                "training.checkpoint", "launch.train"):
+                "training.checkpoint", "launch.train", "models.xlstm",
+                "kernels.mlstm_chunk.ops", "kernels.mlstm_chunk.ref"):
         assert f"repro_torch.{mod}" in names, mod
 
 

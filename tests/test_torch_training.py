@@ -461,10 +461,12 @@ def _assert_same(a, b):
 def test_reference_checkpoint_restores_in_port(tmp_path):
     jstate, tstate = _states()
     j_ckpt.save_checkpoint(str(tmp_path), 7, jstate)
-    got = ckpt.restore_checkpoint(str(tmp_path), target=tstate)
+    got = ckpt.restore_checkpoint(str(tmp_path), target=tstate,
+                                  device="cpu")
     _assert_same(got, tstate)
     assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
-    _assert_same(ckpt.restore_checkpoint(str(tmp_path)), tstate)
+    _assert_same(ckpt.restore_checkpoint(str(tmp_path), device="cpu"),
+                 tstate)
 
 
 def test_port_checkpoint_restores_in_reference(tmp_path):
@@ -490,7 +492,8 @@ def test_checkpoint_reads_a_sharded_leaf(tmp_path):
             {"file": "w.shard0.npy", "index": [[0, 2], None]},
             {"file": "w.shard1.npy", "index": [[2, 4], None]}]}}}))
     np.testing.assert_array_equal(
-        ckpt.restore_checkpoint(str(tmp_path))["w"].numpy(), full)
+        ckpt.restore_checkpoint(str(tmp_path), device="cpu")["w"].numpy(),
+        full)
 
 
 def test_checkpoint_gc_and_latest_step(tmp_path):
@@ -504,9 +507,21 @@ def test_checkpoint_gc_and_latest_step(tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 5
     assert j_ckpt.latest_step(str(tmp_path)) == 5
     with pytest.raises(FileNotFoundError):
-        ckpt.restore_checkpoint(str(tmp_path / "empty"))
+        ckpt.restore_checkpoint(str(tmp_path / "empty"), device="cpu")
     with pytest.raises(TypeError, match="bfloat16"):
         ckpt.save_checkpoint(str(tmp_path), 6, {"w": torch.ones(2).bfloat16()})
+
+
+def test_restore_without_device_raises_where_there_is_no_card(
+        tmp_path, monkeypatch):
+    """Like every entry point of the port, restoring lands on the card
+    unless the caller names a device: without a card it raises."""
+    ckpt.save_checkpoint(str(tmp_path), 1, {"w": torch.ones(3)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore_checkpoint(str(tmp_path))
+    assert ckpt.restore_checkpoint(str(tmp_path), device="cpu")["w"] \
+        .device.type == "cpu"
 
 
 def test_async_checkpointer(tmp_path):
@@ -567,14 +582,15 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "step 3/3" in proc.stdout
     assert ckpt.latest_step(str(tmp_path)) == 3
-    first = ckpt.restore_checkpoint(str(tmp_path))
+    first = ckpt.restore_checkpoint(str(tmp_path), device="cpu")
     launch_train.main([*LAUNCH, "--steps", "5", "--ckpt-dir",
                        str(tmp_path)])
     out = capsys.readouterr().out
     assert "resumed from step 3" in out and "step 4/5" in out
     assert "step 1/5" not in out
     assert ckpt.latest_step(str(tmp_path)) == 5
-    assert int(ckpt.restore_checkpoint(str(tmp_path))["step"]) == 5
+    assert int(ckpt.restore_checkpoint(str(tmp_path), device="cpu")["step"]) \
+        == 5
     assert int(first["step"]) == 3
 
 
