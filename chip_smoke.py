@@ -12,13 +12,21 @@ then:
 2. holds the decode-attention kernel against its plain PyTorch version
    (ragged lengths incl. 0 and Smax; bf16 at 2e-2, f32 at 5e-5) and times
    kernel, plain version and SDPA;
-3. does the same for the flash-attention forward kernel (out and lse;
-   causal lengths 1/37/511/700, window, softcap, q_offset, and the
-   training shape B = 8, S = 1024) and times it at the serving and at the
-   training shapes;
+3. does the same for the flash-attention forward kernel (out and lse, in
+   bf16 on its tensor-core body and in f32 on its CUDA-core body, each
+   bf16 call counted by ``tensor_core_launches``): hd 32/64/128, lengths
+   at the tile edges 1/63/64/65/127/128/129/700/1024 and the serving
+   prompts 96/250/511/700, causal and not, Skv > Sq with q_offset =
+   Skv - Sq, Skv = 0, windows 1/64/127, softcap with a window, G = 1/3/4,
+   strided q/k/v views, and the training shape B = 8, S = 1024; out also
+   within 1e-2 / 1e-4 of its norm and lse within 1e-4 absolute; requires
+   ptxas to report no spills; times it at each serving shape and at the
+   training shape, printing kernel, device and SDPA ms, kernel/SDPA and
+   bound/kernel;
 4. serves 8 requests at the full width of ``aiida-demo-110m`` (bf16,
    random weights from a seed) through ``BatchScheduler`` and checks that
-   every prefill and decode step went through the kernels;
+   every prefill and decode step went through the kernels, every flash
+   launch on the tensor-core body;
 5. serves 2 requests in float32 on the card and on the CPU (plain
    versions) and requires identical greedy tokens;
 6. holds the two flash-attention backward kernels (dq pass, dk/dv pass)
@@ -30,9 +38,9 @@ then:
 7. trains ``aiida-demo-110m`` at full width (bf16 activations, fp32
    parameters, AdamW, the config's remat policy) for 6 steps of 8 x 1024
    tokens through ``make_train_step`` and checks every loss is finite and
-   every step launched 24 flash forwards (forward + remat recompute), 12
-   dq and 12 dk/dv passes; prints tokens/s, ms per step, peak memory and a
-   profiled step;
+   every step launched 24 flash forwards (forward + remat recompute), all
+   on the tensor-core body, 12 dq and 12 dk/dv passes; prints tokens/s, ms
+   per step, peak memory and a profiled step;
 8. takes one full-width float32 train step's gradients on the card and on
    the CPU (plain versions) from the same parameters and batch, and holds
    loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
@@ -80,6 +88,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,9 +102,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 TOL = {"bfloat16": 2e-2, "float32": 5e-5}
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# a backward output's error as a share of that output's norm: the
-# elementwise bound above is loose for the small gradients of late rows
-BWD_NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# an output's error as a share of that output's norm (flash forward out,
+# backward dq/dk/dv): the elementwise bounds above are loose for the small
+# values of late rows
+NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# the flash forward's lse, absolute in both dtypes (it is accumulated in
+# fp32 either way): a bound relative to lse's size would grow with it
+LSE_TOL = 1e-4
 L2_BYTES = 50 * 2**20
 
 ARCH = "aiida-demo-110m"
@@ -165,9 +178,9 @@ def max_err(torch, a, b) -> float:
 def bwd_close(torch, got, want, dt_name: str, what: str) -> dict:
     """Hold backward outputs (dq, dk, dv) against the plain version's:
     elementwise at ``BWD_TOL`` and as a share of each output's norm at
-    ``BWD_NORM_TOL``. Returns each output's max abs error and, under
+    ``NORM_TOL``. Returns each output's max abs error and, under
     ``share_<name>``, its error as a share of its norm."""
-    tol, norm_tol = BWD_TOL[dt_name], BWD_NORM_TOL[dt_name]
+    tol, norm_tol = BWD_TOL[dt_name], NORM_TOL[dt_name]
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g, w = g.float(), w.float()
@@ -272,86 +285,189 @@ def decode_phase(torch, da_ops, da_ref) -> dict:
 # phase 3: flash attention forward
 # ---------------------------------------------------------------------------
 
-def flash_phase(torch, fa_ops, fa_ref) -> dict:
-    h, hkv, hd = 12, 4, 64
+# the forward's sweep: each case is (b, sq, skv, h, hkv, hd, options); a
+# "strided" case reads q, k and v as views of one fused (b, s, h + 2 hkv,
+# hd) projection, so q's rows are strided
+_C = dict(h=12, hkv=4, hd=64, b=1)
+# the serving path's prompts among the tile-edge lengths
+FLASH_CASES = (
+    [dict(_C, sq=s, skv=s) for s in sorted({1, 63, 64, 65, 127, 128, 129,
+                                            700, 1024, *SERVE_PROMPTS})]
+    + [dict(_C, sq=s, skv=s, hd=hd) for hd in (32, 128)
+       for s in (65, 129, 700)]
+    + [dict(_C, sq=s, skv=s, hd=hd, causal=False)
+       for hd, s in ((64, 1), (64, 64), (64, 129), (64, 700), (32, 129),
+                     (128, 129))]
+    + [dict(_C, sq=65, skv=200, q_offset=135),
+       dict(_C, sq=129, skv=1024, q_offset=895),
+       dict(_C, sq=64, skv=1024, q_offset=960, hd=128),
+       dict(_C, sq=37, skv=300, causal=False)]
+    + [dict(_C, sq=65, skv=0, q_offset=-65), dict(_C, sq=65, skv=0,
+                                                   causal=False)]
+    + [dict(_C, sq=700, skv=700, window=w) for w in (1, 64, 127)]
+    + [dict(_C, sq=129, skv=129, window=64, hd=128)]
+    + [dict(_C, sq=511, skv=511, softcap=30.0, window=127),
+       dict(_C, sq=129, skv=129, softcap=30.0, hd=32)]
+    + [dict(_C, b=2, sq=257, skv=257, h=h) for h in (4, 12, 16)]   # G 1/3/4
+    + [dict(_C, b=2, sq=300, skv=300, strided=True),
+       dict(_C, sq=129, skv=129, strided=True, hd=128)]
+    # the earlier sweep's cases
+    + [dict(_C, sq=37, skv=37), dict(_C, sq=511, skv=511, softcap=30.0),
+       dict(_C, sq=37, skv=42, q_offset=5)])
+
+
+def flash_inputs(torch, gen, c: dict, dt):
+    b, hd = c["b"], c["hd"]
+    if c.get("strided"):
+        qkv = torch.randn(b, c["sq"], c["h"] + 2 * c["hkv"], hd,
+                          generator=gen, device="cuda").to(dt)
+        return qkv.split([c["h"], c["hkv"], c["hkv"]], dim=2)
+    return (torch.randn(b, c["sq"], c["h"], hd, generator=gen,
+                        device="cuda").to(dt),
+            torch.randn(b, c["skv"], c["hkv"], hd, generator=gen,
+                        device="cuda").to(dt),
+            torch.randn(b, c["skv"], c["hkv"], hd, generator=gen,
+                        device="cuda").to(dt))
+
+
+def ptxas_usage(log: str, hd: int) -> dict:
+    """Registers and spills ptxas reported for the tensor-core body's
+    head_dim ``hd`` instantiation."""
+    lines = log.splitlines()
+    tag = f"flash_fwd_wgmma_kernelILi{hd}EE"
+    at = next((i for i, line in enumerate(lines)
+               if "Compiling entry" in line and tag in line), None)
+    check(at is not None, f"ptxas reported nothing for {tag}")
+    text = " ".join(lines[at:at + 4])
+
+    def grab(pattern: str) -> int:
+        return int(re.search(pattern, text).group(1))
+
+    return {"registers": grab(r"Used (\d+) registers"),
+            "spill_stores": grab(r"(\d+) bytes spill stores"),
+            "spill_loads": grab(r"(\d+) bytes spill loads")}
+
+
+def fwd_close(torch, out, lse, rout, rlse, dt_name: str, what: str
+              ) -> dict:
+    """Hold the forward's out and lse against the plain version's: out
+    elementwise at ``TOL`` and as a share of its norm at ``NORM_TOL``, lse
+    at the absolute ``LSE_TOL`` where a row has a live key, -inf (and
+    nowhere else) where it has none. Returns the errors."""
+    tol, norm_tol = TOL[dt_name], NORM_TOL[dt_name]
+    live = torch.isfinite(rlse)
+    check(bool(torch.isfinite(out.float()).all())
+          and bool((torch.isfinite(lse) == live).all())
+          and bool((lse[~live] == -math.inf).all()),
+          f"{what}: non-finite out, or lse not finite exactly where the "
+          "plain version has a live key")
+    o, ro = out.float(), rout.float()
+    errs = {"out": max_err(torch, o, ro),
+            "lse": max_err(torch, lse[live], rlse[live]),
+            "share_out": float((o - ro).norm() / ro.norm().clamp_min(1e-30))
+            if ro.numel() else 0.0}
+    check(torch.allclose(o, ro, atol=tol, rtol=tol),
+          f"{what}: out max abs err {errs['out']} > {tol}")
+    check(errs["share_out"] <= norm_tol,
+          f"{what}: out error is {errs['share_out']:.3e} of its norm > "
+          f"{norm_tol}")
+    check(errs["lse"] <= LSE_TOL,
+          f"{what}: lse max abs err {errs['lse']} > {LSE_TOL}")
+    return errs
+
+
+def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
+    fwd = fa_ops.flash_attention_fwd
+    # ptxas's report of every tensor-core instantiation
+    usage = {}
+    for hd in fa_ops._HEAD_DIMS:
+        usage[f"hd{hd}"] = u = ptxas_usage(build_log, hd)
+        check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+              f"the tensor-core body spills at hd={hd}: {u}")
+    print(f"flash_attention_fwd tensor-core body, ptxas: {usage}")
+
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = [dict(sq=s, skv=s) for s in (1, 37, 511, 700)]
-    cases += [dict(sq=700, skv=700, window=64),
-              dict(sq=511, skv=511, softcap=30.0),
-              dict(sq=37, skv=42, q_offset=5)]
     worst = 0.0
     for dt_name in ("bfloat16", "float32"):
         dt = getattr(torch, dt_name)
-        for c in cases:
-            opts = dict(causal=True, window=c.get("window", 0),
-                        scale=hd ** -0.5, softcap=c.get("softcap", 0.0),
+        tol = TOL[dt_name]
+        for c in FLASH_CASES:
+            opts = dict(causal=c.get("causal", True),
+                        window=c.get("window", 0), scale=c["hd"] ** -0.5,
+                        softcap=c.get("softcap", 0.0),
                         q_offset=c.get("q_offset", 0))
-            q = torch.randn(1, c["sq"], h, hd, generator=gen,
-                            device="cuda").to(dt)
-            k = torch.randn(1, c["skv"], hkv, hd, generator=gen,
-                            device="cuda").to(dt)
-            v = torch.randn(1, c["skv"], hkv, hd, generator=gen,
-                            device="cuda").to(dt)
-            out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
-            rout, rlse = fa_ref.flash_attention_ref(q, k, v, **opts)
+            q, k, v = flash_inputs(torch, gen, c, dt)
+            before = (fwd.launches, fwd.tensor_core_launches)
+            out, lse = fwd(q, k, v, **opts)
             torch.cuda.synchronize()
-            tol = TOL[dt_name]
-            err = max(max_err(torch, out, rout), max_err(torch, lse, rlse))
-            check(torch.allclose(out.float(), rout.float(), atol=tol,
-                                 rtol=tol),
-                  f"flash {dt_name} {c}: out max abs err "
-                  f"{max_err(torch, out, rout)} > {tol}")
-            check(torch.allclose(lse, rlse, atol=tol, rtol=tol),
-                  f"flash {dt_name} {c}: lse max abs err "
-                  f"{max_err(torch, lse, rlse)} > {tol}")
-            worst = max(worst, err)
-            print(f"flash_attention_fwd {dt_name} {c}: max_abs_err="
-                  f"{err:.3e} (tol {tol})")
+            tc = fwd.tensor_core_launches - before[1]
+            check(fwd.launches - before[0] == 1 and tc == (dt_name ==
+                                                           "bfloat16"),
+                  f"flash {dt_name} {c}: launches {fwd.launches - before[0]}"
+                  f", tensor-core launches {tc}")
+            rout, rlse = fa_ref.flash_attention_ref(q, k, v, **opts)
+            e = fwd_close(torch, out, lse, rout, rlse, dt_name,
+                          f"flash {dt_name} {c}")
+            worst = max(worst, e["out"], e["lse"])
+            print(f"flash_attention_fwd {dt_name} {c}: out err "
+                  f"{e['out']:.2e} ({e['share_out']:.2e} of its norm) lse "
+                  f"err {e['lse']:.2e} (tol {tol}, {NORM_TOL[dt_name]} of "
+                  f"the norm, lse {LSE_TOL})")
 
     # the training path's shape, bf16 causal: out and lse against the
     # plain version (the backward check in phase 6 takes them as given)
-    dt = torch.bfloat16
+    h, hkv, hd = 12, 4, 64
     opts = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
                 q_offset=0)
-    q = torch.randn(TRAIN_BATCH, TRAIN_SEQ, h, hd, generator=gen,
-                    device="cuda").to(dt)
-    k = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hkv, hd, generator=gen,
-                    device="cuda").to(dt)
-    v = torch.randn(TRAIN_BATCH, TRAIN_SEQ, hkv, hd, generator=gen,
-                    device="cuda").to(dt)
-    out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+    q, k, v = flash_inputs(torch, gen, dict(b=TRAIN_BATCH, sq=TRAIN_SEQ,
+                                            skv=TRAIN_SEQ, h=h, hkv=hkv,
+                                            hd=hd), torch.bfloat16)
+    out, lse = fwd(q, k, v, **opts)
     rout, rlse = fa_ref.flash_attention_ref(q, k, v, **opts)
     torch.cuda.synchronize()
-    tol = TOL["bfloat16"]
-    err = max(max_err(torch, out, rout), max_err(torch, lse, rlse))
-    check(torch.allclose(out.float(), rout.float(), atol=tol, rtol=tol)
-          and torch.allclose(lse, rlse, atol=tol, rtol=tol),
-          f"flash bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}: max abs err {err} > "
-          f"{tol}")
-    worst = max(worst, err)
+    e = fwd_close(torch, out, lse, rout, rlse, "bfloat16",
+                  f"flash bf16 B={TRAIN_BATCH} S={TRAIN_SEQ}")
+    worst = max(worst, e["out"], e["lse"])
     print(f"flash_attention_fwd bfloat16 B={TRAIN_BATCH} S={TRAIN_SEQ} "
-          f"(training shape): max_abs_err={err:.3e} (tol {tol})")
+          f"(training shape): out err {e['out']:.3e} ({e['share_out']:.3e} "
+          f"of its norm), lse err {e['lse']:.3e} (tol {TOL['bfloat16']}, "
+          f"{NORM_TOL['bfloat16']} of the norm, lse {LSE_TOL})")
     del q, k, v, out, lse, rout, rlse
 
     # serving: the mean per launch over the prompt lengths, as the serving
     # path launches each length equally often
-    serve = [fwd_timing(torch, fa_ops, fa_ref, 1, s, h, hkv, hd)
-             for s in SERVE_PROMPTS]
-    serve = {key: sum(t[key] for t in serve) / len(serve) for key in serve[0]}
+    by_len = {}
+    for s in SERVE_PROMPTS:
+        by_len[s] = fwd_timing(torch, fa_ops, fa_ref, 1, s, h, hkv, hd)
+        by_len[s]["timed_at"] = (f"B=1 S={s} H={h} Hkv={hkv} hd={hd} bf16 "
+                                 "causal")
+    serve = {key: sum(t[key] for t in by_len.values()) / len(by_len)
+             for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "t_bytes", "t_ops")}
     serve["timed_at"] = (f"B=1 H={h} Hkv={hkv} hd={hd} bf16 causal, mean "
                          f"over S in {list(SERVE_PROMPTS)}")
     train = fwd_timing(torch, fa_ops, fa_ref, TRAIN_BATCH, TRAIN_SEQ, h, hkv,
                        hd)
     train["timed_at"] = (f"B={TRAIN_BATCH} S={TRAIN_SEQ} H={h} Hkv={hkv} "
                          f"hd={hd} bf16 causal")
-    for path, t in (("serve", serve), ("train", train)):
+    for path, b, s, t in ([("serve", 1, n, by_len[n]) for n in SERVE_PROMPTS]
+                          + [("serve", 1, None, serve),
+                             ("train", TRAIN_BATCH, TRAIN_SEQ, train)]):
         t["bound_ms"] = max(t["t_bytes"], t["t_ops"])
         t["bound_by"] = "bytes" if t["t_bytes"] >= t["t_ops"] else "operations"
+        t["kernel_over_sdpa"] = t["ms"] / t["library_ms"]
+        t["bound_over_kernel"] = t["bound_ms"] / t["ms"]
+        if s is not None:
+            t["ptxas"] = usage[f"hd{hd}"]
         print(f"flash_attention_fwd timing ({path}, {t['timed_at']}): kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms")
-    # the row's headline numbers are the serving shapes'; both paths'
-    # numbers are under ``timing_by_path``
+              f"{t['ms']:.5f} ms (device {t['device_ms']:.5f} ms), sdpa "
+              f"{t['library_ms']:.5f} ms, "
+              f"kernel/sdpa {t['kernel_over_sdpa']:.3f}, bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}), bound/kernel "
+              f"{t['bound_over_kernel']:.4f}, plain {t['plain_ms']:.4f} ms"
+              + (f", ptxas {t['ptxas']}" if "ptxas" in t else ""))
+    # the row's headline numbers are the serving shapes' mean; every
+    # shape's numbers are under ``timing_by_path``
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -360,13 +476,17 @@ def flash_phase(torch, fa_ops, fa_ref) -> dict:
         "max_abs_err": worst,
         **{key: serve[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms", "timed_at")},
-        "timing_by_path": {"serve": serve, "train": train},
+        "timing_by_path": {"serve": serve, "train": train,
+                           "serve_by_len": {str(n): t
+                                            for n, t in by_len.items()}},
+        "ptxas": usage,
     }
 
 
 def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd) -> dict:
-    """Kernel, plain and SDPA ms of one bf16 causal forward at (b, s), and
-    the two terms of its bound."""
+    """Kernel (CUDA events over back-to-back calls, and the profiler's
+    device time), plain and SDPA ms of one bf16 causal forward at (b, s),
+    and the two terms of its bound."""
     dt = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes = b * s * (2 * h + 2 * hkv) * hd * 2 + 4 * b * h * s
@@ -387,8 +507,15 @@ def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd) -> dict:
                  .contiguous()) for q, k, v in sets]
     library_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
                          lib_sets)
+    # the kernel's own device time: at the serving shapes the wrapper's
+    # host cost, not the card, sets the timed ``ms``
+    rotate = itertools.cycle(sets)
+    device_ms = device_share(
+        torch, lambda: fa_ops.flash_attention_fwd(*next(rotate)),
+        20)["device_ms_by_kind"]["flash_fwd"]
     pairs = b * s * (s + 1) // 2
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "t_ops": 4 * hd * h * pairs / PEAK_FLOPS["bfloat16"] * 1e3}
 
@@ -522,6 +649,7 @@ def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
     steps_before = steps.value
     da_ops.decode_attention.launches = 0
     fa_ops.flash_attention_fwd.launches = 0
+    fa_ops.flash_attention_fwd.tensor_core_launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
@@ -530,6 +658,7 @@ def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
     wall = time.perf_counter() - t0
     decode_launches = da_ops.decode_attention.launches
     flash_launches = fa_ops.flash_attention_fwd.launches
+    flash_tc = fa_ops.flash_attention_fwd.tensor_core_launches
     decode_steps = steps.value - steps_before
 
     check(all(r.done and r.finish_reason == "length"
@@ -541,6 +670,9 @@ def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
     layers = cfg_full.num_layers
     check(flash_launches == layers * N_REQUESTS,
           f"flash launches {flash_launches} != {layers} x {N_REQUESTS}")
+    check(flash_tc == flash_launches,
+          f"{flash_launches - flash_tc} bf16 flash launches missed the "
+          "tensor-core body")
     check(decode_launches == layers * decode_steps,
           f"decode launches {decode_launches} != {layers} x {decode_steps}")
     tokens = sum(len(r.generated) for r in reqs)
@@ -579,7 +711,9 @@ def serve_phase(torch, cfg_full, da_ops, fa_ops) -> dict:
         "requests": N_REQUESTS, "tokens_generated": tokens,
         "wall_s": wall, "tokens_per_s": tokens / wall,
         "decode_steps": decode_steps,
-        "flash_launches": flash_launches, "decode_launches": decode_launches,
+        "flash_launches": flash_launches,
+        "flash_tensor_core_launches": flash_tc,
+        "decode_launches": decode_launches,
         "prefill_ms_by_len": dict(zip(map(str, SERVE_PROMPTS), prefill_ms)),
         "prefill_ms_mean": sum(prefill_ms) / len(prefill_ms),
         "decode_step_ms_median": step_ms[len(step_ms) // 2],
@@ -649,7 +783,7 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
             note(errs)
             print(f"flash_attention_bwd {dt_name} {c}: max_abs_err " +
                   " ".join(f"{n}={e:.3e}" for n, e in errs.items()) +
-                  f" (tol {tol}, {BWD_NORM_TOL[dt_name]} of the norm)")
+                  f" (tol {tol}, {NORM_TOL[dt_name]} of the norm)")
 
     # the training phase's shapes, bf16 causal: checked on the first input
     # set (whose plain backward is also the one timed), then timed
@@ -686,7 +820,7 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
     note(errs)
     print(f"flash_attention_bwd bfloat16 B={b} S={s} (training shape): "
           "max_abs_err " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-          + f" (tol {BWD_TOL['bfloat16']}, {BWD_NORM_TOL['bfloat16']} of the "
+          + f" (tol {BWD_TOL['bfloat16']}, {NORM_TOL['bfloat16']} of the "
           "norm)")
     del got, want
     plain_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
@@ -764,18 +898,22 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
     per_step = (cfg.num_layers * (2 if recompute else 1), cfg.num_layers,
                 cfg.num_layers)
 
+    fwd = fa_ops.flash_attention_fwd
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    losses, step_ms, launches = [], [], []
+    fwd.tensor_core_launches = 0
+    losses, step_ms, launches, tc = [], [], [], []
     for i in range(TRAIN_STEPS):
         before = [c.launches for c in counters]
+        tc_before = fwd.tensor_core_launches
         t = time.perf_counter()
         state, metrics = step_fn(state, batches[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
         launches.append([c.launches - n for c, n in zip(counters, before)])
+        tc.append(fwd.tensor_core_launches - tc_before)
         losses.append(float(metrics["loss"]))
     totals = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated()
@@ -783,6 +921,8 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(all(tuple(n) == per_step for n in launches),
           f"launches per step (fwd, dq, dkv) {launches} != {per_step}")
+    check(all(n == per_step[0] for n in tc),
+          f"tensor-core forward launches per step {tc} != {per_step[0]}")
     check(int(state["step"]) == TRAIN_STEPS, "step counter did not advance")
     timed = sorted(step_ms[1:])                    # step 1 is warm-up
     median = timed[len(timed) // 2]
@@ -801,6 +941,7 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
         "peak_memory_bytes": peak,
         "launches_per_step_fwd_dq_dkv": list(per_step),
+        "tensor_core_fwd_launches_per_step": tc,
         "launches": dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                               "flash_attention_bwd_dkv"), totals)),
         "profile": profiled,
@@ -1471,7 +1612,8 @@ def main() -> int:
     print(smi)
 
     kernels = [decode_phase(torch, da_ops, da_ref),
-               flash_phase(torch, fa_ops, fa_ref)]
+               flash_phase(torch, fa_ops, fa_ref,
+                           _build.build_log("flash_attention_fwd"))]
     cfg_full = get_config(ARCH).replace(attn_impl="pallas",
                                         decode_impl="pallas")
     served = serve_phase(torch, cfg_full, da_ops, fa_ops)

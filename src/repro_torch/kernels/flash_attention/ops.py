@@ -1,14 +1,17 @@
 """Wrappers of the flash-attention kernels, forward and backward.
 
 :func:`flash_attention` and :func:`flash_attention_fwd` go through one
-``torch.autograd.Function``: its forward runs the forward kernel
-(``csrc/flash_attention_fwd.cu``) and saves q, k, v, out and lse; its
-backward runs the dq and dk/dv kernels (``csrc/flash_attention_bwd.cu``)
-through :func:`flash_attention_bwd`. A CPU tensor goes to the plain
-versions (``ref.py``) through the same Function; a CUDA tensor goes to the
-kernels or raises: there is no fallback. ``flash_attention_fwd.launches``,
-``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``
-count each kernel's launches.
+``torch.autograd.Function`` when a gradient is to be taken: its forward
+runs the forward kernel (``csrc/flash_attention_fwd.cu``) and saves q, k,
+v, out and lse; its backward runs the dq and dk/dv kernels
+(``csrc/flash_attention_bwd.cu``) through :func:`flash_attention_bwd`.
+Without one (serving, under ``no_grad``) the forward runs alone. A CPU
+tensor goes to the plain versions (``ref.py``) by the same routes; a CUDA
+tensor goes to the kernels or raises: there is no fallback.
+``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
+``flash_attention_bwd_dkv.launches`` count each kernel's launches, and
+``flash_attention_fwd.tensor_core_launches`` those of the forward that ran
+its tensor-core (bfloat16) body.
 """
 
 from __future__ import annotations
@@ -81,7 +84,9 @@ def _check_cuda(*ts) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle, as torch's generated kernels take it, without
+    # building a torch.cuda.Stream object on every call
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _fwd(q, k, v, opts):
@@ -90,11 +95,10 @@ def _fwd(q, k, v, opts):
         return flash_attention_ref(q, k, v, **opts)
     _check_cuda(q, k, v)
     b, sq, h, hd = q.shape
-    _build.require_aligned_rows("k", k)
-    _build.require_aligned_rows("v", v)
-    if q.stride(-1) != 1:
-        raise ValueError(f"q must have unit stride on head_dim; strides "
-                         f"{q.stride()}")
+    # rows the kernels read with 16-byte loads, or by TMA, whose strides
+    # must be multiples of 16 bytes
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require_aligned_rows(name, t)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -106,10 +110,15 @@ def _fwd(q, k, v, opts):
         out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2], hd,
         strides, opts["scale"], opts["softcap"], int(opts["causal"]),
         opts["window"], opts["q_offset"], _stream(q))
+    if err == -1:
+        raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "
+                           "failed for q, k or v")
     if err:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
                            f"cudaError {err}")
     flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd.tensor_core_launches += 1
     return out, lse
 
 
@@ -227,10 +236,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Differentiable in q, k and v through ``out``."""
     _check(q, k, v)
     opts = _opts(q, causal, window, scale, softcap, q_offset)
-    return _FlashAttention.apply(q, k, v, opts)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, opts)
+    return _fwd(q, k, v, opts)      # nothing to save for a backward
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tensor_core_launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 

@@ -22,6 +22,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's dtype, lse (B, H, Sq) float32)."""
     b, sq, h, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    if skv == 0:                                      # no key at all
+        return (torch.zeros_like(q),
+                torch.full((b, h, sq), float("-inf"), dtype=torch.float32,
+                           device=q.device))
     g = h // hkv
     qg = q.float().reshape(b, sq, hkv, g, hd) * scale
     logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float())

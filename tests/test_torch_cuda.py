@@ -8,7 +8,9 @@ Run on a machine with the card:
 Imports neither JAX nor ``repro``: the machine with the card has no JAX.
 Each kernel is held against its plain version on the same CUDA inputs at
 the reference's tolerances (bf16 2e-2, f32 5e-5; the backward passes at
-f32 1e-4, given the same out, lse and do). The RG-LRU scan returns fp32
+f32 1e-4, given the same out, lse and do). The flash kernels' outputs are
+also held as a share of their norm (NORM_TOL) and the forward's lse at
+1e-4 absolute (LSE_TOL). The RG-LRU scan returns fp32
 whatever its inputs, so its forward is held at 5e-5 for bf16 inputs too;
 its gradients come back in the inputs' dtype and are held at BWD_TOL.
 The chunkwise mLSTM kernel's hs (in q's dtype) is held at TOL, its fp32
@@ -35,7 +37,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-BWD_NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+LSE_TOL = 1e-4
 
 
 @pytest.fixture
@@ -83,28 +86,80 @@ def test_decode_kernel_reads_a_strided_cache_view(cuda):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("sq,skv,opts", [
-    (1, 1, {}), (37, 37, {}), (700, 700, {}),
-    (200, 200, {"window": 64}), (130, 130, {"softcap": 30.0}),
-    (37, 42, {"q_offset": 5}),
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_plain_version(cuda, sq, skv, opts, dtype):
+# (b, sq, skv, h, hkv, hd, options): lengths at the tensor-core body's tile
+# edges (64-row query tiles, 128-key tiles) and the serving path's prompts
+# (96, 250, 511, 700), hd 32/64/128, non-causal, more
+# keys than queries with q_offset = skv - sq, no keys, windows, softcap
+# with a window, G = 1/3/4, and q, k, v as views of one fused projection
+FLASH_CASES = (
+    [(1, s, s, 12, 4, 64, {}) for s in (1, 63, 64, 65, 96, 127, 128, 129,
+                                         250, 511, 700, 1024)]
+    + [(1, s, s, 12, 4, hd, {}) for hd in (32, 128) for s in (65, 129, 700)]
+    + [(1, s, s, 12, 4, hd, {"causal": False})
+       for hd, s in ((64, 1), (64, 64), (64, 129), (64, 700), (32, 129),
+                     (128, 129))]
+    + [(1, 65, 200, 12, 4, 64, {"q_offset": 135}),
+       (1, 129, 1024, 12, 4, 64, {"q_offset": 895}),
+       (1, 64, 1024, 12, 4, 128, {"q_offset": 960}),
+       (1, 37, 300, 12, 4, 64, {"causal": False}),
+       (1, 65, 0, 12, 4, 64, {"q_offset": -65}),
+       (1, 65, 0, 12, 4, 64, {"causal": False})]
+    + [(1, 700, 700, 12, 4, 64, {"window": w}) for w in (1, 64, 127)]
+    + [(1, 129, 129, 12, 4, 128, {"window": 64}),
+       (1, 511, 511, 12, 4, 64, {"softcap": 30.0, "window": 127}),
+       (1, 129, 129, 12, 4, 32, {"softcap": 30.0})]
+    + [(2, 257, 257, h, 4, 64, {}) for h in (4, 12, 16)]
+    + [(2, 300, 300, 12, 4, 64, {"strided": True}),
+       (1, 129, 129, 12, 4, 128, {"strided": True})]
+    # the earlier sweep's cases, at batch 2
+    + [(2, 1, 1, 12, 4, 64, {}), (2, 37, 37, 12, 4, 64, {}),
+       (2, 700, 700, 12, 4, 64, {}), (2, 200, 200, 12, 4, 64, {"window": 64}),
+       (2, 130, 130, 12, 4, 64, {"softcap": 30.0}),
+       (2, 37, 42, 12, 4, 64, {"q_offset": 5})])
+
+
+def _flash_case(cuda, b, sq, skv, h, hkv, hd, opts, dtype):
+    """q, k, v and the forward's options of one FLASH_CASES entry."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    h, hkv, hd = 12, 4, 64
-    q = _randn(gen, (2, sq, h, hd), dtype, cuda)
-    k = _randn(gen, (2, skv, hkv, hd), dtype, cuda)
-    v = _randn(gen, (2, skv, hkv, hd), dtype, cuda)
+    opts = dict(opts)
+    if opts.pop("strided", False):
+        qkv = _randn(gen, (b, sq, h + 2 * hkv, hd), dtype, cuda)
+        q, k, v = qkv.split([h, hkv, hkv], dim=2)
+    else:
+        q = _randn(gen, (b, sq, h, hd), dtype, cuda)
+        k = _randn(gen, (b, skv, hkv, hd), dtype, cuda)
+        v = _randn(gen, (b, skv, hkv, hd), dtype, cuda)
     full = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
                 q_offset=0) | opts
-    before = fa_ops.flash_attention_fwd.launches
-    out, lse = fa_ops.flash_attention_fwd(q, k, v, **full)
-    torch.cuda.synchronize()
-    assert fa_ops.flash_attention_fwd.launches == before + 1
-    rout, rlse = flash_attention_ref(q, k, v, **full)
+    return q, k, v, full
+
+
+def _assert_fwd_close(out, lse, rout, rlse, dtype):
+    """out at TOL and within NORM_TOL of its norm; lse at LSE_TOL
+    absolute where a row has a live key, -inf where it has none."""
     torch.testing.assert_close(out.float(), rout.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
-    torch.testing.assert_close(lse, rlse, atol=TOL[dtype], rtol=TOL[dtype])
+    share = ((out.float() - rout.float()).norm()
+             / rout.float().norm().clamp_min(1e-30))
+    assert share <= NORM_TOL[dtype], float(share)
+    torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,hd,opts", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, b, sq, skv, h, hkv, hd,
+                                            opts, dtype):
+    """The forward against ``flash_attention_ref`` (out, and lse where a
+    row has a live key; -inf where it has none), one launch per call, on
+    the tensor-core body for bfloat16 and the CUDA-core body for float32."""
+    q, k, v, full = _flash_case(cuda, b, sq, skv, h, hkv, hd, opts, dtype)
+    fwd = fa_ops.flash_attention_fwd
+    before = (fwd.launches, fwd.tensor_core_launches)
+    out, lse = fwd(q, k, v, **full)
+    torch.cuda.synchronize()
+    assert fwd.launches == before[0] + 1
+    assert fwd.tensor_core_launches == before[1] + (dtype == torch.bfloat16)
+    _assert_fwd_close(out, lse, *flash_attention_ref(q, k, v, **full), dtype)
 
 
 @pytest.mark.parametrize("b,sq,skv,h,hkv,hd,opts", [
@@ -144,7 +199,7 @@ def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, skv, h, hkv, hd,
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol,
                                    msg=lambda m: f"{name}: {m}")
         share = (g.float() - w.float()).norm() / w.float().norm()
-        assert share <= BWD_NORM_TOL[dtype], (name, float(share))
+        assert share <= NORM_TOL[dtype], (name, float(share))
 
 
 def test_train_step_on_card_matches_cpu(cuda):

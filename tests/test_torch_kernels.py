@@ -7,6 +7,8 @@ plain PyTorch versions. Tolerances are the reference's own
 (``tests/test_kernels.py``): 5e-5 in float32, 2e-2 in bfloat16.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from repro.kernels.flash_attention import kernel as j_flash_kernel
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_fref
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_fwd)
@@ -312,6 +315,56 @@ def test_flash_attention_rejects_bad_inputs():
         flash_attention(q, torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32))
     with pytest.raises(ValueError, match="cuda"):
         flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_without_keys_gives_zeros_and_no_lse(hd, dtype,
+                                                             causal):
+    """Skv = 0: every row has no live key, so out is 0 (in q's dtype) and
+    lse is -inf (the kernel's rule for a dead row), causal or not."""
+    q = torch.ones(2, 5, 4, hd, dtype=dtype)
+    k = torch.zeros(2, 0, 2, hd, dtype=dtype)
+    out, lse = flash_attention_fwd(q, k, k, causal=causal, q_offset=-5)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool((out == 0).all())
+    assert lse.shape == (2, 4, 5) and bool((lse == -math.inf).all())
+
+
+def test_flash_attention_fwd_saves_nothing_without_grad():
+    """Without a gradient to take, the forward skips the autograd Function
+    and gives the same numbers."""
+    rng = np.random.default_rng(17)
+    _, ts = _flash_inputs(rng, 1, 40, 40, 4, 2, 32, "float32")
+    with torch.no_grad():
+        out, lse = flash_attention_fwd(*ts, causal=True)
+    assert out.grad_fn is None
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    g_out, g_lse = flash_attention_fwd(*leaves, causal=True)
+    assert g_out.grad_fn is not None and not g_lse.requires_grad
+    torch.testing.assert_close(out, g_out.detach(), atol=0, rtol=0)
+    torch.testing.assert_close(lse, g_lse, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 96, 127, 128, 129, 250, 511,
+                               700])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_serving_prompt_lengths_launch_nothing_on_cpu(s,
+                                                                      dtype):
+    """One prompt of the dense model's serving path (B = 1, 12 query and 4
+    KV heads, hd = 64, causal) at the serving lengths and the kernel's
+    tile edges: the plain version matches the reference and counts no
+    kernel launch, tensor-core or other."""
+    rng = np.random.default_rng(20)
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(rng, 1, s, s, 12, 4, 64,
+                                               dtype)
+    fwd = fa_ops.flash_attention_fwd
+    before = (fwd.launches, fwd.tensor_core_launches)
+    out, lse = fwd(tq, tk, tv, causal=True)
+    assert (fwd.launches, fwd.tensor_core_launches) == before
+    assert out.dtype == tq.dtype and lse.shape == (1, 12, s)
+    _close(out, j_fref(jq, jk, jv, causal=True), dtype)
 
 
 # ---------------------------------------------------------------------------
