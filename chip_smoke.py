@@ -18,7 +18,8 @@ then:
    at the tile edges 1/63/64/65/127/128/129/700/1024 and the serving
    prompts 96/250/511/700, causal and not, Skv > Sq with q_offset =
    Skv - Sq, Skv = 0, windows 1/64/127, softcap with a window, G = 1/3/4,
-   strided q/k/v views, and the training shape B = 8, S = 1024; out also
+   strided q/k/v views, views at an odd element offset (copied
+   contiguous by the wrapper), and the training shape B = 8, S = 1024; out also
    within 1e-2 / 1e-4 of its norm and lse within 1e-4 absolute; requires
    ptxas to report no spills; times it at each serving shape and at the
    training shape, printing kernel, device and SDPA ms, kernel/SDPA and
@@ -29,18 +30,25 @@ then:
    launch on the tensor-core body;
 5. serves 2 requests in float32 on the card and on the CPU (plain
    versions) and requires identical greedy tokens;
-6. holds the two flash-attention backward kernels (dq pass, dk/dv pass)
-   against their plain version on the card (MHA, GQA 4x, G = 3; S = 96,
-   250, 1024; window, softcap, q_offset; f32 at 1e-4, bf16 at 2e-2, and
-   each output's error within 1e-4 / 1e-2 of its norm), checks them again
-   at the training shape (B = 8, S = 1024, bf16) and times each pass, the
-   plain version and SDPA's backward there;
+6. holds the two flash-attention backward kernels (dq pass, dk/dv pass;
+   bf16 on their tensor-core bodies, each bf16 call counted by
+   ``tensor_core_launches``, f32 on their CUDA-core bodies) against their
+   plain version on the card: hd 32/64/128, Sq at the tile edges
+   1/63/64/65/127/128/129/250/1024, causal and not, Skv > Sq with
+   q_offset, windows 1/64, softcap, G = 1/3/4, strided q/k/v/do views and
+   keyless rows (f32 at 1e-4, bf16 at 2e-2, and each output's error
+   within 1e-4 / 1e-2 of its norm, or within 1e-4 of zero where the plain
+   version's is zero to rounding); requires ptxas to report no spills;
+   checks them again at the training shape (B = 8, S = 1024, bf16) and
+   times each pass there (events and the profiler's device time), the
+   plain version and SDPA's whole backward, printing kernel/SDPA and
+   bound/kernel;
 7. trains ``aiida-demo-110m`` at full width (bf16 activations, fp32
    parameters, AdamW, the config's remat policy) for 6 steps of 8 x 1024
    tokens through ``make_train_step`` and checks every loss is finite and
-   every step launched 24 flash forwards (forward + remat recompute), all
-   on the tensor-core body, 12 dq and 12 dk/dv passes; prints tokens/s, ms
-   per step, peak memory and a profiled step;
+   every step launched 24 flash forwards (forward + remat recompute), 12
+   dq and 12 dk/dv passes, all on their tensor-core bodies; prints
+   tokens/s, ms per step, peak memory and a profiled step;
 8. takes one full-width float32 train step's gradients on the card and on
    the CPU (plain versions) from the same parameters and batch, and holds
    loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
@@ -109,6 +117,10 @@ NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 # the flash forward's lse, absolute in both dtypes (it is accumulated in
 # fp32 either way): a bound relative to lse's size would grow with it
 LSE_TOL = 1e-4
+# a backward output the plain version gives as zero to rounding (dq and
+# dk when every row sees one key): its share of a zero norm is undefined,
+# so the kernel's must be zero too, within this absolute bound
+ZERO_TOL = 1e-4
 L2_BYTES = 50 * 2**20
 
 ARCH = "aiida-demo-110m"
@@ -178,8 +190,10 @@ def max_err(torch, a, b) -> float:
 def bwd_close(torch, got, want, dt_name: str, what: str) -> dict:
     """Hold backward outputs (dq, dk, dv) against the plain version's:
     elementwise at ``BWD_TOL`` and as a share of each output's norm at
-    ``NORM_TOL``. Returns each output's max abs error and, under
-    ``share_<name>``, its error as a share of its norm."""
+    ``NORM_TOL``, or, where the plain version's output is zero to rounding,
+    within ``ZERO_TOL`` of zero. Returns each output's max abs error and,
+    under ``share_<name>``, its error as a share of its norm (0 for a zero
+    output)."""
     tol, norm_tol = BWD_TOL[dt_name], NORM_TOL[dt_name]
     errs = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -188,6 +202,12 @@ def bwd_close(torch, got, want, dt_name: str, what: str) -> dict:
         errs[name] = max_err(torch, g, w)
         check(torch.allclose(g, w, atol=tol, rtol=tol),
               f"{what}: {name} max abs err {errs[name]} > {tol}")
+        if float(w.abs().max()) <= ZERO_TOL:
+            check(float(g.abs().max()) <= ZERO_TOL,
+                  f"{what}: {name} is zero in the plain version, but the "
+                  f"kernel's reaches {float(g.abs().max())} > {ZERO_TOL}")
+            errs[f"share_{name}"] = 0.0
+            continue
         share = float((g - w).norm() / w.norm().clamp_min(1e-30))
         check(share <= norm_tol,
               f"{what}: {name} error is {share:.3e} of its norm > {norm_tol}")
@@ -287,7 +307,8 @@ def decode_phase(torch, da_ops, da_ref) -> dict:
 
 # the forward's sweep: each case is (b, sq, skv, h, hkv, hd, options); a
 # "strided" case reads q, k and v as views of one fused (b, s, h + 2 hkv,
-# hd) projection, so q's rows are strided
+# hd) projection, so q's rows are strided; an "odd" case reads views one
+# element into their storage, whose rows are not 16-byte aligned
 _C = dict(h=12, hkv=4, hd=64, b=1)
 # the serving path's prompts among the tile-edge lengths
 FLASH_CASES = (
@@ -311,6 +332,8 @@ FLASH_CASES = (
     + [dict(_C, b=2, sq=257, skv=257, h=h) for h in (4, 12, 16)]   # G 1/3/4
     + [dict(_C, b=2, sq=300, skv=300, strided=True),
        dict(_C, sq=129, skv=129, strided=True, hd=128)]
+    + [dict(_C, b=2, sq=129, skv=129, odd=True),
+       dict(_C, sq=65, skv=200, q_offset=135, hd=128, odd=True)]
     # the earlier sweep's cases
     + [dict(_C, sq=37, skv=37), dict(_C, sq=511, skv=511, softcap=30.0),
        dict(_C, sq=37, skv=42, q_offset=5)])
@@ -322,6 +345,13 @@ def flash_inputs(torch, gen, c: dict, dt):
         qkv = torch.randn(b, c["sq"], c["h"] + 2 * c["hkv"], hd,
                           generator=gen, device="cuda").to(dt)
         return qkv.split([c["h"], c["hkv"], c["hkv"]], dim=2)
+    if c.get("odd"):
+        def odd(*shape):
+            flat = torch.randn(math.prod(shape) + 1, generator=gen,
+                               device="cuda").to(dt)
+            return flat[1:].view(shape)
+        return (odd(b, c["sq"], c["h"], hd), odd(b, c["skv"], c["hkv"], hd),
+                odd(b, c["skv"], c["hkv"], hd))
     return (torch.randn(b, c["sq"], c["h"], hd, generator=gen,
                         device="cuda").to(dt),
             torch.randn(b, c["skv"], c["hkv"], hd, generator=gen,
@@ -330,11 +360,11 @@ def flash_inputs(torch, gen, c: dict, dt):
                         device="cuda").to(dt))
 
 
-def ptxas_usage(log: str, hd: int) -> dict:
-    """Registers and spills ptxas reported for the tensor-core body's
-    head_dim ``hd`` instantiation."""
+def ptxas_usage(log: str, kernel: str, hd: int) -> dict:
+    """Registers and spills ptxas reported for the head_dim ``hd``
+    instantiation of the tensor-core body ``kernel``."""
     lines = log.splitlines()
-    tag = f"flash_fwd_wgmma_kernelILi{hd}EE"
+    tag = f"{kernel}ILi{hd}EE"
     at = next((i for i, line in enumerate(lines)
                if "Compiling entry" in line and tag in line), None)
     check(at is not None, f"ptxas reported nothing for {tag}")
@@ -381,7 +411,8 @@ def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
     # ptxas's report of every tensor-core instantiation
     usage = {}
     for hd in fa_ops._HEAD_DIMS:
-        usage[f"hd{hd}"] = u = ptxas_usage(build_log, hd)
+        usage[f"hd{hd}"] = u = ptxas_usage(build_log,
+                                           "flash_fwd_wgmma_kernel", hd)
         check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
               f"the tensor-core body spills at hd={hd}: {u}")
     print(f"flash_attention_fwd tensor-core body, ptxas: {usage}")
@@ -743,13 +774,57 @@ def parity_phase(torch, cfg_full) -> dict:
 # phase 6: flash attention backward
 # ---------------------------------------------------------------------------
 
-def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
+# the backward's sweep: each case is (b, sq, skv, h, hkv, hd, options);
+# "strided" reads q, k and v as views of one fused projection and do as
+# every other head of a wider tensor; a negative q_offset leaves the first
+# rows without a key (lse = -inf)
+_D = dict(b=2, h=12, hkv=4, hd=64)
+BWD_CASES = (
+    [dict(_D, sq=s, skv=s, hd=hd) for hd in (32, 64, 128)
+     for s in (1, 63, 64, 65, 127, 128, 129, 250)]
+    + [dict(_D, b=1, sq=1024, skv=1024, hd=hd) for hd in (32, 64, 128)]
+    + [dict(_D, sq=s, skv=s, hd=hd, causal=False)
+       for hd, s in ((32, 129), (64, 1), (64, 65), (64, 250), (128, 129))]
+    + [dict(_D, sq=65, skv=200, q_offset=135, hd=hd) for hd in (32, 64, 128)]
+    + [dict(_D, sq=37, skv=300, causal=False),
+       dict(_D, sq=96, skv=128, q_offset=32)]
+    + [dict(_D, sq=250, skv=250, hd=hd, window=w) for w in (1, 64)
+       for hd in (32, 64, 128)]
+    + [dict(_D, sq=250, skv=250, softcap=30.0),
+       dict(_D, sq=129, skv=129, hd=128, softcap=30.0, window=64),
+       dict(_D, sq=129, skv=129, hd=32, softcap=30.0)]
+    + [dict(_D, sq=257, skv=257, h=h) for h in (4, 12, 16)]     # G 1/3/4
+    + [dict(_D, sq=250, skv=250, h=8, hkv=2)]
+    + [dict(_D, sq=300, skv=300, strided=True),
+       dict(_D, sq=129, skv=129, hd=128, strided=True),
+       dict(_D, sq=65, skv=65, hd=32, strided=True)]
+    + [dict(_D, sq=40, skv=40, q_offset=-10),
+       dict(_D, sq=100, skv=100, q_offset=-70, hd=128, window=16)])
+
+
+def bwd_inputs(torch, gen, c: dict, dt):
+    q, k, v = flash_inputs(torch, gen, c, dt)
+    shape = (c["b"], c["sq"], c["h"], c["hd"])
+    if c.get("strided"):
+        do = torch.randn(c["b"], c["sq"], 2 * c["h"], c["hd"], generator=gen,
+                         device="cuda").to(dt)[:, :, ::2]
+    else:
+        do = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return q, k, v, do
+
+
+def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
+    passes = (fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv)
+    # ptxas's report of every tensor-core instantiation of both passes
+    usage = {}
+    for kernel in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        for hd in fa_ops._HEAD_DIMS:
+            usage[f"{kernel}<{hd}>"] = u = ptxas_usage(build_log, kernel, hd)
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"{kernel} spills at hd={hd}: {u}")
+    print(f"flash_attention_bwd tensor-core bodies, ptxas: {usage}")
+
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = [dict(s=96, h=4, hkv=4), dict(s=250, h=8, hkv=2),
-             dict(s=1024, h=12, hkv=4), dict(s=250, h=12, hkv=4, window=64),
-             dict(s=250, h=12, hkv=4, softcap=30.0),
-             dict(s=96, skv=128, h=12, hkv=4, q_offset=32)]
-    hd = 64
     worst = {"dq": 0.0, "dkv": 0.0, "share_dq": 0.0, "share_dkv": 0.0}
 
     def note(errs):
@@ -759,24 +834,24 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
                                         *(errs[f"share_{n}"] for n in names))
     for dt_name in ("bfloat16", "float32"):
         dt = getattr(torch, dt_name)
-        for c in cases:
-            sq, skv = c["s"], c.get("skv", c["s"])
-            opts = dict(causal=True, window=c.get("window", 0),
-                        scale=hd ** -0.5, softcap=c.get("softcap", 0.0),
+        for c in BWD_CASES:
+            opts = dict(causal=c.get("causal", True),
+                        window=c.get("window", 0), scale=c["hd"] ** -0.5,
+                        softcap=c.get("softcap", 0.0),
                         q_offset=c.get("q_offset", 0))
-            q = torch.randn(2, sq, c["h"], hd, generator=gen,
-                            device="cuda").to(dt)
-            k = torch.randn(2, skv, c["hkv"], hd, generator=gen,
-                            device="cuda").to(dt)
-            v = torch.randn(2, skv, c["hkv"], hd, generator=gen,
-                            device="cuda").to(dt)
-            do = torch.randn(2, sq, c["h"], hd, generator=gen,
-                             device="cuda").to(dt)
+            q, k, v, do = bwd_inputs(torch, gen, c, dt)
             out, lse = fa_ops.flash_attention_fwd(q, k, v, **opts)
+            before = [(p.launches, p.tensor_core_launches) for p in passes]
             got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **opts)
+            torch.cuda.synchronize()
+            counts = [(p.launches - n, p.tensor_core_launches - t)
+                      for p, (n, t) in zip(passes, before)]
+            tc = int(dt_name == "bfloat16")
+            check(counts == [(1, tc), (1, tc)],
+                  f"flash bwd {dt_name} {c}: (launches, tensor-core "
+                  f"launches) of dq, dk/dv {counts}")
             want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                                   **opts)
-            torch.cuda.synchronize()
             tol = BWD_TOL[dt_name]
             errs = bwd_close(torch, got, want, dt_name,
                              f"flash bwd {dt_name} {c}")
@@ -787,7 +862,7 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
 
     # the training phase's shapes, bf16 causal: checked on the first input
     # set (whose plain backward is also the one timed), then timed
-    b, s, h, hkv, dt = TRAIN_BATCH, TRAIN_SEQ, 12, 4, torch.bfloat16
+    b, s, h, hkv, hd, dt = TRAIN_BATCH, TRAIN_SEQ, 12, 4, 64, torch.bfloat16
     opts = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
                 q_offset=0)
     q_bytes, kv_bytes, row_bytes = (b * s * h * hd * 2, b * s * hkv * hd * 2,
@@ -810,6 +885,18 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
     dkv_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
                      fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                     opts), sets, iters=20)
+    # each pass's own device time, from the profiler
+    rotate = itertools.cycle(sets)
+
+    def one_pass(fn):
+        q, k, v, do, out, lse, delta = next(rotate)
+        fn(q, k, v, do, lse, delta, opts)
+
+    device_ms = {
+        name: device_share(torch, lambda: one_pass(fn), 10)[
+            "device_ms_by_kind"][f"flash_bwd_{name}"]
+        for name, fn in (("dq", fa_ops.flash_attention_bwd_dq),
+                         ("dkv", fa_ops.flash_attention_bwd_dkv))}
     q, k, v, do, out, lse, delta = sets[0]
     got = (fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, opts),
            *fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, opts))
@@ -841,7 +928,14 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
                     do.transpose(1, 2).contiguous()))
     library_ms = time_ms(torch, lambda o, ins, g: torch.autograd.grad(
         o, ins, g, retain_graph=True), lib, iters=20)
-    del lib, sets
+    rotate = itertools.cycle(lib)
+
+    def sdpa_bwd():
+        o, ins, g = next(rotate)
+        torch.autograd.grad(o, ins, g, retain_graph=True)
+
+    library_device_ms = device_share(torch, sdpa_bwd, 10)["device_ms"]
+    del lib, sets, rotate
 
     pairs = b * h * s * (s + 1) // 2
     rows = []
@@ -860,13 +954,27 @@ def flash_bwd_phase(torch, fa_ops, fa_ref) -> list[dict]:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
+            "device_ms": device_ms[name],
+            "library_device_ms": library_device_ms,
+            "kernel_over_sdpa": ms / library_ms,
+            "bound_over_kernel": max(t_bytes, t_ops) / ms,
+            "ptxas": {hd_: usage[f"flash_bwd_{name}_wgmma_kernel<{hd_}>"]
+                      for hd_ in fa_ops._HEAD_DIMS},
             "timed_at": f"B={b} S={s} H={h} Hkv={hkv} hd={hd} bf16 causal; "
                         "plain_ms and library_ms are the whole backward "
                         "(dq, dk and dv in one call)",
         })
-        print(f"flash_attention_bwd_{name} timing: kernel {ms:.4f} ms, "
-              f"plain (whole bwd) {plain_ms:.4f} ms, sdpa bwd (whole) "
-              f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
+        print(f"flash_attention_bwd_{name} timing: kernel {ms:.5f} ms "
+              f"(device {device_ms[name]:.5f} ms), sdpa bwd (whole) "
+              f"{library_ms:.5f} ms (device {library_device_ms:.5f} ms), "
+              f"kernel/sdpa {ms / library_ms:.3f}, bound "
+              f"{max(t_bytes, t_ops):.5f} ms ({rows[-1]['bound_by']}), "
+              f"bound/kernel {max(t_bytes, t_ops) / ms:.4f}, plain (whole "
+              f"bwd) {plain_ms:.4f} ms")
+    print(f"flash_attention_bwd pair timing: dq + dk/dv {dq_ms + dkv_ms:.5f}"
+          f" ms (device {device_ms['dq'] + device_ms['dkv']:.5f} ms), sdpa "
+          f"bwd {library_ms:.5f} ms, pair/sdpa "
+          f"{(dq_ms + dkv_ms) / library_ms:.3f}")
     return rows
 
 
@@ -898,22 +1006,22 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
     per_step = (cfg.num_layers * (2 if recompute else 1), cfg.num_layers,
                 cfg.num_layers)
 
-    fwd = fa_ops.flash_attention_fwd
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    fwd.tensor_core_launches = 0
+        c.tensor_core_launches = 0
     losses, step_ms, launches, tc = [], [], [], []
     for i in range(TRAIN_STEPS):
-        before = [c.launches for c in counters]
-        tc_before = fwd.tensor_core_launches
+        before = [(c.launches, c.tensor_core_launches) for c in counters]
         t = time.perf_counter()
         state, metrics = step_fn(state, batches[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-        launches.append([c.launches - n for c, n in zip(counters, before)])
-        tc.append(fwd.tensor_core_launches - tc_before)
+        launches.append([c.launches - n for c, (n, _) in zip(counters,
+                                                             before)])
+        tc.append([c.tensor_core_launches - n
+                   for c, (_, n) in zip(counters, before)])
         losses.append(float(metrics["loss"]))
     totals = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated()
@@ -921,8 +1029,9 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     check(all(tuple(n) == per_step for n in launches),
           f"launches per step (fwd, dq, dkv) {launches} != {per_step}")
-    check(all(n == per_step[0] for n in tc),
-          f"tensor-core forward launches per step {tc} != {per_step[0]}")
+    check(all(tuple(n) == per_step for n in tc),
+          f"tensor-core launches per step (fwd, dq, dkv) {tc} != "
+          f"{per_step}")
     check(int(state["step"]) == TRAIN_STEPS, "step counter did not advance")
     timed = sorted(step_ms[1:])                    # step 1 is warm-up
     median = timed[len(timed) // 2]
@@ -941,7 +1050,7 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
         "peak_memory_bytes": peak,
         "launches_per_step_fwd_dq_dkv": list(per_step),
-        "tensor_core_fwd_launches_per_step": tc,
+        "tensor_core_launches_per_step_fwd_dq_dkv": tc,
         "launches": dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                               "flash_attention_bwd_dkv"), totals)),
         "profile": profiled,
@@ -1618,7 +1727,8 @@ def main() -> int:
                                         decode_impl="pallas")
     served = serve_phase(torch, cfg_full, da_ops, fa_ops)
     parity = parity_phase(torch, cfg_full)
-    kernels += flash_bwd_phase(torch, fa_ops, fa_ref)
+    kernels += flash_bwd_phase(torch, fa_ops, fa_ref,
+                               _build.build_log("flash_attention_bwd"))
     trained = train_phase(torch, cfg_full, fa_ops)
     train_parity = train_parity_phase(torch, cfg_full)
     kernels.append(rglru_phase(torch, rg_ops, rg_ref))

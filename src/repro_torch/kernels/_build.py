@@ -3,8 +3,9 @@
 Each ``kernels/*/csrc/<name>.cu`` exports a plain C function and is
 compiled on first use with ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library under ``<checkout>/build/repro_torch_kernels/``. The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded. Libraries are bound with
+name carries a hash of the source, of every ``*.cuh`` header beside it and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. Libraries are bound with
 ``ctypes``: pointers and the stream travel as ``c_void_p``, and every
 launch function returns ``cudaGetLastError()``.
 
@@ -57,7 +58,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes())
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

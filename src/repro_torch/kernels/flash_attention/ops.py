@@ -10,8 +10,10 @@ tensor goes to the plain versions (``ref.py``) by the same routes; a CUDA
 tensor goes to the kernels or raises: there is no fallback.
 ``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
 ``flash_attention_bwd_dkv.launches`` count each kernel's launches, and
-``flash_attention_fwd.tensor_core_launches`` those of the forward that ran
-its tensor-core (bfloat16) body.
+``.tensor_core_launches`` on each of the three those that ran its
+tensor-core (bfloat16) body. q, k, v and do whose rows the kernels cannot
+read with 16-byte loads or TMA (an odd-offset view, a stride-0 cotangent)
+are copied contiguous first.
 """
 
 from __future__ import annotations
@@ -95,10 +97,7 @@ def _fwd(q, k, v, opts):
         return flash_attention_ref(q, k, v, **opts)
     _check_cuda(q, k, v)
     b, sq, h, hd = q.shape
-    # rows the kernels read with 16-byte loads, or by TMA, whose strides
-    # must be multiples of 16 bytes
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require_aligned_rows(name, t)
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:
@@ -123,9 +122,9 @@ def _fwd(q, k, v, opts):
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read its rows with 16-byte loads,
-    else a contiguous copy (a stride-0 cotangent from ``.sum()``, a view at
-    an odd offset)."""
+    """``t`` itself when the kernels can read its rows with 16-byte loads or
+    TMA (whose strides must be multiples of 16 bytes), else a contiguous
+    copy (a stride-0 cotangent from ``.sum()``, a view at an odd offset)."""
     if _build.rows_aligned(t):
         return t
     return t.clone(memory_format=torch.contiguous_format)
@@ -143,15 +142,25 @@ def _bwd_args(q, k, v, do, lse, delta, opts):
     return head, tail
 
 
+def _bwd_done(counter, what: str, err: int, dtype) -> None:
+    """Raise on a failed launch, else count it on ``counter``."""
+    if err == -1:
+        raise RuntimeError(f"flash_attention_bwd {what}: "
+                           "cuTensorMapEncodeTiled failed for q, k, v or do")
+    if err:
+        raise RuntimeError(f"flash_attention_bwd {what} kernel launch "
+                           f"failed: cudaError {err}")
+    counter.launches += 1
+    if dtype == torch.bfloat16:
+        counter.tensor_core_launches += 1
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, opts) -> torch.Tensor:
     """Launch the dq pass (CUDA tensors, checked by the caller)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     head, tail = _bwd_args(q, k, v, do, lse, delta, opts)
     err = _bwd_launcher("dq")(*head, dq.data_ptr(), *tail)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd dq kernel launch failed: "
-                           f"cudaError {err}")
-    flash_attention_bwd_dq.launches += 1
+    _bwd_done(flash_attention_bwd_dq, "dq", err, q.dtype)
     return dq
 
 
@@ -162,10 +171,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, opts
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     head, tail = _bwd_args(q, k, v, do, lse, delta, opts)
     err = _bwd_launcher("dkv")(*head, dk.data_ptr(), dv.data_ptr(), *tail)
-    if err:
-        raise RuntimeError(f"flash_attention_bwd dk/dv kernel launch "
-                           f"failed: cudaError {err}")
-    flash_attention_bwd_dkv.launches += 1
+    _bwd_done(flash_attention_bwd_dkv, "dk/dv", err, q.dtype)
     return dk, dv
 
 
@@ -245,7 +251,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.tensor_core_launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tensor_core_launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tensor_core_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

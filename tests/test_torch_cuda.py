@@ -162,6 +162,32 @@ def test_flash_kernel_matches_plain_version(cuda, b, sq, skv, h, hkv, hd,
     _assert_fwd_close(out, lse, *flash_attention_ref(q, k, v, **full), dtype)
 
 
+@pytest.mark.parametrize("odd_q,odd_kv", [(True, True), (True, False),
+                                          (False, True)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_views_at_an_odd_offset(cuda, odd_q, odd_kv, hd,
+                                                   dtype):
+    """q, k or v one element into their storage (rows not 16-byte aligned):
+    the wrapper copies them contiguous, and out and lse match the plain
+    version at the forward's bars."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def make(shape, odd):
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        flat = _randn(gen, (n + odd,), dtype, cuda)
+        return flat[int(odd):].view(shape)
+
+    q = make((2, 129, 12, hd), odd_q)
+    k, v = (make((2, 129, 4, hd), odd_kv) for _ in range(2))
+    assert (q.data_ptr() % 16 != 0) == odd_q
+    full = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+                q_offset=0)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, **full)
+    torch.cuda.synchronize()
+    _assert_fwd_close(out, lse, *flash_attention_ref(q, k, v, **full), dtype)
+
+
 @pytest.mark.parametrize("b,sq,skv,h,hkv,hd,opts", [
     (2, 96, 96, 4, 4, 32, {}),                         # MHA
     (1, 250, 250, 8, 2, 64, {}),                       # GQA 4x, ragged
@@ -170,13 +196,24 @@ def test_flash_kernel_matches_plain_version(cuda, b, sq, skv, h, hkv, hd,
     (2, 37, 42, 12, 4, 64, {"q_offset": 5}),
     (1, 40, 70, 4, 2, 64, {"q_offset": 30, "window": 16}),
     (1, 1024, 1024, 12, 4, 64, {}),
+    # the tensor-core bodies' tile edges (64 queries; 128 keys, 64 at
+    # hd = 128) and what they treat specially
+    (2, 65, 65, 12, 4, 32, {}),
+    (2, 129, 129, 12, 4, 128, {}),
+    (1, 127, 127, 12, 4, 64, {"causal": False}),
+    (1, 129, 129, 12, 4, 128, {"causal": False}),
+    (1, 65, 200, 12, 4, 128, {"q_offset": 135}),
+    (1, 100, 100, 4, 4, 64, {"q_offset": 9, "window": 33}),  # G = 1
+    (2, 40, 40, 12, 4, 32, {"q_offset": -10}),             # keyless rows
+    (1, 250, 250, 16, 4, 64, {"softcap": 30.0, "window": 64}),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, skv, h, hkv, hd,
                                                opts, dtype):
     """Both backward passes against ``flash_attention_bwd_ref`` given the
     same out, lse and do (fp32 1e-4, bf16 2e-2 abs+rel), and each output's
-    error as a share of its norm (fp32 1e-4, bf16 1e-2)."""
+    error as a share of its norm (fp32 1e-4, bf16 1e-2); one launch of
+    each pass, on its tensor-core body for bfloat16."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     q = _randn(gen, (b, sq, h, hd), dtype, cuda)
     k = _randn(gen, (b, skv, hkv, hd), dtype, cuda)
@@ -185,13 +222,13 @@ def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, skv, h, hkv, hd,
     full = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
                 q_offset=0) | opts
     out, lse = fa_ops.flash_attention_fwd(q, k, v, **full)
-    before = (fa_ops.flash_attention_bwd_dq.launches,
-              fa_ops.flash_attention_bwd_dkv.launches)
+    passes = (fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv)
+    before = [(p.launches, p.tensor_core_launches) for p in passes]
     got = fa_ops.flash_attention_bwd(q, k, v, out, lse, do, **full)
     torch.cuda.synchronize()
-    assert (fa_ops.flash_attention_bwd_dq.launches,
-            fa_ops.flash_attention_bwd_dkv.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    tc = int(dtype == torch.bfloat16)
+    assert [(p.launches - n, p.tensor_core_launches - t)
+            for p, (n, t) in zip(passes, before)] == [(1, tc), (1, tc)]
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, **full)
     tol = BWD_TOL[dtype]
     for name, g, w in zip(("dq", "dk", "dv"), got, want):

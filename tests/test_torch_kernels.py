@@ -381,6 +381,15 @@ BWD_CASES = [
     dict(b=1, s=96, h=12, hkv=4, hd=64, window=32),      # G = 3, window
     dict(b=1, s=64, h=4, hkv=2, hd=32, softcap=5.0),
     dict(b=1, s=32, skv=64, h=4, hkv=2, hd=32, q_offset=32),
+    # what the card's tensor-core bodies treat specially: no causal mask,
+    # hd = 128 (its own tile sizes), lengths across the 64-row tiles, and
+    # G = 1 with a query offset and a window. The reference shrinks its
+    # tiles until they divide the length (to 1 row at 65 and 129), so the
+    # 129-row case gives it one tile instead (``block``)
+    dict(b=1, s=64, h=4, hkv=2, hd=32, causal=False),
+    dict(b=1, s=65, h=2, hkv=1, hd=128),
+    dict(b=1, s=129, h=4, hkv=2, hd=32, block=256),
+    dict(b=1, s=40, skv=72, h=2, hkv=2, hd=32, q_offset=32, window=24),
 ]
 
 
@@ -391,7 +400,7 @@ def _bwd_inputs(rng, c, dtype):
         rng, c["b"], c["s"], skv, c["h"], c["hkv"], c["hd"], dtype, std=std)
     jdo, tdo = _pair(rng.normal(0, 1, (c["b"], c["s"], c["h"], c["hd"])),
                      dtype)
-    opts = dict(causal=True, window=c.get("window", 0),
+    opts = dict(causal=c.get("causal", True), window=c.get("window", 0),
                 scale=c["hd"] ** -0.5, softcap=c.get("softcap", 0.0),
                 q_offset=c.get("q_offset", 0))
     return (jq, jk, jv, jdo), (tq, tk, tv, tdo), opts
@@ -410,9 +419,10 @@ def test_flash_attention_bwd_matches_reference_kernel(case, dtype):
     out, lse = flash_attention_fwd(tq, tk, tv, **opts)
     got = flash_attention_bwd(tq, tk, tv, out, lse, tdo, **opts)
     j_out = jnp.asarray(out.float().numpy(), J_DT[dtype])
+    block = case.get("block", 32)
     want = j_flash_kernel.flash_attention_bwd(
-        jq, jk, jv, j_out, jnp.asarray(lse.numpy()), jdo, block_q=32,
-        block_kv=32, interpret=True, **opts)
+        jq, jk, jv, j_out, jnp.asarray(lse.numpy()), jdo, block_q=block,
+        block_kv=block, interpret=True, **opts)
     for g, w, t in zip(got, want, (tq, tk, tv)):
         assert g.dtype == t.dtype and g.shape == t.shape
         np.testing.assert_allclose(_np(g), _np(w), atol=BWD_TOL[dtype],
@@ -486,3 +496,69 @@ def test_flash_attention_bwd_keyless_rows_give_zero():
     for g in (dq, dk, dv):
         assert torch.isfinite(g).all()
     assert (dq[:, :4] == 0).all()
+
+
+def _tensor_core_bwd(q, k, v, out, lse, do, *, causal, window, scale,
+                     softcap, q_offset):
+    """The card's bfloat16 backward bodies in plain torch: fp32 logits, p
+    and dS as in the reference, but P (before P^T.dO) and dS (before dS.K
+    and dS^T.Q) rounded to bfloat16, products accumulated in fp32, and the
+    outputs rounded to bfloat16."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, sq, hkv, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, sq, hkv, g, hd)
+    raw = torch.einsum("bskgh,btkh->bkgst", qf, kf) * scale
+    if softcap > 0.0:
+        t = torch.tanh(raw / softcap)
+        logits, dcap = softcap * t, 1.0 - t * t
+    else:
+        logits, dcap = raw, 1.0
+    q_pos = torch.arange(sq)[:, None] + q_offset
+    k_pos = torch.arange(skv)[None, :]
+    live = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        live &= k_pos <= q_pos
+    if window > 0:
+        live &= k_pos > q_pos - window
+    lse_g = lse.reshape(b, hkv, g, sq)[..., None]
+    live = live & torch.isfinite(lse_g)
+    p = torch.where(live, torch.exp(logits - torch.where(live, lse_g, 0.0)),
+                    0.0)
+    delta = (dof * out.float().reshape(b, sq, hkv, g, hd)).sum(-1)
+    dp = torch.einsum("bskgh,btkh->bkgst", dof, vf)
+    ds = torch.where(live, p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+                     * dcap, 0.0)
+    p16, ds16 = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.einsum("bkgst,btkh->bskgh", ds16, kf) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds16, qf) * scale
+    dv = torch.einsum("bkgst,bskgh->btkh", p16, dof)
+    return tuple(x.to(torch.bfloat16) for x in
+                 (dq.reshape(b, sq, h, hd), dk, dv))
+
+
+def test_tensor_core_rounding_stays_inside_the_bf16_bars():
+    """The rounding the card's bfloat16 backward adds (P and dS to bf16
+    before their products), emulated in plain torch at the training
+    shape's heads and length (B = 1, S = 1024, H = 12, Hkv = 4, hd = 64,
+    causal), against the reference's backward kernels in interpret mode:
+    each output within 2e-2 abs+rel, and its error within 1e-2 of its
+    norm, the bars the card's check holds the kernels to."""
+    rng = np.random.default_rng(22)
+    c = dict(b=1, s=1024, h=12, hkv=4, hd=64)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo), opts = _bwd_inputs(rng, c,
+                                                             "bfloat16")
+    out, lse = flash_attention_fwd(tq, tk, tv, **opts)
+    got = _tensor_core_bwd(tq, tk, tv, out, lse, tdo, **opts)
+    want = j_flash_kernel.flash_attention_bwd(
+        jq, jk, jv, jnp.asarray(out.float().numpy(), jnp.bfloat16),
+        jnp.asarray(lse.numpy()), jdo, block_q=512, block_kv=512,
+        interpret=True, **opts)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = _np(g), _np(w)
+        np.testing.assert_allclose(g, w, atol=BWD_TOL["bfloat16"],
+                                   rtol=BWD_TOL["bfloat16"], err_msg=name)
+        share = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert share <= 1e-2, (name, share)
