@@ -9,9 +9,13 @@ then:
 
 1. prints the card's ``nvidia-smi`` name and power limit and what
    ``ptxas`` reported for each kernel;
-2. holds the decode-attention kernel against its plain PyTorch version
-   (ragged lengths incl. 0 and Smax; bf16 at 2e-2, f32 at 5e-5) and times
-   kernel, plain version and SDPA;
+2. holds the split-KV decode-attention kernel against its plain PyTorch
+   version (bf16 at 2e-2, f32 at 5e-5): kv_len 0, 1, Smax and across the
+   tile and split edges, B * Hkv of 4, 16 and 64 (splits of 64 and 128
+   positions), hd 32/64/128, G = 3/2/8, each call launched twice for the
+   same output (the merge's tickets back at zero); requires ptxas to
+   report no spills; times kernel (events and the profiler's device time
+   per launch), plain version and SDPA at the serving shape;
 3. does the same for the flash-attention forward kernel (out and lse, in
    bf16 on its tensor-core body and in f32 on its CUDA-core body, each
    bf16 call counted by ``tensor_core_launches``): hd 32/64/128, lengths
@@ -69,24 +73,29 @@ then:
    card and on the CPU (2 prompts of 2560 tokens, past the window, 8 new
    tokens) and requires identical greedy tokens;
 12. holds the chunkwise mLSTM kernel against its plain chunkwise version
-   (hs at 5e-5 / 2e-2, the fp32 state at 5e-5) and the sequential oracle
-   (hs 1e-4, C 1e-3, m 1e-5, or, where the plain version is itself
-   farther, no farther than it plus the first bar) over B in 1/4, H = 4,
-   S in 1/37/96/2048 (L = 1, 37, 32, 96, 128), hd in 64/512, fp32 and
-   bf16 q/k/v, zero and nonzero carried state, and times kernel and plain
+   (hs at 5e-5 / 2e-2 and within 1e-4 / 1e-2 of its norm, the fp32 state
+   at 5e-5) and the sequential oracle (hs 1e-4, C 1e-3, m 1e-5, or,
+   where the plain version is itself farther, no farther than it plus the
+   first bar) over B in 1/4, H = 4, S in 1/37/96/2048 (L = 1, 37, 32, 96,
+   128), hd in 64/512, fp32 and bf16 q/k/v, zero and nonzero carried
+   state, each bf16 call with L = 128 counted on the tensor-core body and
+   no other; requires ptxas to report no spills in either body; times
+   kernel (events and the profiler's device time per launch) and plain
    version at the prefill shape (4, 4, 2048, 512) bf16;
 13. serves ``xlstm-350m`` at full width and depth (24 layers, sLSTM at
    7/15/23, bf16, random weights from a seed, the mLSTM kernel): 4
    prompts of 2048 tokens, 32 greedy tokens each, through the serving
-   steps; checks 21 mLSTM launches in the prefill, none in the decode
-   steps and none of the other kernels; prints prefill and decode times,
+   steps; checks 21 mLSTM launches in the prefill, all on the tensor-core
+   body, none in the decode steps and none of the other kernels; prints
+   prefill and decode times,
    tokens/s, peak memory and a profiled 512-token prefill and decode step;
 14. serves the first 8 layers of the same parameters (the sLSTM at 7
    included) in float32 on the card and on the CPU (2 prompts of 1024
    tokens, 8 new tokens) and requires identical greedy tokens (reporting
    the top-2 logit margin where they differ).
 
-Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and as the
+Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
+it), the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -219,39 +228,71 @@ def bwd_close(torch, got, want, dt_name: str, what: str) -> dict:
 # phase 2: decode attention
 # ---------------------------------------------------------------------------
 
-def decode_phase(torch, da_ops, da_ref) -> dict:
-    b, h, hkv, hd, smax = 4, 12, 4, 64, 1024
+# (b, h, hkv, hd, smax, kv_len): the serving geometry (splits of 64
+# positions) across its tile and split edges, B * Hkv = 4 (b = 1) and 64
+# (splits of 128), hd 32 with G = 8 (eight query heads per block) and hd
+# 128; None draws lengths from the generator
+DECODE_CASES = (
+    (4, 12, 4, 64, 1024, [0, 1, 130, 1023]),
+    (4, 12, 4, 64, 1024, [1024, 1023, 130, 0]),
+    (4, 12, 4, 64, 1024, [63, 64, 65, 127]),
+    (4, 12, 4, 64, 1024, [128, 129, 960, 961]),
+    (1, 12, 4, 64, 1024, [1024]),
+    (1, 12, 4, 64, 1024, [65]),
+    (16, 12, 4, 64, 1024, [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                           511, 512, 513, 1023, 1024]),
+    (16, 8, 4, 128, 2048, None),
+    (2, 8, 1, 32, 300, [299, 37]),
+)
+
+
+def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
+    usage = ptxas_all(build_log, "decode_attention_kernel")
+    print(f"decode_attention split-KV body, ptxas: {usage}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
     for dt_name in ("bfloat16", "float32"):
         dt = getattr(torch, dt_name)
-        for lens in ([0, 1, 130, 1023], [1024, 1023, 130, 0]):
+        for b, h, hkv, hd, smax, lens in DECODE_CASES:
             q = torch.randn(b, h, hd, generator=gen, device="cuda").to(dt)
             k = torch.randn(b, smax, hkv, hd, generator=gen,
                             device="cuda").to(dt)
             v = torch.randn(b, smax, hkv, hd, generator=gen,
                             device="cuda").to(dt)
+            if lens is None:
+                lens = torch.randint(0, smax + 1, (b,), generator=gen,
+                                     device="cuda").tolist()
             kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            before = da_ops.decode_attention.launches
             out = da_ops.decode_attention(q, k, v, kv)
+            again = da_ops.decode_attention(q, k, v, kv)
             ref = da_ref.decode_attention_ref(q, k, v, kv,
                                               scale=hd ** -0.5)
             torch.cuda.synchronize()
+            plan = da_ops.split_plan(b, hkv, h // hkv, smax, sms)
+            what = (f"decode {dt_name} B={b} H={h} Hkv={hkv} hd={hd} "
+                    f"Smax={smax} plan={plan} kv_len={lens}")
             err = max_err(torch, out, ref)
             tol = TOL[dt_name]
+            check(da_ops.decode_attention.launches - before == 2,
+                  f"{what}: launches {da_ops.decode_attention.launches - before}")
             check(bool(torch.isfinite(out.float()).all()),
-                  f"decode {dt_name} {lens}: non-finite output")
+                  f"{what}: non-finite output")
             check(torch.allclose(out.float(), ref.float(), atol=tol,
                                  rtol=tol),
-                  f"decode {dt_name} {lens}: max abs err {err} > {tol}")
+                  f"{what}: max abs err {err} > {tol}")
+            # the merge's tickets are back at zero after every launch
+            check(torch.equal(out, again), f"{what}: a second launch differs")
             for row, n in enumerate(lens):
                 if n == 0:
                     check(bool((out[row] == 0).all()),
-                          f"decode {dt_name}: kv_len=0 row is not zero")
+                          f"{what}: kv_len=0 row is not zero")
             worst = max(worst, err)
-            print(f"decode_attention {dt_name} kv_len={lens}: "
-                  f"max_abs_err={err:.3e} (tol {tol})")
+            print(f"{what}: max_abs_err={err:.3e} (tol {tol})")
 
     # timing at the serving phase's shapes: bf16, mid-generation depths
+    b, h, hkv, hd, smax = 4, 12, 4, 64, 1024
     dt = torch.bfloat16
     lens = [n + SERVE_NEW // 2 for n in SERVE_PROMPTS]
     kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -265,6 +306,13 @@ def decode_phase(torch, da_ops, da_ref) -> dict:
         sets.append((q, k, v))
     ms = time_ms(torch, lambda q, k, v: da_ops.decode_attention(q, k, v, kv),
                  sets)
+    # the kernel's own device time: the event time above is the wrapper's
+    # host cost as much as the card's
+    rotate = itertools.cycle(sets)
+    prof = device_share(
+        torch, lambda: da_ops.decode_attention(*next(rotate), kv), 40)
+    device_ms = prof["device_ms_per_launch_by_kind"]["decode_attention"]
+    device_seen = prof["launches_by_kind"]["decode_attention"]
     plain_ms = time_ms(
         torch, lambda q, k, v: da_ref.decode_attention_ref(
             q, k, v, kv, scale=hd ** -0.5), sets)
@@ -284,18 +332,25 @@ def decode_phase(torch, da_ops, da_ref) -> dict:
     flops = 4 * live * h * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    print(f"decode_attention timing: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops):.5f} ms")
+    bound = max(t_bytes, t_ops)
+    plan = da_ops.split_plan(b, hkv, h // hkv, smax, sms)
+    print(f"decode_attention timing (B={b} H={h} Hkv={hkv} hd={hd} "
+          f"Smax={smax} bf16 kv_len={lens}, plan {plan}): kernel {ms:.5f} "
+          f"ms (device {device_ms:.5f} ms per launch over {device_seen:.2f} "
+          f"launches seen per call), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.5f} ms, bound {bound:.5f} ms, bound/kernel "
+          f"{bound / ms:.4f} (device {bound / device_ms:.4f})")
     return {
         "name": "decode_attention", "route": "cuda",
+        "body": "decode_attention_kernel: split-KV, merged in one launch",
         "source": "src/repro_torch/kernels/decode_attention/csrc/"
                   "decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+        "device_launches_seen_per_call": device_seen,
+        "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "split_plan": plan, "ptxas": usage,
         "timed_at": f"B={b} H={h} Hkv={hkv} hd={hd} Smax={smax} bf16 "
                     f"kv_len={lens}",
     }
@@ -360,22 +415,28 @@ def flash_inputs(torch, gen, c: dict, dt):
                         device="cuda").to(dt))
 
 
-def ptxas_usage(log: str, kernel: str, hd: int) -> dict:
-    """Registers and spills ptxas reported for the head_dim ``hd``
-    instantiation of the tensor-core body ``kernel``."""
+def ptxas_all(log: str, kernel: str) -> dict:
+    """Registers and spills ptxas reported for every instantiation of
+    ``kernel``, keyed by its template arguments as mangled (or the kernel's
+    name for one that has none); fails if any spills."""
     lines = log.splitlines()
-    tag = f"{kernel}ILi{hd}EE"
-    at = next((i for i, line in enumerate(lines)
-               if "Compiling entry" in line and tag in line), None)
-    check(at is not None, f"ptxas reported nothing for {tag}")
-    text = " ".join(lines[at:at + 4])
-
-    def grab(pattern: str) -> int:
-        return int(re.search(pattern, text).group(1))
-
-    return {"registers": grab(r"Used (\d+) registers"),
-            "spill_stores": grab(r"(\d+) bytes spill stores"),
-            "spill_loads": grab(r"(\d+) bytes spill loads")}
+    found = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry" not in line or kernel not in line:
+            continue
+        tail = line.split(kernel, 1)[1]
+        key = tail[1:tail.index("EE")] if tail.startswith("I") else kernel
+        text = " ".join(lines[i:i + 4])
+        found[key] = {
+            name: int(re.search(pattern, text).group(1))
+            for name, pattern in (("registers", r"Used (\d+) registers"),
+                                  ("spill_stores", r"(\d+) bytes spill stores"),
+                                  ("spill_loads", r"(\d+) bytes spill loads"))}
+    check(bool(found), f"ptxas reported nothing for {kernel}")
+    spilled = {k: u for k, u in found.items()
+               if u["spill_stores"] or u["spill_loads"]}
+    check(not spilled, f"{kernel} spills: {spilled}")
+    return found
 
 
 def fwd_close(torch, out, lse, rout, rlse, dt_name: str, what: str
@@ -408,13 +469,13 @@ def fwd_close(torch, out, lse, rout, rlse, dt_name: str, what: str
 
 def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
     fwd = fa_ops.flash_attention_fwd
-    # ptxas's report of every tensor-core instantiation
+    # ptxas's report of every tensor-core instantiation (none may spill)
+    found = ptxas_all(build_log, "flash_fwd_wgmma_kernel")
     usage = {}
     for hd in fa_ops._HEAD_DIMS:
-        usage[f"hd{hd}"] = u = ptxas_usage(build_log,
-                                           "flash_fwd_wgmma_kernel", hd)
-        check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
-              f"the tensor-core body spills at hd={hd}: {u}")
+        check(f"Li{hd}" in found, "ptxas reported nothing for "
+                                  f"flash_fwd_wgmma_kernel<{hd}>")
+        usage[f"hd{hd}"] = found[f"Li{hd}"]
     print(f"flash_attention_fwd tensor-core body, ptxas: {usage}")
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -501,6 +562,7 @@ def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
     # shape's numbers are under ``timing_by_path``
     return {
         "name": "flash_attention_fwd", "route": "cuda",
+        "body": "flash_fwd_wgmma_kernel (bf16; f32 flash_fwd_f32_kernel)",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:109",
@@ -625,16 +687,24 @@ def device_share(torch, fn, n: int) -> dict:
                if getattr(e, "device_type", None) == DeviceType.CUDA]
     evs = kernels or [e for e in prof.key_averages() if dev_us(e) > 0]
     device = sum(dev_us(e) for e in evs) / 1e3 / n
-    top, by_kind = {}, {}
+    top, by_kind, count = {}, {}, {}
     for e in sorted(evs, key=dev_us, reverse=True):
         ms = dev_us(e) / 1e3 / n
         if len(top) < 8 or e.key[:60] in top:
             top[e.key[:60]] = top.get(e.key[:60], 0.0) + ms
-        by_kind[kernel_kind(e.key)] = by_kind.get(kernel_kind(e.key), 0.0) + ms
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        count[kind] = count.get(kind, 0) + e.count
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
             "launches_per_run": sum(e.count for e in evs) / n,
-            "top_device_ms": top, "device_ms_by_kind": by_kind}
+            "top_device_ms": top, "device_ms_by_kind": by_kind,
+            # the mean over the kernels the trace holds, which a dropped
+            # event does not bias
+            "device_ms_per_launch_by_kind": {
+                kind: by_kind[kind] * n / count[kind] for kind in by_kind
+                if count[kind]},
+            "launches_by_kind": {kind: c / n for kind, c in count.items()}}
 
 
 def kernel_kind(name: str) -> str:
@@ -816,12 +886,14 @@ def bwd_inputs(torch, gen, c: dict, dt):
 def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
     passes = (fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv)
     # ptxas's report of every tensor-core instantiation of both passes
+    # (none may spill)
     usage = {}
     for kernel in ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"):
+        found = ptxas_all(build_log, kernel)
         for hd in fa_ops._HEAD_DIMS:
-            usage[f"{kernel}<{hd}>"] = u = ptxas_usage(build_log, kernel, hd)
-            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
-                  f"{kernel} spills at hd={hd}: {u}")
+            check(f"Li{hd}" in found,
+                  f"ptxas reported nothing for {kernel}<{hd}>")
+            usage[f"{kernel}<{hd}>"] = found[f"Li{hd}"]
     print(f"flash_attention_bwd tensor-core bodies, ptxas: {usage}")
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -946,6 +1018,8 @@ def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
         t_ops = products * 2 * hd * pairs / PEAK_FLOPS["bfloat16"] * 1e3
         rows.append({
             "name": f"flash_attention_bwd_{name}", "route": "cuda",
+            "body": f"flash_bwd_{name}_wgmma_kernel (bf16; f32 "
+                    f"flash_bwd_{name}_f32_kernel)",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_bwd.cu",
             "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
@@ -1187,7 +1261,7 @@ def rglru_phase(torch, rg_ops, rg_ref) -> dict:
           f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms, "
           "library none")
     return {
-        "name": "rglru_scan", "route": "cuda",
+        "name": "rglru_scan", "route": "cuda", "body": "rglru_scan_kernel",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:52",
         "max_abs_err": worst, "bwd_max_abs_err": bwd_worst,
@@ -1405,7 +1479,8 @@ def mlstm_inputs(torch, gen, b, h, s, hd, dt, state):
 
 def mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name, what) -> dict:
     """One sweep case: the kernel against the plain chunkwise version (hs
-    at TOL, the fp32 state at 5e-5) and against the sequential oracle at
+    at TOL and within NORM_TOL of its norm, the fp32 state at 5e-5) and
+    against the sequential oracle at
     the reference's bars, absolute (bf16 hs at the bf16 bar, absolute and
     relative). Where the chunkwise formulation itself (the plain version,
     the kernel body's arithmetic) is farther from the oracle than a bar,
@@ -1427,12 +1502,23 @@ def mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name, what) -> dict:
     err = max_err(torch, hs, phs)
     check(torch.allclose(hs.float(), phs.float(), atol=tol, rtol=tol),
           f"{what}: hs vs plain {err} > {tol}")
+    share = float((hs.float() - phs.float()).norm()
+                  / phs.float().norm().clamp_min(1e-30))
+    check(share <= NORM_TOL[dt_name],
+          f"{what}: hs error is {share:.3e} of its norm > "
+          f"{NORM_TOL[dt_name]}")
+    state_err = state_share = 0.0
     for name, g, w in zip("Cnm", st, pst):
         e = max_err(torch, g, w)
         check(torch.allclose(g, w, atol=5e-5, rtol=5e-5),
               f"{what}: {name} vs plain {e} > 5e-5")
-        err = max(err, e)
-    out, beyond = {"plain": err}, {}
+        state_err = max(state_err, e)
+        # the error as a share of the 5e-5 abs+rel bar it must stay under
+        state_share = max(state_share, float(
+            ((g - w).abs() / (5e-5 + 5e-5 * w.abs())).max()))
+    out, beyond = {"plain": max(err, state_err), "share_hs": share,
+                   "plain_state": state_err,
+                   "plain_state_of_bar": state_share}, {}
     bars = {"hs": 1e-4 if dt_name == "float32" else tol, "C": 1e-3,
             "m": 1e-5}
     for name, g, p, w in (("hs", hs, phs, ohs), ("C", st[0], pst[0], ost[0]),
@@ -1449,37 +1535,49 @@ def mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name, what) -> dict:
     return out, beyond
 
 
-def mlstm_phase(torch, ml_ops, ml_ref) -> dict:
+def mlstm_phase(torch, ml_ops, ml_ref, build_log: str) -> dict:
     """The chunkwise mLSTM kernel against its plain versions
     (:func:`mlstm_case`) over a sweep: B in 1/4, H = 4, S in 1/37/96/2048
     with chunks giving L = 1, 37, 32, 96, 128; hd in 64/512; fp32 and bf16
-    q/k/v; zero and nonzero carried state. Then the kernel and the plain
-    chunkwise version timed at the prefill shape."""
+    q/k/v; zero and nonzero carried state; every bf16 call with L = 128
+    counted on the tensor-core body and no other. Then the kernel (events
+    and the profiler's device time) and the plain chunkwise version timed
+    at the prefill shape."""
+    usage = {kern: ptxas_all(build_log, kern)
+             for kern in ("mlstm_chunk_wgmma_kernel", "mlstm_chunk_f32_kernel")}
+    print(f"mlstm_chunk bodies, ptxas: {usage}")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(13)
     lengths = ((1, 128), (37, 128), (37, 16), (96, 128), (96, 64),
                (SERVE_X_PROMPT, 128))
     worst = {}
     beyond = {}       # the plain version's worst oracle error past a bar
-    cases = 0
+    cases = tc_cases = 0
     for dt_name, b, (s, chunk), hd, state in itertools.product(
             ("float32", "bfloat16"), (1, SERVE_X_BATCH), lengths, (64, X_HD),
             (False, True)):
         what = (f"mlstm {dt_name} B={b} S={s} chunk={chunk} hd={hd} "
                 f"state={state}")
-        ins = mlstm_inputs(torch, gen, b, 4, s, hd, getattr(torch, dt_name),
-                           state)
+        dt = getattr(torch, dt_name)
+        ins = mlstm_inputs(torch, gen, b, 4, s, hd, dt, state)
+        tc_before = ml_ops.mlstm_chunk.tensor_core_launches
         errs, past = mlstm_case(torch, ml_ops, ml_ref, ins, chunk, dt_name,
                                 what)
+        tc = ml_ops.mlstm_chunk.tensor_core_launches - tc_before
+        want_tc = ml_ops.takes_tensor_cores(dt, ml_ref.chunk_len(s, chunk),
+                                            hd)
+        check(tc == int(want_tc), f"{what}: tensor-core launches {tc}, "
+                                  f"expected {int(want_tc)}")
+        tc_cases += tc
         for name, e in errs.items():
             key = f"{dt_name}_{name}"
             worst[key] = max(worst.get(key, 0.0), e)
         for name, e in past.items():
             beyond[name] = max(beyond.get(name, 0.0), e)
         cases += 1
-    print(f"mlstm_chunk sweep, {cases} cases: worst errors {worst}; the "
-          f"plain chunkwise version's own oracle error where it passes a "
-          f"bar: {beyond}")
+    print(f"mlstm_chunk sweep, {cases} cases ({tc_cases} on the "
+          f"tensor-core body): worst errors {worst}; the plain chunkwise "
+          f"version's own oracle error where it passes a bar: {beyond}")
 
     # timing at the prefill shape: bf16 q/k/v, zero initial state
     b, h, s, hd = SERVE_X_BATCH, 4, SERVE_X_PROMPT, X_HD
@@ -1487,8 +1585,18 @@ def mlstm_phase(torch, ml_ops, ml_ref) -> dict:
     qkv_bytes = 3 * b * h * s * hd * 2
     sets = [mlstm_inputs(torch, gen, b, h, s, hd, torch.bfloat16, False)
             for _ in range(copies_for(qkv_bytes))]
+    before = (ml_ops.mlstm_chunk.launches,
+              ml_ops.mlstm_chunk.tensor_core_launches)
     ms = time_ms(torch, lambda *a: ml_ops.mlstm_chunk(*a, chunk=L), sets,
                  iters=10)
+    check(ml_ops.mlstm_chunk.tensor_core_launches - before[1]
+          == ml_ops.mlstm_chunk.launches - before[0] > 0,
+          "a timed bf16 call missed the tensor-core body")
+    rotate = itertools.cycle(sets)
+    prof = device_share(
+        torch, lambda: ml_ops.mlstm_chunk(*next(rotate), chunk=L), 10)
+    device_ms = prof["device_ms_per_launch_by_kind"]["mlstm_chunk"]
+    device_seen = prof["launches_by_kind"]["mlstm_chunk"]
     plain_ms = time_ms(torch,
                        lambda *a: ml_ref.mlstm_chunkwise_ref(*a, chunk=L),
                        sets, iters=4)
@@ -1503,18 +1611,25 @@ def mlstm_phase(torch, ml_ops, ml_ref) -> dict:
     flops = b * h * nc * (4 * L * L * hd + 4 * L * hd * hd)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    print(f"mlstm_chunk timing (B={b} H={h} S={s} hd={hd} L={L} bf16): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{max(t_bytes, t_ops):.5f} ms ({nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.1f} GFLOP), library none")
+    bound = max(t_bytes, t_ops)
+    print(f"mlstm_chunk timing (B={b} H={h} S={s} hd={hd} L={L} bf16, "
+          f"tensor-core body): kernel {ms:.5f} ms (device {device_ms:.5f} "
+          f"ms per launch over {device_seen:.1f} launches seen per call), "
+          f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP), bound/kernel "
+          f"{bound / ms:.4f} (device {bound / device_ms:.4f}), library none")
     return {
         "name": "mlstm_chunk", "route": "cuda",
+        "body": "mlstm_chunk_wgmma_kernel (bf16, L = 128, hd % 64 == 0; "
+                "every other call mlstm_chunk_f32_kernel)",
         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:91",
         "max_abs_err": max(worst["float32_plain"], worst["bfloat16_plain"]),
         "errors": worst, "plain_oracle_err_past_bar": beyond,
-        "cases": cases, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "cases": cases, "tensor_core_cases": tc_cases, "ptxas": usage,
+        "ms": ms, "device_ms": device_ms,
+        "device_launches_seen_per_call": device_seen, "plain_ms": plain_ms,
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         # no single PyTorch call computes a chunkwise mLSTM
         "library_ms": None,
@@ -1554,12 +1669,14 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    mlstm.tensor_core_launches = 0
     t = time.perf_counter()
     tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
         torch, bundle, dev_params, prompts, SERVE_X_NEW, max_len, "cuda",
         mlstm)
     wall = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
+    tc_launches = mlstm.tensor_core_launches
     peak = torch.cuda.max_memory_allocated()
 
     check(tuple(tokens.shape) == (SERVE_X_BATCH, SERVE_X_NEW),
@@ -1573,6 +1690,9 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
     others = {k: n for k, n in launches.items() if k != "mlstm_chunk"}
     check(launches["mlstm_chunk"] == n_mlstm and not any(others.values()),
           f"launches in the xlstm run {launches}")
+    check(tc_launches == n_mlstm,
+          f"{n_mlstm - tc_launches} of the prefill's {n_mlstm} mLSTM "
+          "launches missed the tensor-core body")
     check(all(bool(torch.isfinite(t.float()).all()) for st in cache
               for t in st.values()), "non-finite serving state")
 
@@ -1605,6 +1725,7 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
         "decode_tokens_per_s": SERVE_X_BATCH / (decode_median / 1e3),
         "peak_memory_bytes": peak,
         "mlstm_launches_prefill": pre_l, "mlstm_launches_decode": dec_l,
+        "mlstm_tensor_core_launches": tc_launches,
         "launches": launches,
         "first_tokens": tokens[:, :8].tolist(),
         "profile": profiled,
@@ -1720,7 +1841,8 @@ def main() -> int:
     smi = smi_line()
     print(smi)
 
-    kernels = [decode_phase(torch, da_ops, da_ref),
+    kernels = [decode_phase(torch, da_ops, da_ref,
+                            _build.build_log("decode_attention")),
                flash_phase(torch, fa_ops, fa_ref,
                            _build.build_log("flash_attention_fwd"))]
     cfg_full = get_config(ARCH).replace(attn_impl="pallas",
@@ -1740,7 +1862,8 @@ def main() -> int:
     hybrid = hybrid_serve_phase(torch, cfg_rg, rg_params, counters)
     hybrid_parity = hybrid_parity_phase(torch, cfg_rg, rg_params)
     del rg_params
-    kernels.append(mlstm_phase(torch, ml_ops, ml_ref))
+    kernels.append(mlstm_phase(torch, ml_ops, ml_ref,
+                               _build.build_log("mlstm_chunk")))
     cfg_x = get_config(XLSTM).replace(use_pallas=True)
     x_params = host_params(torch, cfg_x, 14)
     ssm = ssm_serve_phase(torch, cfg_x, x_params,
@@ -1777,8 +1900,9 @@ def main() -> int:
          "train_parity": train_parity, "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
          "ssm_parity": ssm_parity}, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "body", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(smi)

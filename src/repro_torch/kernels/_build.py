@@ -3,11 +3,11 @@
 Each ``kernels/*/csrc/<name>.cu`` exports a plain C function and is
 compiled on first use with ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library under ``<checkout>/build/repro_torch_kernels/``. The file
-name carries a hash of the source, of every ``*.cuh`` header beside it and
-of the flags, so an edited source or header is rebuilt and a stale library
-is never loaded. Libraries are bound with
-``ctypes``: pointers and the stream travel as ``c_void_p``, and every
-launch function returns ``cudaGetLastError()``.
+name carries a hash of the source, of every ``*.cuh`` header beside it, of
+the shared Hopper headers in ``kernels/_hopper/`` and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Libraries are bound with ``ctypes``: pointers and the stream travel as
+``c_void_p``, and every launch function returns ``cudaGetLastError()``.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -24,6 +24,7 @@ import threading
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+SHARED_DIR = "_hopper"          # headers several kernels include
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,7 +61,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = source(name)
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    shared = sorted((KERNELS_DIR / SHARED_DIR).glob("*.cuh"))
+    for header in sorted(src.parent.glob("*.cuh")) + shared:
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

@@ -1,12 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// shared-memory addresses, mbarriers, TMA tile loads, wgmma descriptors and
-// instructions (shared x shared and register x shared, N = 32/64/128,
-// bf16 in, fp32 accumulators), bf16 packing into wgmma's A-register layout,
-// and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels and
+// the chunkwise mLSTM kernel: shared-memory addresses, mbarriers, TMA tile
+// loads, wgmma descriptors and instructions (shared x shared and register x
+// shared, N = 32/64/128, bf16 in, fp32 accumulators), bf16 packing into
+// wgmma's A-register layout, and the host-side tensor-map encoder.
 //
 // Everything sits in an anonymous namespace, so each kernel library that
 // includes this header keeps its own copy. kernels/_build.py hashes every
-// *.cuh beside a source, so an edit here rebuilds both libraries.
+// *.cuh in this directory into every library's name, so an edit here
+// rebuilds all of them.
 
 #pragma once
 
@@ -50,6 +51,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operand reads, TMA) that a later barrier orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8 x 8 b16 matrices from shared memory, transposed: thread l gives the
+// address of row l % 8 of matrix l / 8 and receives, of matrix j, the
+// elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) in r[j]. Over a
+// row-major (K, M) tile that is wgmma's A-register fragment of its
+// transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // One box of a 4-d tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
@@ -79,6 +101,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma's registers
@@ -171,6 +198,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16) * B (16 x 64); A in shared memory,
+// K-major, B in shared memory, MN-major (the transpose-B bit).
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // D (64 x 32, fp32) += A (64 x 16, bf16 in registers) * B (16 x 32); B in

@@ -8,30 +8,37 @@
 //   2 * sum_b(kv_len[b]) * Hkv * hd elements, and does 4 flops per element
 //   and query head of the group (G = 3 for aiida-demo-110m): about 3 flop
 //   per byte in bf16, two orders of magnitude below the ~295 flop/byte at
-//   which the H100's bf16 tensor cores would become the limit.
+//   which the H100's bf16 tensor cores would become the limit. So the
+//   kernel must keep many loads in flight across the whole card.
 //
-// Design:
-//   * one block per (batch row, KV head, chunk of up to GC query heads):
-//     every query head of a GQA group shares each K/V row the block reads,
-//     so the cache is read once per group. G = H / Hkv need not be a power
-//     of two; GC is 4 or 8, picked from G by the launcher;
+// Design: split-KV across the card, merged inside the same launch.
+//   * the grid is (splits, Hkv x group chunks, B): block (sp, y, b) reads
+//     positions [sp P, sp P + P) of its (batch row, KV head), for a chunk
+//     of up to GC query heads of the group (GC = 4 or 8; G = H / Hkv need
+//     not be a power of two). The wrapper picks P (a multiple of 64) from
+//     Smax and B * Hkv so that the card has blocks for every SM (P = 64 at
+//     the serving shape: 256 blocks of which ~110 have live positions).
+//     Every query head of the chunk shares each K/V row the block reads;
+//   * a block whose positions all lie at or past kv_len exits at once;
+//     kv_len is clamped to [0, Smax], and kv_len = 0 gives exact zeros
+//     (written by split 0);
 //   * the cache is read in place through its strides, in its native
-//     (B, Smax, Hkv, hd) layout. There is no transpose copy (the TPU
-//     wrapper transposed the whole cache on every call);
-//   * the block's warps split the live positions [0, kv_len) into tiles of
-//     32. A warp starts copying its tile's V rows into shared memory with
-//     cp.async, then for Q.K^T each lane takes one position and reads its
-//     K row with 16-byte loads; for P.V each lane takes hd/32 head dims of
-//     the staged V rows. So a tile waits on memory about twice, not once
-//     per position. Each warp keeps its own fp32 online-softmax state; the
-//     warps are merged through shared memory at the end. Tiles past
-//     kv_len are never read;
-//   * kv_len is clamped to [0, Smax], and kv_len = 0 gives exact zeros.
+//     (B, Smax, Hkv, hd) layout, in tiles of 64 positions: each tile's K
+//     and V rows are two cp.async groups, and the next tile's are in flight
+//     while this one is used (16-byte copies into rows padded by 16 bytes,
+//     so the reads below are conflict-free). Q.K^T: two threads per
+//     position, each over every other 16-byte piece of the row, for all
+//     GC heads; the softmax: one warp per head; P.V: each thread owns
+//     (head, dim) outputs;
+//   * each block keeps an fp32 online-softmax state (m, l, acc) per head.
+//     With one live block for its (b, head chunk) it writes out directly.
+//     Otherwise it writes its partial to a workspace, and the last block
+//     to finish, found by an atomic ticket in global memory, merges the
+//     partials, writes out and resets the ticket to zero for the next
+//     launch. The wrapper keeps the workspace and the zeroed tickets per
+//     device and stream: no per-call memset and no second kernel;
 //   * as in the reference, q is scaled in fp32 and the probabilities are
 //     rounded to the cache dtype before P.V; sums are fp32.
-//
-// Left for later changes: split-K across blocks when B * Hkv is small
-// next to the 132 SMs, double-buffered tiles, TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +47,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;            // positions per tile
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -64,8 +73,18 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most n of this thread's cp.async groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -80,202 +99,288 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Shared-memory plan of one (dtype, head_dim): K and V rows of a tile,
+// padded by 16 bytes, in two stages.
+template <typename T, int HD>
+struct Plan {
+  static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte copy
+  static constexpr int CPR = HD / VEC;         // copies per row
+  static constexpr int LD = HD + VEC;          // padded row, elements
+  static constexpr int TILE = kTile * LD;      // one K or V tile
+  static constexpr int SMEM = 4 * TILE * sizeof(T);
+  static_assert(SMEM <= 232448, "over the shared memory a block can use");
+};
+
+// Start copying tile t of the split [start, end) into stage t % 2: its K
+// rows as one cp.async group, then its V rows as another.
+template <typename T, int HD>
+__device__ __forceinline__ void stage_tile(T* kv_s, const T* kb, const T* vb,
+                                           long long kss, long long vss,
+                                           int start, int end, int t) {
+  using PL = Plan<T, HD>;
+  const int p0 = start + t * kTile, rows = min(kTile, end - p0);
+  T* ks = kv_s + (t & 1) * PL::TILE;
+  T* vs = kv_s + (2 + (t & 1)) * PL::TILE;
+  for (int i = threadIdx.x; i < rows * PL::CPR; i += kThreads) {
+    const int r = i / PL::CPR, c = (i % PL::CPR) * PL::VEC;
+    cp_async16(ks + r * PL::LD + c, kb + (long long)(p0 + r) * kss + c);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < rows * PL::CPR; i += kThreads) {
+    const int r = i / PL::CPR, c = (i % PL::CPR) * PL::VEC;
+    cp_async16(vs + r * PL::LD + c, vb + (long long)(p0 + r) * vss + c);
+  }
+  cp_async_commit();
+}
+
+// (one block per SM is enough: without the minimum, ptxas caps some
+// instantiations at 64 registers and spills)
 template <typename T, int HD, int GC>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads, 1)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ kv_len, T* __restrict__ out,
-                        int H, int G, int smax, long long ksb, long long kss,
-                        long long ksh, long long vsb, long long vss,
-                        long long vsh, float scale) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int DPL = HD / 32;         // head dims per lane in P.V
-  const int b = blockIdx.x, kvh = blockIdx.y, g0 = blockIdx.z * GC;
+                        float* __restrict__ ws, int* __restrict__ tickets,
+                        int H, int G, int smax, int P, long long ksb,
+                        long long kss, long long ksh, long long vsb,
+                        long long vss, long long vsh, float scale) {
+  using PL = Plan<T, HD>;
+  constexpr int VEC = PL::VEC, CPR = PL::CPR, LD = PL::LD;
+  constexpr int DG = kThreads / HD;         // thread groups over the dims
+  constexpr int HPT = GC / DG;              // heads per thread in P.V
+  static_assert(HPT >= 1 && GC >= kWarps, "GC too small for this head_dim");
+
+  const int sp = blockIdx.x, y = blockIdx.y, b = blockIdx.z;
+  const int chunks = gridDim.y / (H / G);   // query-head chunks per KV head
+  const int kvh = y / chunks, g0 = (y % chunks) * GC;
   const int ng = min(GC, G - g0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const int len = max(0, min(kv_len[b], smax));
+  const long long head0 = (long long)b * H + (long long)kvh * G + g0;
+  T* ob = out + head0 * HD;
+  if (len == 0) {                 // no live key: exact zeros, from split 0
+    if (sp == 0)
+      for (int i = tid; i < ng * HD; i += kThreads) ob[i] = from_float<T>(0.f);
+    return;
+  }
+  const int start = sp * P;
+  if (start >= len) return;
+  const int end = min(start + P, len);
+  const int n_live = (len + P - 1) / P;     // blocks with live positions
 
   __shared__ float q_s[GC][HD];
-  __shared__ float m_s[kWarps][GC];
-  __shared__ float l_s[kWarps][GC];
-  __shared__ float acc_s[kWarps][HD];
-  // this warp's V tile, 32 rows of HD, staged with cp.async
+  __shared__ float s_s[GC][kTile];          // logits, then probabilities
+  __shared__ float alpha_s[GC];
+  __shared__ float m_s[GC];                 // the running max and sum of
+  __shared__ float l_s[GC];                 // each head, kept by its warp
+  __shared__ int last_s;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  T* v_s = reinterpret_cast<T*>(dyn_smem) + warp * 32 * HD;
+  T* kv_s = reinterpret_cast<T*>(dyn_smem);  // K[2], V[2]
 
-  // q is (B, H, hd) contiguous; this block's heads are kvh*G + g0 + [0, ng)
-  const long long head0 = (long long)b * H + (long long)kvh * G + g0;
+  // the first tiles' copies go out before q's loads, so that the two
+  // wait on memory together
+  const T* kb = k + (long long)b * ksb + (long long)kvh * ksh;
+  const T* vb = v + (long long)b * vsb + (long long)kvh * vsh;
+  const int nt = (end - start + kTile - 1) / kTile;
+  stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, 0);
+  if (nt > 1) stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, 1);
   const T* qb = q + head0 * HD;
-  for (int i = threadIdx.x; i < GC * HD; i += blockDim.x) {
+  for (int i = tid; i < GC * HD; i += kThreads) {
     const int g = i / HD;
     q_s[g][i % HD] = g < ng ? to_float(qb[i]) * scale : 0.f;
   }
-  __syncthreads();
 
-  const int len = max(0, min(kv_len[b], smax));
-  const T* kb = k + (long long)b * ksb + (long long)kvh * ksh;
-  const T* vb = v + (long long)b * vsb + (long long)kvh * vsh;
-
-  float m[GC], l[GC], acc[GC][DPL];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
+  // the P.V sums of heads (tid / HD) + DG jj at dim tid % HD (this
+  // thread's); head g's softmax state belongs to warp g % kWarps
+  if (tid < GC) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
   }
+  float acc[HPT];
+#pragma unroll
+  for (int jj = 0; jj < HPT; ++jj) acc[jj] = 0.f;
+  const int pd = tid % HD, pg = tid / HD;
 
-  const int ntiles = (len + 31) >> 5;
-  for (int tile = warp; tile < ntiles; tile += kWarps) {
-    const int t0 = tile << 5;
-    const int pos = t0 + lane;
-    const bool live = pos < len;
-    const int nlive = min(32, len - t0);
+  for (int t = 0; t < nt; ++t) {
+    const int p0 = start + t * kTile, rows = min(kTile, end - p0);
+    const bool more = t + 1 < nt;
+    const T* ks = kv_s + (t & 1) * PL::TILE;
+    const T* vs = kv_s + (2 + (t & 1)) * PL::TILE;
+    cp_async_wait(more ? 3 : 1);  // this tile's K rows have landed
+    __syncthreads();
 
-    // start copying the tile's live V rows; they land while Q.K^T runs
+    // Q.K^T: position tid / 2, every other 16-byte piece of its row
+    {
+      const int pos = tid >> 1, part = tid & 1;
+      float s[GC];
 #pragma unroll
-    for (int i = lane; i < 32 * (HD / VEC); i += 32) {
-      const int r = i / (HD / VEC), c = (i % (HD / VEC)) * VEC;
-      if (r < nlive) cp_async16(v_s + r * HD + c, vb + (long long)(t0 + r) * vss + c);
-    }
-
-    float s[GC];
+      for (int g = 0; g < GC; ++g) s[g] = 0.f;
+      if (pos < rows) {
 #pragma unroll
-    for (int g = 0; g < GC; ++g) s[g] = 0.f;
-    if (live) {
-      const T* kr = kb + (long long)pos * kss;
+        for (int i = 0; i < CPR / 2; ++i) {
+          const int ci = 2 * i + part;
+          union {
+            uint4 u;
+            T e[VEC];
+          } x;
+          x.u = *reinterpret_cast<const uint4*>(ks + pos * LD + ci * VEC);
 #pragma unroll
-      for (int c = 0; c < HD; c += VEC) {
-        union {
-          uint4 u;
-          T e[VEC];
-        } x;
-        x.u = *reinterpret_cast<const uint4*>(kr + c);
+          for (int e = 0; e < VEC; ++e) {
+            const float kf = to_float(x.e[e]);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float kf = to_float(x.e[j]);
-#pragma unroll
-          for (int g = 0; g < GC; ++g) s[g] = fmaf(q_s[g][c + j], kf, s[g]);
+            for (int g = 0; g < GC; ++g)
+              s[g] = fmaf(q_s[g][ci * VEC + e], kf, s[g]);
+          }
         }
       }
-    }
-
-    // online softmax over this tile; the tile holds at least one live
-    // position, so m_new is finite
-    float p[GC];
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      const float m_new = fmaxf(m[g], warp_max(live ? s[g] : -INFINITY));
-      const float alpha = expf(m[g] - m_new);
-      const float pg = live ? expf(s[g] - m_new) : 0.f;
-      l[g] = l[g] * alpha + warp_sum(pg);
-      m[g] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[g][j] *= alpha;
-      p[g] = to_float(from_float<T>(pg));
-    }
-
-    cp_async_wait_all();
-    __syncwarp();
-    for (int t = 0; t < nlive; ++t) {
-      const T* vr = v_s + t * HD + lane * DPL;
-      float vf[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) vf[j] = to_float(vr[j]);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
-        const float pt = __shfl_sync(kFull, p[g], t);
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[g][j] = fmaf(pt, vf[j], acc[g][j]);
+        s[g] += __shfl_xor_sync(kFull, s[g], 1);
+        if (part == 0) s_s[g][pos] = pos < rows ? s[g] : -INFINITY;
       }
     }
-    __syncwarp();  // every lane is done with v_s before the next tile
+    __syncthreads();
+
+    // online softmax of this tile, one warp per head; the tile holds at
+    // least one live position, so m_new is finite
+    for (int g = warp; g < GC; g += kWarps) {
+      const float x0 = s_s[g][lane], x1 = s_s[g][lane + 32];
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float alpha = expf(m_old - m_new);
+      const float e0 = expf(x0 - m_new), e1 = expf(x1 - m_new);
+      const float l_new = l_s[g] * alpha + warp_sum(e0 + e1);
+      s_s[g][lane] = to_float(from_float<T>(e0));
+      s_s[g][lane + 32] = to_float(from_float<T>(e1));
+      __syncwarp();
+      if (lane == 0) {
+        alpha_s[g] = alpha;
+        m_s[g] = m_new;
+        l_s[g] = l_new;
+      }
+    }
+    cp_async_wait(more ? 2 : 0);  // this tile's V rows have landed
+    __syncthreads();
+
+    // P.V
+#pragma unroll
+    for (int jj = 0; jj < HPT; ++jj) acc[jj] *= alpha_s[pg + DG * jj];
+    for (int r = 0; r < rows; ++r) {
+      const float vf = to_float(vs[r * LD + pd]);
+#pragma unroll
+      for (int jj = 0; jj < HPT; ++jj)
+        acc[jj] = fmaf(s_s[pg + DG * jj][r], vf, acc[jj]);
+    }
+    __syncthreads();              // every thread is done with this stage
+    if (t + 2 < nt) stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, t + 2);
   }
 
-  // merge the warps' partial softmax states
-  if (lane == 0) {
+  if (n_live == 1) {              // the only live block: write out
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
+    for (int jj = 0; jj < HPT; ++jj) {
+      const int g = pg + DG * jj;
+      if (g < ng) ob[g * HD + pd] = from_float<T>(acc[jj] / fmaxf(l_s[g], 1e-30f));
     }
+    return;
+  }
+
+  // this block's partial: m[GC], l[GC], acc[GC][HD]
+  const int splits = gridDim.x;
+  const long long slot = ((long long)b * gridDim.y + y);
+  float* part = ws + (slot * splits + sp) * (GC * (HD + 2));
+  if (tid < GC) {
+    part[tid] = m_s[tid];
+    part[GC + tid] = l_s[tid];
+  }
+#pragma unroll
+  for (int jj = 0; jj < HPT; ++jj)
+    part[2 * GC + (pg + DG * jj) * HD + pd] = acc[jj];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(tickets + slot, 1);
+    last_s = ticket == n_live - 1;
+    if (last_s) tickets[slot] = 0;       // ready for the next launch
   }
   __syncthreads();
-  T* ob = out + head0 * HD;
+  if (!last_s) return;
+  __threadfence();
+
+  // the last block merges every live split's partial
+  const float* all = ws + slot * splits * (GC * (HD + 2));
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (g >= ng) break;  // uniform across the block
+  for (int jj = 0; jj < HPT; ++jj) {
+    const int g = pg + DG * jj;
     float mx = -INFINITY;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][g]);
-    const float mine = mx == -INFINITY ? 0.f : expf(m[g] - mx);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc_s[warp][lane * DPL + j] = acc[g][j] * mine;
-    __syncthreads();
-    if (threadIdx.x < HD) {
-      float tot = 0.f, sum = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = mx == -INFINITY ? 0.f : expf(m_s[w][g] - mx);
-        tot = fmaf(l_s[w][g], f, tot);
-        sum += acc_s[w][threadIdx.x];
-      }
-      ob[g * HD + threadIdx.x] = from_float<T>(sum / fmaxf(tot, 1e-30f));
+    for (int i = 0; i < n_live; ++i)
+      mx = fmaxf(mx, __ldcg(all + i * (GC * (HD + 2)) + g));
+    float tot = 0.f, sum = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const float* pi = all + i * (GC * (HD + 2));
+      const float f = expf(__ldcg(pi + g) - mx);
+      tot = fmaf(__ldcg(pi + GC + g), f, tot);
+      sum = fmaf(__ldcg(pi + 2 * GC + g * HD + pd), f, sum);
     }
-    __syncthreads();
+    if (g < ng) ob[g * HD + pd] = from_float<T>(sum / fmaxf(tot, 1e-30f));
   }
 }
 
 template <typename T, int HD, int GC>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* out, int B, int H, int Hkv,
-                   int smax, long long ksb, long long kss, long long ksh,
-                   long long vsb, long long vss, long long vsh, float scale,
-                   cudaStream_t stream) {
+                   const void* kv_len, void* out, void* ws, void* tickets,
+                   int B, int H, int Hkv, int smax, int splits, int P,
+                   const long long* st, float scale, cudaStream_t stream) {
+  using PL = Plan<T, HD>;
   const int G = H / Hkv;
-  const dim3 grid(B, Hkv, (G + GC - 1) / GC);
-  constexpr int smem = kWarps * 32 * HD * sizeof(T);
+  const dim3 grid(splits, Hkv * ((G + GC - 1) / GC), B);
   static bool smem_set = false;  // opt in above 48 KB once per kernel
-  if (smem > 48 * 1024 && !smem_set) {
+  if (PL::SMEM > 48 * 1024 && !smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<T, HD, GC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, PL::SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  decode_attention_kernel<T, HD, GC><<<grid, kWarps * 32, smem, stream>>>(
+  decode_attention_kernel<T, HD, GC><<<grid, kThreads, PL::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), H, G, smax, ksb, kss, ksh, vsb, vss, vsh, scale);
+      static_cast<T*>(out), static_cast<float*>(ws),
+      static_cast<int*>(tickets), H, G, smax, P, st[0], st[1], st[2], st[3],
+      st[4], st[5], scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t launch_g(const void* q, const void* k, const void* v,
-                     const void* kv_len, void* out, int B, int H, int Hkv,
-                     int smax, long long ksb, long long kss, long long ksh,
-                     long long vsb, long long vss, long long vsh, float scale,
-                     cudaStream_t stream) {
-  if (H / Hkv <= 4)
-    return launch<T, HD, 4>(q, k, v, kv_len, out, B, H, Hkv, smax, ksb, kss,
-                            ksh, vsb, vss, vsh, scale, stream);
-  return launch<T, HD, 8>(q, k, v, kv_len, out, B, H, Hkv, smax, ksb, kss,
-                          ksh, vsb, vss, vsh, scale, stream);
+cudaError_t launch_g(int gc, const void* q, const void* k, const void* v,
+                     const void* kv_len, void* out, void* ws, void* tickets,
+                     int B, int H, int Hkv, int smax, int splits, int P,
+                     const long long* st, float scale, cudaStream_t stream) {
+  if (gc == 4)
+    return launch<T, HD, 4>(q, k, v, kv_len, out, ws, tickets, B, H, Hkv,
+                            smax, splits, P, st, scale, stream);
+  if (gc == 8)
+    return launch<T, HD, 8>(q, k, v, kv_len, out, ws, tickets, B, H, Hkv,
+                            smax, splits, P, st, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      const void* kv_len, void* out, int B, int H, int Hkv,
-                      int smax, long long ksb, long long kss, long long ksh,
-                      long long vsb, long long vss, long long vsh, float scale,
+cudaError_t launch_hd(int hd, int gc, const void* q, const void* k,
+                      const void* v, const void* kv_len, void* out, void* ws,
+                      void* tickets, int B, int H, int Hkv, int smax,
+                      int splits, int P, const long long* st, float scale,
                       cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_g<T, 32>(q, k, v, kv_len, out, B, H, Hkv, smax, ksb, kss,
-                             ksh, vsb, vss, vsh, scale, stream);
+      return launch_g<T, 32>(gc, q, k, v, kv_len, out, ws, tickets, B, H, Hkv,
+                             smax, splits, P, st, scale, stream);
     case 64:
-      return launch_g<T, 64>(q, k, v, kv_len, out, B, H, Hkv, smax, ksb, kss,
-                             ksh, vsb, vss, vsh, scale, stream);
+      return launch_g<T, 64>(gc, q, k, v, kv_len, out, ws, tickets, B, H, Hkv,
+                             smax, splits, P, st, scale, stream);
     case 128:
-      return launch_g<T, 128>(q, k, v, kv_len, out, B, H, Hkv, smax, ksb, kss,
-                              ksh, vsb, vss, vsh, scale, stream);
+      return launch_g<T, 128>(gc, q, k, v, kv_len, out, ws, tickets, B, H,
+                              Hkv, smax, splits, P, st, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -284,24 +389,31 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, out: (B, H, hd) contiguous;
-// k, v: (B, Smax, Hkv, hd) with unit stride on hd and the given element
-// strides for batch, position and head; kv_len: (B,) int32 on the device.
+// k, v: (B, Smax, Hkv, hd) with unit stride on hd, 16-byte aligned rows
+// and the given element strides for batch, position and head; kv_len:
+// (B,) int32 on the device. gc: query heads per block (4 or 8); the grid
+// is (splits, Hkv * ceil(G / gc), B) with `per_block` positions per split
+// (a multiple of 64, splits * per_block >= Smax). ws: at least B * Hkv *
+// ceil(G / gc) * splits * gc * (hd + 2) floats; tickets: B * Hkv *
+// ceil(G / gc) int32, zero before the launch and zero again after it.
 // Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int repro_decode_attention(int dtype, const void* q, const void* k,
-                                      const void* v, const void* kv_len,
-                                      void* out, int B, int H, int Hkv,
-                                      int hd, int smax, long long ksb,
-                                      long long kss, long long ksh,
-                                      long long vsb, long long vss,
-                                      long long vsh, float scale,
-                                      void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+extern "C" int repro_decode_attention(
+    int dtype, const void* q, const void* k, const void* v,
+    const void* kv_len, void* out, void* ws, void* tickets, int B, int H,
+    int Hkv, int hd, int smax, int gc, int splits, int per_block,
+    long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || splits <= 0 ||
+      per_block <= 0 || per_block % kTile || (long long)splits * per_block < smax)
+    return cudaErrorInvalidValue;
+  const long long st[6] = {ksb, kss, ksh, vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, kv_len, out, B, H, Hkv, smax, ksb,
-                            kss, ksh, vsb, vss, vsh, scale, s);
+    return launch_hd<float>(hd, gc, q, k, v, kv_len, out, ws, tickets, B, H,
+                            Hkv, smax, splits, per_block, st, scale, s);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, kv_len, out, B, H, Hkv, smax,
-                                    ksb, kss, ksh, vsb, vss, vsh, scale, s);
+    return launch_hd<__nv_bfloat16>(hd, gc, q, k, v, kv_len, out, ws,
+                                    tickets, B, H, Hkv, smax, splits,
+                                    per_block, st, scale, s);
   return cudaErrorInvalidValue;
 }

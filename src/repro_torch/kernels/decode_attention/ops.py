@@ -4,6 +4,11 @@ A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor goes
 to the hand-written kernel (``csrc/decode_attention.cu``) or raises:
 there is no fallback. ``decode_attention.launches`` counts the kernel's
 launches.
+
+The kernel splits each (batch row, KV head)'s cache positions across
+blocks and merges the blocks' partial softmax states in the same launch
+(:func:`split_plan`). Its workspace and its tickets (zero between
+launches) are allocated once per device and stream and kept.
 """
 
 from __future__ import annotations
@@ -18,13 +23,57 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: positions per tile of the kernel; a split is a multiple of it
+TILE = 64
+#: at most this many splits per (batch row, KV head)
+MAX_SPLITS = 64
+#: aim for at most this many blocks per SM before positions per split grow
+BLOCKS_PER_SM = 4
+_WORKSPACES: dict = {}
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(b: int, hkv: int, g: int, smax: int, sms: int
+               ) -> tuple[int, int, int]:
+    """(query heads per block, splits, positions per split) of a launch
+    over B = ``b``, ``hkv`` KV heads with ``g`` query heads each, a cache of
+    ``smax`` positions, on a card of ``sms`` SMs. Splits start at one tile
+    of positions and double while there are more than ``MAX_SPLITS`` of
+    them or more than ``BLOCKS_PER_SM`` blocks per SM."""
+    gc = 4 if g <= 4 else 8
+    rows = b * hkv * -(-g // gc)
+    per = TILE
+    while per < smax and (-(-smax // per) > MAX_SPLITS
+                          or rows * -(-smax // per) > BLOCKS_PER_SM * sms):
+        per *= 2
+    return gc, max(1, -(-smax // per)), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _workspace(device: torch.device, stream: int, n_ws: int, n_tickets: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kept (workspace, tickets) of ``device`` and ``stream``, grown to
+    at least ``n_ws`` floats and ``n_tickets`` zeroed int32 tickets. The
+    kernel leaves every ticket at zero, so they are zeroed only here."""
+    key = (device.index, stream)
+    ws, tickets = _WORKSPACES.get(key, (None, None))
+    if ws is None or ws.numel() < n_ws or tickets.numel() < n_tickets:
+        ws = torch.empty(max(n_ws, 1), dtype=torch.float32, device=device)
+        tickets = torch.zeros(max(n_tickets, 1), dtype=torch.int32,
+                              device=device)
+        _WORKSPACES[key] = ws, tickets
+    return ws, tickets
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("decode_attention").repro_decode_attention
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -76,11 +125,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q = q.contiguous()
     lens = lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    h, hkv, smax = q.shape[1], k.shape[2], k.shape[1]
+    gc, splits, per = split_plan(b, hkv, h // hkv, smax,
+                                 _sm_count(q.device.index))
+    rows = b * hkv * -(-(h // hkv) // gc)
+    # the raw handle, without building a torch.cuda.Stream on every call
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    ws, tickets = _workspace(q.device, stream,
+                             rows * splits * gc * (hd + 2), rows)
     err = _launcher()(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), b, q.shape[1], k.shape[2], hd,
-        k.shape[1], *k.stride()[:3], *v.stride()[:3], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lens.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        b, h, hkv, hd, smax, gc, splits, per, *k.stride()[:3],
+        *v.stride()[:3], float(scale), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -77,7 +77,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "../../_hopper/hopper.cuh"
 
 namespace {
 

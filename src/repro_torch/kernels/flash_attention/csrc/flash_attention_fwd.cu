@@ -64,7 +64,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "hopper.cuh"
+#include "../../_hopper/hopper.cuh"
 
 namespace {
 

@@ -7,7 +7,11 @@ carried state (C0, n0, m0) is an input, so a prefill that continues from
 a state is exact. Forward only, as in the reference (its Pallas kernel has
 no VJP; training goes through the model's chunkwise path): an input that
 requires grad raises. ``mlstm_chunk.launches`` counts the kernel's
-launches.
+launches, and ``mlstm_chunk.tensor_core_launches`` those that ran its
+tensor-core body (:func:`takes_tensor_cores`: bfloat16 q/k/v, chunks of
+128 rows, head dims that are a multiple of 64). That body reads q, k and
+v by TMA; one whose rows are not 16-byte aligned is copied contiguous
+first.
 """
 
 from __future__ import annotations
@@ -27,7 +31,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128
 HD_MULTIPLE = 32
 MAX_HD = 512
+#: what the tensor-core body takes: its chunk and the width of its hd slices
+TC_CHUNK = 128
+TC_HD_MULTIPLE = 64
 _MAX_GRID = 65535
+
+
+def takes_tensor_cores(dtype: torch.dtype, L: int, hd: int) -> bool:
+    """Whether a CUDA call with q/k/v of ``dtype``, chunks of ``L`` rows and
+    head dim ``hd`` runs the tensor-core body; every other call runs the
+    CUDA-core body. The C entry point applies the same rule."""
+    return (dtype == torch.bfloat16 and L == TC_CHUNK
+            and hd % TC_HD_MULTIPLE == 0)
 
 
 @functools.cache
@@ -91,6 +106,11 @@ def _kernel(q, k, v, li, lf, C0, n0, m0, L):
             raise ValueError(f"{name} must have unit stride on its last dim "
                              f"(the kernel reads rows of hd); strides "
                              f"{t.stride()}")
+    tensor_cores = takes_tensor_cores(q.dtype, L, hd)
+    if tensor_cores:
+        q, k, v = (t if _build.rows_aligned(t)
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     li, lf = li.float().contiguous(), lf.float().contiguous()
     C0, n0 = C0.float().contiguous(), n0.float().contiguous()
     m0 = m0.float().contiguous()
@@ -105,10 +125,15 @@ def _kernel(q, k, v, li, lf, C0, n0, m0, L):
         m0.data_ptr(), hs.data_ptr(), C.data_ptr(), n.data_ptr(),
         m.data_ptr(), b, h, s, hd, L, 1.0 / float(hd) ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
+    if err == -1:
+        raise RuntimeError("mlstm_chunk: cuTensorMapEncodeTiled failed for "
+                           "q, k or v")
     if err:
         raise RuntimeError(f"mlstm_chunk kernel launch failed: cudaError "
                            f"{err}")
     mlstm_chunk.launches += 1
+    if tensor_cores:
+        mlstm_chunk.tensor_core_launches += 1
     return hs, (C, n, m)
 
 
@@ -132,3 +157,4 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 mlstm_chunk.launches = 0
+mlstm_chunk.tensor_core_launches = 0

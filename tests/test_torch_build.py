@@ -1,7 +1,7 @@
 """The port's kernel builder, on the CPU (no ``nvcc`` needed): the name of
 a kernel's library carries a hash of its source, of every ``*.cuh``
-header beside it and of the flags, so an edited header is never served
-by a stale library."""
+header beside it, of the shared headers in ``kernels/_hopper/`` and of
+the flags, so an edited header is never served by a stale library."""
 
 from repro_torch.kernels import _build
 
@@ -45,19 +45,25 @@ def test_library_path_follows_the_source_and_flags(tmp_path, monkeypatch):
 
 def test_the_shared_hopper_header_keys_both_flash_libraries(tmp_path,
                                                            monkeypatch):
-    """A copy of the flash-attention sources: an edit of ``hopper.cuh``,
-    which both include, renames both libraries."""
-    src = _build.source("flash_attention_fwd").parent
-    csrc = tmp_path / "flash_attention" / "csrc"
-    csrc.mkdir(parents=True)
-    names = ("flash_attention_fwd", "flash_attention_bwd")
+    """A copy of the sources that include the shared ``_hopper/hopper.cuh``
+    (the flash forward and backward and the chunkwise mLSTM): an edit of
+    the header renames all three libraries."""
+    names = ("flash_attention_fwd", "flash_attention_bwd", "mlstm_chunk")
+    header = _build.KERNELS_DIR / _build.SHARED_DIR / "hopper.cuh"
+    shared = tmp_path / _build.SHARED_DIR
+    shared.mkdir()
+    (shared / "hopper.cuh").write_bytes(header.read_bytes())
     for n in names:
-        assert '#include "hopper.cuh"' in (src / f"{n}.cu").read_text()
-    for f in (*(f"{n}.cu" for n in names), "hopper.cuh"):
-        (csrc / f).write_bytes((src / f).read_bytes())
+        src = _build.source(n)
+        text = src.read_text()
+        assert '#include "../../_hopper/hopper.cuh"' in text
+        csrc = tmp_path / src.parent.parent.name / "csrc"
+        csrc.mkdir(parents=True, exist_ok=True)
+        (csrc / src.name).write_text(text)
     monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    assert sorted(_build.kernel_names()) == sorted(names)
     before = [_build.library_path(n) for n in names]
-    with open(csrc / "hopper.cuh", "a") as f:
+    with open(shared / "hopper.cuh", "a") as f:
         f.write("// edited\n")
     after = [_build.library_path(n) for n in names]
     assert all(a != b for a, b in zip(after, before))

@@ -27,7 +27,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.mlstm_chunk import ops as ml_ops
-from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunkwise_ref,
+from repro_torch.kernels.mlstm_chunk.ref import (chunk_len,
+                                                 mlstm_chunkwise_ref,
                                                  mlstm_recurrent_ref)
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -84,6 +85,65 @@ def test_decode_kernel_reads_a_strided_cache_view(cuda):
     ref = decode_attention_ref(q, k, v, lens, scale=0.125)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h,hkv,hd,smax", [
+    (4, 12, 4, 64, 1024),     # the serving shape: splits of 64
+    (16, 12, 4, 64, 1024),    # B * Hkv = 64: splits of 128
+    (1, 8, 4, 128, 4096),     # B * Hkv = 4, a long cache
+    (3, 8, 1, 32, 200),       # G = 8, hd 32
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kv_matches_plain_version_at_split_edges(cuda, b, h,
+                                                              hkv, hd, smax,
+                                                              dtype):
+    """The split-KV kernel with kv_len at and around every split edge of
+    its plan, one launch per call, the same output from a second launch
+    (the merge's tickets are back at zero)."""
+    gen = torch.Generator(device=cuda).manual_seed(b + hd)
+    _, _, per = da_ops.split_plan(
+        b, hkv, h // hkv, smax,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    edges = [0, 1, per - 1, per, per + 1, smax - 1, smax, 2 * per + 1]
+    lens = torch.tensor([min(edges[i % len(edges)], smax) for i in range(b)],
+                        dtype=torch.int32, device=cuda)
+    q = _randn(gen, (b, h, hd), dtype, cuda)
+    k = _randn(gen, (b, smax, hkv, hd), dtype, cuda)
+    v = _randn(gen, (b, smax, hkv, hd), dtype, cuda)
+    before = da_ops.decode_attention.launches
+    out = da_ops.decode_attention(q, k, v, lens)
+    again = da_ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 2
+    ref = decode_attention_ref(q, k, v, lens, scale=hd ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.equal(out, again)
+    for row in range(b):
+        if int(lens[row]) == 0:
+            assert bool((out[row] == 0).all())
+
+
+def test_decode_workspace_serves_shapes_in_turn(cuda):
+    """Calls of two shapes in turn share the kept workspace and tickets and
+    stay right: every launch leaves the tickets at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    shapes = [(4, 12, 4, 64, 1024), (2, 4, 2, 128, 512)]
+    ins = []
+    for b, h, hkv, hd, smax in shapes:
+        ins.append((_randn(gen, (b, h, hd), torch.bfloat16, cuda),
+                    _randn(gen, (b, smax, hkv, hd), torch.bfloat16, cuda),
+                    _randn(gen, (b, smax, hkv, hd), torch.bfloat16, cuda),
+                    torch.randint(0, smax + 1, (b,), generator=gen,
+                                  device=cuda, dtype=torch.int32)))
+    first = [da_ops.decode_attention(*a) for a in ins]
+    for _ in range(3):
+        for a, want in zip(ins, first):
+            assert torch.equal(da_ops.decode_attention(*a), want)
+    for (q, k, v, lens), got in zip(ins, first):
+        ref = decode_attention_ref(q, k, v, lens, scale=q.shape[-1] ** -0.5)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 # (b, sq, skv, h, hkv, hd, options): lengths at the tensor-core body's tile
@@ -467,6 +527,83 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
         ml_ops.mlstm_chunk(*strided, *ins[3:], chunk=128)
     with pytest.raises(ValueError, match="one device"):
         ml_ops.mlstm_chunk(*ins[:7], ins[7].cpu(), chunk=128)
+
+
+@pytest.mark.parametrize("dtype,s,chunk,hd,tensor_cores", [
+    (torch.bfloat16, 256, 128, 512, True),
+    (torch.bfloat16, 256, 128, 64, True),
+    (torch.bfloat16, 384, 128, 192, True),
+    (torch.bfloat16, 256, 64, 512, False),     # L = 64
+    (torch.bfloat16, 96, 128, 64, False),      # L = 96
+    (torch.bfloat16, 256, 128, 96, False),     # hd not a multiple of 64
+    (torch.float32, 256, 128, 512, False),
+])
+def test_mlstm_route_table(cuda, dtype, s, chunk, hd, tensor_cores):
+    """Which body a call runs, by ``tensor_core_launches``, and that either
+    body matches the plain version there (hs also within 1e-2 / 1e-4 of
+    its norm)."""
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    ins = _mlstm_inputs(gen, 1, 2, s, hd, dtype, cuda, True)
+    assert ml_ops.takes_tensor_cores(dtype, chunk_len(s, chunk),
+                                     hd) == tensor_cores
+    before = (ml_ops.mlstm_chunk.launches,
+              ml_ops.mlstm_chunk.tensor_core_launches)
+    hs, state = ml_ops.mlstm_chunk(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ml_ops.mlstm_chunk.launches == before[0] + 1
+    assert ml_ops.mlstm_chunk.tensor_core_launches == \
+        before[1] + int(tensor_cores)
+    want_hs, want_state = mlstm_chunkwise_ref(*ins, chunk=chunk)
+    torch.testing.assert_close(hs.float(), want_hs.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    share = (hs.float() - want_hs.float()).norm() / want_hs.float().norm()
+    assert float(share) <= NORM_TOL[dtype]
+    for got, want in zip(state, want_state):
+        torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+
+
+def test_mlstm_tensor_core_body_reads_transposed_and_unaligned_views(cuda):
+    """The tensor-core body reads q, k, v through TMA: transposed (B, S, H,
+    hd) views as the model hands them over, and views at an odd element
+    offset, which the wrapper copies contiguous first; both give exactly
+    the contiguous call's result."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    ins = list(_mlstm_inputs(gen, 2, 4, 256, 512, torch.bfloat16, cuda,
+                             True))
+    want_hs, want_state = ml_ops.mlstm_chunk(*ins, chunk=128)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in ins[:3]]
+    odd = [torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:]
+           .view_as(t).copy_(t) for t in ins[:3]]
+    assert odd[0].data_ptr() % 16
+    before = ml_ops.mlstm_chunk.tensor_core_launches
+    for qkv in (views, odd):
+        hs, state = ml_ops.mlstm_chunk(*qkv, *ins[3:], chunk=128)
+        torch.cuda.synchronize()
+        assert torch.equal(hs, want_hs)
+        for got, want in zip(state, want_state):
+            assert torch.equal(got, want)
+    assert ml_ops.mlstm_chunk.tensor_core_launches == before + 2
+
+
+def test_mlstm_tensor_core_body_rejects_what_it_does_not_take(cuda):
+    """A bf16 call the tensor-core body would take raises on what no body
+    reads (a non-unit stride on hd, inputs on two devices) instead of
+    falling back to anything."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    ins = list(_mlstm_inputs(gen, 1, 2, 256, 128, torch.bfloat16, cuda,
+                             False))
+    strided = [torch.stack([t, t], dim=-1)[..., 0] for t in ins[:3]]
+    before = (ml_ops.mlstm_chunk.launches,
+              ml_ops.mlstm_chunk.tensor_core_launches)
+    with pytest.raises(ValueError, match="unit stride"):
+        ml_ops.mlstm_chunk(*strided, *ins[3:], chunk=128)
+    with pytest.raises(ValueError, match="one device"):
+        ml_ops.mlstm_chunk(*ins[:3], ins[3].cpu(), *ins[4:], chunk=128)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ml_ops.mlstm_chunk(ins[0].requires_grad_(), *ins[1:], chunk=128)
+    assert (ml_ops.mlstm_chunk.launches,
+            ml_ops.mlstm_chunk.tensor_core_launches) == before
 
 
 def test_xlstm_served_tokens_match_the_cpu(cuda):

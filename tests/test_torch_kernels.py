@@ -20,6 +20,7 @@ from repro.kernels.decode_attention.ref import decode_attention_ref as j_dref
 from repro.kernels.flash_attention import kernel as j_flash_kernel
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_fref
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -182,6 +183,84 @@ def test_decode_attention_rejects_bad_inputs():
     with pytest.raises(ValueError, match="cuda"):
         decode_attention(q.to("meta"), k.to("meta"), k.to("meta"),
                          torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+def _split_kv_decode(q, k, v, lens, *, scale, per):
+    """The card's split-KV decode kernel in plain torch: each (batch row, KV
+    head)'s live positions in splits of ``per``, each split walked in tiles
+    of 64 with an fp32 online softmax whose probabilities are rounded to
+    the cache dtype before P.V; a split past kv_len does nothing; one live
+    split writes out directly, several are merged by their fp32 (m, l, acc)
+    partials; kv_len = 0 gives zeros."""
+    b, h, hd = q.shape
+    smax, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    out = torch.zeros((b, h, hd), dtype=q.dtype)
+    for bi in range(b):
+        n = min(max(int(lens[bi]), 0), smax)
+        for kv in range(hkv):
+            heads = slice(kv * g, (kv + 1) * g)
+            qg = q[bi, heads].float() * scale
+            parts = []
+            for start in range(0, n, per):
+                end = min(start + per, n)
+                m = torch.full((g,), -math.inf)
+                l, acc = torch.zeros(g), torch.zeros(g, hd)
+                for p0 in range(start, end, 64):
+                    rows = slice(p0, min(p0 + 64, end))
+                    s = qg @ k[bi, rows, kv].float().T
+                    m_new = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    e = torch.exp(s - m_new[:, None])
+                    l = l * alpha + e.sum(-1)
+                    acc = acc * alpha[:, None] + e.to(v.dtype).float() @ \
+                        v[bi, rows, kv].float()
+                    m = m_new
+                parts.append((m, l, acc))
+            if not parts:
+                continue
+            mx = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            tot = sum(pl * torch.exp(pm - mx) for pm, pl, _ in parts)
+            o = sum(pa * torch.exp(pm - mx)[:, None] for pm, _, pa in parts)
+            out[bi, heads] = (o / tot.clamp_min(1e-30)[:, None]).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("per", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_decode_matches_the_reference_kernel(per, dtype):
+    """The split-KV partials and their merge, emulated in plain torch,
+    against the reference's decode kernel in interpret mode: ragged lengths
+    0, 1, 63, 64, 65 and Smax (tile and split edges; splits past kv_len
+    hold no live position), G = 3 as in aiida-demo-110m."""
+    rng = np.random.default_rng(23)
+    b, h, hkv, hd, smax = 6, 12, 4, 64, 256
+    (jq, jk, jv), (tq, tk, tv) = _decode_inputs(rng, b, h, hkv, hd, smax,
+                                                dtype)
+    lens = np.asarray([0, 1, 63, 64, 65, smax], np.int32)
+    got = _split_kv_decode(tq, tk, tv, lens, scale=hd ** -0.5, per=per)
+    assert got.dtype == tq.dtype
+    _close(got, j_decode(jq, jk, jv, jnp.asarray(lens), block_kv=64), dtype)
+    _close(got, decode_attention(tq, tk, tv, torch.from_numpy(lens)), dtype)
+    assert bool((got[0] == 0).all())
+
+
+def test_split_plan_spreads_the_cache_over_the_card():
+    """The serving shape (B = 4, Hkv = 4, G = 3, Smax = 1024) splits into
+    tiles of 64 positions: 256 blocks for 132 SMs. More rows (B * Hkv = 64)
+    take longer splits so the blocks stay within four per SM; every split
+    is a multiple of the tile, there are at most 64 per row, and together
+    they cover the cache."""
+    plan = da_ops.split_plan
+    assert plan(4, 4, 3, 1024, 132) == (4, 16, 64)
+    gc, splits, per = plan(16, 4, 3, 1024, 132)
+    assert 16 * 4 * splits <= da_ops.BLOCKS_PER_SM * 132 and per == 128
+    assert plan(2, 1, 8, 128, 132)[0] == 8
+    for b, hkv, g, smax in ((1, 1, 1, 1), (1, 4, 3, 32768), (64, 8, 4, 4096),
+                            (3, 2, 5, 700), (2, 2, 2, 0)):
+        gc, splits, per = plan(b, hkv, g, smax, 132)
+        assert per % da_ops.TILE == 0 and splits * per >= smax
+        assert 1 <= splits <= da_ops.MAX_SPLITS and gc in (4, 8)
 
 
 # ---------------------------------------------------------------------------

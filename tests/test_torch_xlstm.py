@@ -40,9 +40,10 @@ from repro.kernels.mlstm_chunk.ref import mlstm_ref as j_mlstm_ref
 from repro.models import common as j_common
 from repro.models import xlstm as j_x
 from repro.models.registry import build as j_build
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.mlstm_chunk import ops as ml_ops
-from repro_torch.kernels.mlstm_chunk.ref import (chunk_len,
+from repro_torch.kernels.mlstm_chunk.ref import (NEG_BIG, chunk_len,
+                                                 cumsum_in_order,
                                                  mlstm_recurrent_ref)
 from repro_torch.models import common
 from repro_torch.models import xlstm as x
@@ -176,6 +177,123 @@ def test_mlstm_chunk_takes_bfloat16():
     _close(hs, jhs, TOL["bfloat16"])
     for g, w in ((C, jC), (n, jn), (m, jm)):
         _close(g, w)
+
+
+def _tensor_core_mlstm(q, k, v, li, lf, C0, n0, m0):
+    """The card's bfloat16 tensor-core mLSTM body in plain torch (chunks of
+    128 rows), rounding where it rounds: the scores q k^T, q C_prev and
+    q n_prev from bf16 q/k with fp32 sums, scaled after; the three fp32
+    operands of its bf16 products, C_prev (of q C_prev), att (of att v) and
+    the update's kk = k k_scale, each split into bf16 hi and lo = bf16(x -
+    hi), both products summed into one fp32 term (one rounding to bf16
+    moves hs past its 2e-2 bar, and C past its 5e-5 bar); den_intra
+    summed from the fp32 att; n, the gates and the state in fp32 as in the
+    plain version."""
+
+    def split(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float()
+
+    s, hd = q.shape[2], q.shape[3]
+    L = 128
+    scale = 1.0 / float(hd) ** 0.5
+    C, n = C0.float(), n0.float()
+    m = torch.clamp_min(m0.float(), NEG_BIG)
+    tri = torch.ones((L, L), dtype=torch.bool).tril()
+    hs = []
+    for c0 in range(0, s, L):
+        sl = slice(c0, c0 + L)
+        qc, kc, vc = (t[:, :, sl].float() for t in (q, k, v))
+        lic, lfc = li[:, :, sl].float(), lf[:, :, sl].float()
+        b_cum = cumsum_in_order(lfc)
+        total = b_cum[..., -1:]
+        D = b_cum[..., :, None] - b_cum[..., None, :] + lic[..., None, :]
+        D = torch.where(tri, D, NEG_BIG)
+        m_inter = b_cum + m[..., None]
+        m_out = torch.clamp_min(torch.maximum(D.amax(dim=-1), m_inter),
+                                NEG_BIG)
+        inter_scale = torch.exp(m_inter - m_out)
+        C_hi, C_lo = split(C)
+        h_inter = (qc @ C_hi + qc @ C_lo) * scale
+        den_inter = (qc @ n[..., None])[..., 0] * scale
+        att = (qc @ kc.transpose(-1, -2)) * scale * torch.exp(
+            D - m_out[..., None])
+        att = torch.where(tri, att, 0.0)
+        att_hi, att_lo = split(att)
+        h_intra = torch.cat([att_hi, att_lo], dim=-1) @ torch.cat([vc, vc],
+                                                                  dim=-2)
+        den = den_inter * inter_scale + att.sum(dim=-1)
+        denom = torch.maximum(den.abs(), torch.exp(-m_out))
+        hs.append((h_inter * inter_scale[..., None] + h_intra)
+                  / denom[..., None])
+        m_cand = (lic + total - b_cum).amax(dim=-1)
+        m_new = torch.maximum(m + total[..., 0], m_cand)
+        c_scale = torch.exp(m + total[..., 0] - m_new)
+        k_scale = torch.exp(lic + total - b_cum - m_new[..., None])
+        kk = kc * k_scale[..., None]
+        kk_hi, kk_lo = split(kk)
+        C = C * c_scale[..., None, None] + torch.cat(
+            [kk_hi, kk_lo], dim=-2).transpose(-1, -2) @ torch.cat([vc, vc],
+                                                                  dim=-2)
+        n = n * c_scale[..., None] + kk.sum(dim=-2)
+        m = m_new
+    return torch.cat(hs, dim=2).bfloat16(), (C, n, m)
+
+
+def test_tensor_core_mlstm_rounding_stays_inside_the_bars():
+    """The rounding the card's tensor-core mLSTM body adds, emulated in
+    plain torch at the serving head dim and prompt (B = 1, H = 2, S = 2048,
+    hd = 512, bf16 q/k/v), against the reference's kernel in interpret
+    mode, its sequential oracle and the port's plain version, at the bars
+    the card's check holds the kernel to: hs within 2e-2 abs+rel and 1e-2
+    of its norm of the kernel and the plain version; C, n and m within
+    5e-5 abs+rel of the plain version; against the oracle hs 2e-2, C 1e-3
+    and m 1e-5, or where the plain version is itself farther, no farther
+    than it plus the kernel-vs-plain bar."""
+    ins = list(_mlstm_inputs(np.random.default_rng(13), 1, 2, 2048, 512))
+    tq, tk, tv = (_t(a).bfloat16() for a in ins[:3])
+    rest = list(map(_t, ins[3:]))
+    hs, state = _tensor_core_mlstm(tq, tk, tv, *rest)
+    phs, pstate = ml_ops.mlstm_chunk(tq, tk, tv, *rest, chunk=128)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in ins[:3])
+    jrest = [jnp.asarray(a) for a in ins[3:]]
+    jhs, _ = j_mlstm(jq, jk, jv, *jrest, chunk=128)
+    ohs, (oC, _, om) = j_mlstm_ref(jq, jk, jv, *jrest)
+    for want in (jhs, phs):
+        g, w = _np(hs), _np(want)
+        np.testing.assert_allclose(g, w, atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"])
+        assert np.linalg.norm(g - w) / np.linalg.norm(w) <= 1e-2
+    for got, want in zip(state, pstate):
+        _close(got, want, 5e-5)
+    for name, g, p, w, bar in (("hs", hs, phs, ohs, TOL["bfloat16"]),
+                               ("C", state[0], pstate[0], oC, ORACLE["C"]),
+                               ("m", state[2], pstate[2], om, ORACLE["m"])):
+        plain = np.abs(_np(p) - _np(w)).max()
+        if plain > bar:
+            bar = plain + (TOL["bfloat16"] if name == "hs" else 5e-5)
+        rtol = TOL["bfloat16"] if name == "hs" else 0.0
+        np.testing.assert_allclose(_np(g), _np(w), atol=bar, rtol=rtol,
+                                   err_msg=name)
+
+
+def test_tensor_core_route_is_bf16_with_full_chunks():
+    """Which CUDA calls take the tensor-core body: bfloat16 q/k/v, chunks
+    of 128 rows (the serving prefill's) and head dims that are a multiple
+    of 64; fp32, shorter chunks and other head dims stay on the CUDA-core
+    body."""
+    take = ml_ops.takes_tensor_cores
+    assert take(torch.bfloat16, 128, 512) and take(torch.bfloat16, 128, 64)
+    assert not take(torch.float32, 128, 512)
+    for L in (1, 4, 32, 37, 64, 96):
+        assert not take(torch.bfloat16, L, 512)
+    for hd in (32, 96, 160):
+        assert not take(torch.bfloat16, 128, hd)
+    # the full-width serving prefill: 2048-token prompts, head dim 512
+    cfg = get_config(ARCH)
+    hd = 2 * cfg.d_model // cfg.num_heads
+    assert hd == 512 and take(torch.bfloat16,
+                              chunk_len(2048, cfg.mlstm_chunk), hd)
 
 
 def test_mlstm_chunk_plain_version_launches_nothing():
