@@ -57,12 +57,20 @@ then:
    the CPU (plain versions) from the same parameters and batch, and holds
    loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
    norm) together;
-9. holds the RG-LRU scan kernel against its plain sequential version
-   (B in 1/4, S in 1/37/1000/4096, D in 48/96/2560, fp32 and bf16 inputs,
-   nonzero h0; 5e-5) and its backward (the reversed scan, through the
-   autograd Function) against autograd of the plain version at
-   (2, 1024, 2560) and (3, 333, 100) (1e-4), and times kernel and plain
-   version at the prefill shape (4, 4096, 2560);
+9. holds the single-pass RG-LRU scan kernel against its plain sequential
+   version (5e-5), forward and reversed (the backward's scan, called
+   directly): B in 1/4, S in 1/37/1000/4096, D in 48/96/2560, fp32 and
+   bf16 inputs, nonzero h0; then the tile edges (S = T - 1, T, T + 1,
+   2T +- 1 for the plan's tile length T; D = 1/31/32/33/63/64/65/2560;
+   B = 1 with D = 2560; bf16 with an odd D; a view at an odd offset);
+   every case launched twice for the same bits and h_last equal to the
+   last step of hs; requires ptxas to report no spills; holds its
+   backward (through the autograd Function) against autograd of the
+   plain version at (2, 1024, 2560) and (3, 333, 100) (1e-4); times kernel
+   (events and the profiler's device time per launch), plain version and
+   a stream yardstick (``torch.add(a, x, out=hs)``, the same 12 bytes per
+   element) at the prefill shape (4, 4096, 2560), kernel and yardstick at
+   B = 1, and reports the bytes per element the design moves;
 10. serves ``recurrentgemma-2b`` at full width and depth (26 layers, bf16,
    random weights from a seed, the config's chunked attention over a
    2048-slot ring, the scan kernel): 4 prompts of 4096 tokens, 64 greedy
@@ -695,6 +703,13 @@ def device_share(torch, fn, n: int) -> dict:
         kind = kernel_kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         count[kind] = count.get(kind, 0) + e.count
+    # each kernel's own span in the trace: a median that an event merged
+    # with another or cut short does not move
+    spans = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            spans.setdefault(kernel_kind(e.name), []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": max(0.0, 1.0 - device / wall) if wall else None,
             "launches_per_run": sum(e.count for e in evs) / n,
@@ -704,6 +719,8 @@ def device_share(torch, fn, n: int) -> dict:
             "device_ms_per_launch_by_kind": {
                 kind: by_kind[kind] * n / count[kind] for kind in by_kind
                 if count[kind]},
+            "device_ms_median_by_kind": {
+                kind: sorted(v)[len(v) // 2] for kind, v in spans.items()},
             "launches_by_kind": {kind: c / n for kind, c in count.items()}}
 
 
@@ -1181,12 +1198,55 @@ def train_parity_phase(torch, cfg_full) -> dict:
 # phase 9: the RG-LRU scan
 # ---------------------------------------------------------------------------
 
-def rglru_phase(torch, rg_ops, rg_ref) -> dict:
-    """The scan kernel against the plain sequential scan: a forward sweep
-    (B, S, D, fp32 and bf16 inputs, nonzero h0; 5e-5 abs and rel), the
-    backward through the autograd Function against autograd through the
-    plain version (1e-4), then kernel and plain timed at the prefill
-    shape."""
+def rglru_case(torch, rg_ops, rg_ref, a, x, h0, reverse, what) -> float:
+    """One scan case, launched twice: the forward through the autograd
+    Function, the reversed scan (the backward's) called directly. Both
+    launches must give the same bits (the kernel's status words and
+    counters are ready again after every launch), hs and h_last must be
+    within 5e-5 of the plain version, and h_last must equal the last step
+    of hs. Returns the max abs error."""
+    b, s, d = a.shape
+    fn = ((lambda: rg_ops._scan(a, x, h0, reverse=True)) if reverse
+          else (lambda: rg_ops.rglru_scan(a, x, h0)))
+    before = rg_ops.rglru_scan.launches
+    hs, h_last = fn()
+    hs2, h_last2 = fn()
+    rhs, rh_last = rg_ref.rglru_scan_ref(a, x, h0, reverse=reverse)
+    torch.cuda.synchronize()
+    tol = TOL["float32"]
+    check(rg_ops.rglru_scan.launches - before == 2,
+          f"{what}: launches {rg_ops.rglru_scan.launches - before} != 2")
+    check(hs.dtype == torch.float32 and hs.shape == (b, s, d)
+          and h_last.shape == (b, d),
+          f"{what}: outputs {hs.dtype} {tuple(hs.shape)} "
+          f"{tuple(h_last.shape)}")
+    err = max(max_err(torch, hs, rhs), max_err(torch, h_last, rh_last))
+    check(torch.allclose(hs, rhs, atol=tol, rtol=tol)
+          and torch.allclose(h_last, rh_last, atol=tol, rtol=tol),
+          f"{what}: max abs err {err} > {tol}")
+    check(torch.equal(hs, hs2) and torch.equal(h_last, h_last2),
+          f"{what}: a second launch differs")
+    check(torch.equal(h_last, hs[:, 0] if reverse else hs[:, -1]),
+          f"{what}: h_last is not the last step of hs")
+    return err
+
+
+def rglru_phase(torch, rg_ops, rg_ref, build_log: str) -> dict:
+    """The scan kernel against the plain sequential scan: a forward and
+    reversed sweep (B, S, D, fp32 and bf16 inputs, nonzero h0; 5e-5 abs
+    and rel), cases at the tile edges (S = T - 1, T, T + 1 and 2T +- 1 for
+    the tile length T; D around the 32 and 64 channels of a tile; B = 1
+    with D = 2560, where time is split hardest; D = 1; bf16 with an odd
+    D; a view at an odd offset), each launched twice for the same bits
+    (:func:`rglru_case`); ptxas must report no spills; the backward
+    through the autograd Function against autograd through the plain
+    version (1e-4). Then kernel (events and the profiler's device time per
+    launch), plain version and ``torch.add(a, x, out=hs)`` (the same 12
+    bytes per element: an achievable-bandwidth yardstick) timed at the
+    prefill shape, and kernel and yardstick at B = 1."""
+    usage = ptxas_all(build_log, "rglru_scan_kernel")
+    print(f"rglru_scan single-pass body, ptxas: {usage}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(9)
 
     def inputs(b, s, d, dt, g=gen):
@@ -1195,33 +1255,58 @@ def rglru_phase(torch, rg_ops, rg_ref) -> dict:
         h0 = torch.randn(b, d, generator=g, device="cuda")
         return a.to(dt), x.to(dt), h0
 
-    worst = 0.0
-    tol = TOL["float32"]
+    worst, cases = 0.0, 0
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        for b in (1, 4):
-            for s in (1, 37, 1000, 4096):
-                for d in (48, 96, RG_D):
-                    a, x, h0 = inputs(b, s, d, dt)
-                    hs, h_last = rg_ops.rglru_scan(a, x, h0)
-                    rhs, rh_last = rg_ref.rglru_scan_ref(a, x, h0)
-                    torch.cuda.synchronize()
-                    err = max(max_err(torch, hs, rhs),
-                              max_err(torch, h_last, rh_last))
-                    check(hs.dtype == torch.float32 and hs.shape == (b, s, d)
-                          and h_last.shape == (b, d),
-                          f"rglru {dt_name} {(b, s, d)}: outputs "
-                          f"{hs.dtype} {tuple(hs.shape)} "
-                          f"{tuple(h_last.shape)}")
-                    check(torch.allclose(hs, rhs, atol=tol, rtol=tol)
-                          and torch.allclose(h_last, rh_last, atol=tol,
-                                             rtol=tol),
-                          f"rglru {dt_name} {(b, s, d)}: max abs err {err} "
-                          f"> {tol}")
-                    worst = max(worst, err)
-        print(f"rglru_scan {dt_name} forward sweep B in (1, 4), S in (1, 37, "
-              f"1000, 4096), D in (48, 96, {RG_D}): max_abs_err so far "
-              f"{worst:.3e} (tol {tol})")
+        for b, s, d in itertools.product((1, 4), (1, 37, 1000, 4096),
+                                         (48, 96, RG_D)):
+            a, x, h0 = inputs(b, s, d, dt)
+            for reverse in (False, True):
+                worst = max(worst, rglru_case(
+                    torch, rg_ops, rg_ref, a, x, h0, reverse,
+                    f"rglru {dt_name} {(b, s, d)} reverse={reverse}"))
+                cases += 1
+        print(f"rglru_scan {dt_name} sweep B in (1, 4), S in (1, 37, 1000, "
+              f"4096), D in (48, 96, {RG_D}), both directions: max_abs_err "
+              f"so far {worst:.3e} (tol {TOL['float32']})")
+
+    # the tile edges, at the plan's tile length for each (B, D)
+    edges = []
+    for b, d in ((1, 31), (2, 32), (1, 33), (3, 63), (1, 64), (2, 65),
+                 (1, RG_D), (2, 1)):
+        t = rg_ops.tile_plan(b, 4096, d, sms).tile_t
+        edges += [(b, s, d, "float32") for s in (t - 1, t, t + 1,
+                                                   2 * t - 1, 2 * t + 1)]
+    edges += [(1, SERVE_RG_PROMPT, RG_D, "float32"),
+              (1, 1000, RG_D, "float32"), (2, 4097, 1, "float32"),
+              (2, 333, 33, "bfloat16"), (1, SERVE_RG_PROMPT, RG_D,
+                                         "bfloat16")]
+    plans = {}
+    for b, s, d, dt_name in edges:
+        a, x, h0 = inputs(b, s, d, getattr(torch, dt_name))
+        plans[f"{(b, s, d)}"] = tuple(rg_ops.tile_plan(b, s, d, sms))
+        for reverse in (False, True):
+            worst = max(worst, rglru_case(
+                torch, rg_ops, rg_ref, a, x, h0, reverse,
+                f"rglru edge {dt_name} {(b, s, d)} plan "
+                f"{plans[f'{(b, s, d)}']} reverse={reverse}"))
+            cases += 1
+    # views one element into their storage: the wrapper copies them to the
+    # alignment of the kernel's copies
+    base = torch.randn(2 * 333 * 100 + 1, generator=gen, device="cuda")
+    av = (0.5 + 0.5 * torch.sigmoid(base))[1:].view(2, 333, 100)
+    xv = base[1:].view(2, 333, 100)
+    h0 = torch.randn(2, 100, generator=gen, device="cuda")
+    check(av.data_ptr() % 8 != 0, "the odd-offset view is aligned")
+    for reverse in (False, True):
+        worst = max(worst, rglru_case(torch, rg_ops, rg_ref, av, xv, h0,
+                                      reverse, f"rglru odd-offset view "
+                                               f"reverse={reverse}"))
+        cases += 1
+    print(f"rglru_scan edges (S at T - 1, T, T + 1, 2T +- 1; D 1/31/32/33/"
+          f"63/64/65/{RG_D}; B = 1 at D = {RG_D}; bf16 odd D; an odd-offset "
+          f"view): {cases} cases in all, each launched twice with equal "
+          f"bits, max_abs_err {worst:.3e}")
 
     # backward: the kernel's autograd Function (forward scan, reversed scan)
     # against autograd through the plain loop, for random cotangents
@@ -1247,29 +1332,77 @@ def rglru_phase(torch, rg_ops, rg_ref) -> dict:
               f"(tol {btol})")
 
     # timing at the prefill shape: fp32 a and bx, as rglru_gates gives them
+    def timed(b, s, d, plain: bool) -> dict:
+        elems = b * s * d
+        sets = [inputs(b, s, d, torch.float32, None)
+                for _ in range(copies_for(8 * elems))]
+        outs = [(a, x, torch.empty_like(a)) for a, x, _ in sets]
+        # kernel, yardstick, kernel, yardstick: the card's clocks move
+        # between phases, so the two are compared within one window
+        runs = {"ms": [], "stream_ms": []}
+        for _ in range(2):
+            runs["ms"].append(time_ms(torch, rg_ops.rglru_scan, sets,
+                                      iters=20))
+            runs["stream_ms"].append(time_ms(
+                torch, lambda a, x, o: torch.add(a, x, out=o), outs,
+                iters=20))
+        ms, stream_ms = (sum(v) / len(v) for v in runs.values())
+        rotate = itertools.cycle(sets)
+        prof = device_share(torch,
+                            lambda: rg_ops.rglru_scan(*next(rotate)), 20)
+        plain_ms = (time_ms(torch, rg_ref.rglru_scan_ref, sets[:1], iters=2)
+                    if plain else None)
+        plan = rg_ops.tile_plan(b, s, d, sms)
+        nbytes = 12 * elems + 8 * b * d     # a, x in; hs out; h0, h_last
+        # what the design moves beyond that: each tile writes its
+        # aggregate and inclusive carry and reads one predecessor's carry,
+        # and writes and reads a status word
+        extra = plan.tiles * (4 * plan.tile_c * 4 + 16)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * elems / PEAK_FLOPS["float32"] * 1e3
+        return {"ms": ms, "device_ms": prof["device_ms_per_launch_by_kind"][
+                    "rglru_scan"],
+                "device_ms_median": prof["device_ms_median_by_kind"][
+                    "rglru_scan"],
+                "device_launches_seen": prof["launches_by_kind"]["rglru_scan"],
+                "stream_ms": stream_ms, "runs": runs, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes_per_element": (nbytes + extra) / elems,
+                "plan": tuple(plan)}
+
     b, s, d = SERVE_RG_BATCH, SERVE_RG_PROMPT, RG_D
-    elems = b * s * d
-    nbytes = 12 * elems + 8 * b * d       # a, x in; hs out; h0 in, h_last out
-    sets = [inputs(b, s, d, torch.float32, None)
-            for _ in range(copies_for(8 * elems))]
-    ms = time_ms(torch, rg_ops.rglru_scan, sets, iters=20)
-    plain_ms = time_ms(torch, rg_ref.rglru_scan_ref, sets[:1], iters=2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * elems / PEAK_FLOPS["float32"] * 1e3
-    del sets
-    print(f"rglru_scan timing (B={b} S={s} D={d} fp32): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms, "
-          "library none")
+    main = timed(b, s, d, plain=True)
+    one = timed(1, s, d, plain=False)
+    for (tb, label), r in (((b, "prefill"), main), ((1, "B=1"), one)):
+        print(f"rglru_scan timing {label} (B={tb} S={s} D={d} fp32, plan "
+              f"{r['plan']}): kernel {r['ms']:.5f} ms (device "
+              f"{r['device_ms']:.5f} ms per launch over "
+              f"{r['device_launches_seen']:.2f} launches seen per call, "
+              f"median {r['device_ms_median']:.5f} ms), stream yardstick "
+              f"{r['stream_ms']:.5f} ms (interleaved runs {r['runs']}), plain "
+              f"{r['plain_ms']} ms, bound {r['bound_ms']:.5f} ms, "
+              f"bound/kernel {r['bound_ms'] / r['ms']:.4f} (device "
+              f"{r['bound_ms'] / r['device_ms']:.4f}), "
+              f"{r['bytes_per_element']:.4f} bytes per element moved, "
+              f"library none")
     return {
-        "name": "rglru_scan", "route": "cuda", "body": "rglru_scan_kernel",
+        "name": "rglru_scan", "route": "cuda",
+        "body": "rglru_scan_kernel: one pass, persistent blocks, "
+                "decoupled look-back over time tiles",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:52",
-        "max_abs_err": worst, "bwd_max_abs_err": bwd_worst,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        # no single PyTorch call computes a linear recurrence
-        "library_ms": None,
+        "max_abs_err": worst, "bwd_max_abs_err": bwd_worst, "cases": cases,
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "device_ms_median": main["device_ms_median"],
+        "device_launches_seen_per_call": main["device_launches_seen"],
+        "stream_ms": main["stream_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bytes_per_element": main["bytes_per_element"],
+        # no single PyTorch call computes a linear recurrence (torch.add is
+        # only a yardstick of bandwidth)
+        "library_ms": None, "tile_plan": main["plan"], "b1": one,
+        "edge_plans": plans, "ptxas": usage,
         "timed_at": f"B={b} S={s} D={d} fp32 a and x",
     }
 
@@ -1392,7 +1525,10 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
             dev_params, cache, last, pos)[0].cpu(), 5),
     }
     decode_median = sorted(step_ms)[len(step_ms) // 2]
+    pre = profiled["prefill"]
     result = {
+        "scan_share_of_prefill_device": pre["device_ms_by_kind"].get(
+            "rglru_scan", 0.0) / pre["device_ms"],
         "batch": SERVE_RG_BATCH, "prompt": SERVE_RG_PROMPT,
         "new_tokens": SERVE_RG_NEW, "layers": cfg.num_layers,
         "rglru_layers": n_rglru, "window": cfg.local_window,
@@ -1853,7 +1989,8 @@ def main() -> int:
                                _build.build_log("flash_attention_bwd"))
     trained = train_phase(torch, cfg_full, fa_ops)
     train_parity = train_parity_phase(torch, cfg_full)
-    kernels.append(rglru_phase(torch, rg_ops, rg_ref))
+    kernels.append(rglru_phase(torch, rg_ops, rg_ref,
+                               _build.build_log("rglru_scan")))
     cfg_rg = get_config(HYBRID).replace(use_pallas=True)
     rg_params = host_params(torch, cfg_rg, 10)
     counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd,

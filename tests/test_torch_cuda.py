@@ -411,6 +411,95 @@ def test_rglru_kernel_backward_matches_plain_autograd(cuda, b, s, d, dtype):
                                    msg=lambda m: f"{name}: {m}")
 
 
+def _scan_twice_close(a, x, h0, reverse=False):
+    """The kernel twice (forward through the public wrapper, reversed
+    directly): the same bits both times, within 5e-5 of the plain
+    version, h_last equal to the last step of hs."""
+    fn = ((lambda: rg_ops._scan(a, x, h0, reverse=True)) if reverse
+          else (lambda: rg_ops.rglru_scan(a, x, h0)))
+    before = rg_ops.rglru_scan.launches
+    hs, h_last = fn()
+    hs2, h_last2 = fn()
+    torch.cuda.synchronize()
+    assert rg_ops.rglru_scan.launches == before + 2
+    assert torch.equal(hs, hs2) and torch.equal(h_last, h_last2)
+    assert torch.equal(h_last, hs[:, 0] if reverse else hs[:, -1])
+    want_hs, want_last = rglru_scan_ref(a, x, h0, reverse=reverse)
+    torch.testing.assert_close(hs, want_hs, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(h_last, want_last, atol=5e-5, rtol=5e-5)
+    return hs, h_last
+
+
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1"])
+@pytest.mark.parametrize("b,d", [(2, 31), (1, 32), (3, 33), (2, 63),
+                                 (1, 64), (2, 65), (1, 2560)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rglru_kernel_at_the_tile_edges(cuda, b, d, edge, reverse):
+    """S one step short of, at and past the tile length of the plan; D
+    around the channels of a tile (32, or 64 for an even D); B = 1 with
+    D = 2560, where the plan splits time hardest."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    t = rg_ops.tile_plan(b, 4096, d, sms).tile_t
+    s = {"T-1": t - 1, "T": t, "T+1": t + 1}[edge]
+    gen = torch.Generator(device=cuda).manual_seed(s * d)
+    a, x, h0 = _scan_inputs(gen, b, s, d, torch.float32, cuda)
+    _scan_twice_close(a, x, h0, reverse)
+
+
+def test_rglru_kernel_time_split_across_blocks_at_b1(cuda):
+    """B = 1 at the hybrid's width and prompt: 40 chains of 32 tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    a, x, h0 = _scan_inputs(gen, 1, 4096, 2560, torch.float32, cuda)
+    for reverse in (False, True):
+        _scan_twice_close(a, x, h0, reverse)
+
+
+def test_rglru_kernel_on_two_streams(cuda):
+    """Two calls in flight on two streams at once, each with its own kept
+    workspace, give the bits of the same calls on one stream."""
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    ins = [_scan_inputs(gen, 2, 2000, 2560, torch.float32, cuda)
+           for _ in range(2)]
+    want = [rg_ops.rglru_scan(*i) for i in ins]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    got = []
+    for st, i in zip(streams, ins):
+        st.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(st):
+            got.append(rg_ops.rglru_scan(*i))
+    torch.cuda.synchronize()
+    for (hs, hl), (whs, whl) in zip(got, want):
+        assert torch.equal(hs, whs) and torch.equal(hl, whl)
+
+
+def test_rglru_kernel_reuses_its_workspace_for_a_smaller_call(cuda):
+    """A large call, then a small one on the same kept workspace (status
+    words of the large call's generation left behind), then the large one
+    again: every result right and repeatable."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    large = _scan_inputs(gen, 4, 4096, 2560, torch.float32, cuda)
+    small = _scan_inputs(gen, 1, 77, 130, torch.bfloat16, cuda)
+    first, _ = _scan_twice_close(*large)
+    _scan_twice_close(*small)
+    _scan_twice_close(*small, reverse=True)
+    again, _ = _scan_twice_close(*large)
+    assert torch.equal(first, again)
+
+
+def test_rglru_kernel_takes_a_view_at_an_odd_offset(cuda):
+    """a and x one element into their storage (not aligned to the
+    kernel's 8-byte copies): the wrapper copies them, never raises."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    base = torch.randn(2 * 300 * 96 + 1, generator=gen, device=cuda)
+    a = (0.5 + 0.5 * torch.sigmoid(base))[1:].view(2, 300, 96)
+    x = base[1:].view(2, 300, 96)
+    h0 = torch.randn(2, 96, generator=gen, device=cuda)
+    assert a.data_ptr() % 8 != 0
+    for reverse in (False, True):
+        _scan_twice_close(a, x, h0, reverse)
+
+
 def test_hybrid_served_tokens_match_the_cpu(cuda):
     """Reduced recurrentgemma-2b in float32 with the scan kernel, a prompt
     past the window: greedy tokens on the card equal those on the CPU,

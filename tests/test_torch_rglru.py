@@ -196,6 +196,188 @@ def test_rglru_scan_rejects_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
+# the Hopper kernel's tile plan and arithmetic (single pass, decoupled
+# look-back over time tiles), in plain torch
+# ---------------------------------------------------------------------------
+
+_PLAN_D = (1, 31, 33, 100, 2560)
+_PLAN_S = ("1", "T-1", "T", "T+1", "4097")
+
+
+def _plan_len(kind, b, d):
+    """S of the given kind, T being the tile length at S = 4097."""
+    t = rg_ops.tile_plan(b, 4097, d, 132).tile_t
+    return {"1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "4097": 4097}[kind]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("d", _PLAN_D)
+@pytest.mark.parametrize("kind", _PLAN_S)
+def test_scan_tile_plan_covers_every_element_once(kind, d, reverse):
+    """Every (b, t, channel) lies in exactly one tile; each chain's tickets
+    run in time order (backwards under ``reverse``), a tile's predecessor
+    being ticket - chains; the workspace holds 3 rows of the tile's
+    channels per tile."""
+    b = 2
+    s = _plan_len(kind, b, d)
+    plan = rg_ops.tile_plan(b, s, d, 132)
+    assert plan.vec == (2 if d % 2 == 0 else 1)
+    assert plan.blocks == min(plan.tiles, rg_ops.BLOCKS_PER_SM * 132)
+    assert plan.tile_c == 32 * plan.vec
+    assert 1 <= plan.steps <= rg_ops.ELEMS // plan.vec
+    assert plan.tile_t == rg_ops.WARPS * plan.steps
+    assert plan.chunks == -(-d // plan.tile_c) and plan.chains == b * \
+        plan.chunks
+    assert plan.ntiles == -(-s // plan.tile_t)
+    assert plan.tiles == plan.chains * plan.ntiles
+    assert plan.ws_floats == plan.tiles * 3 * plan.tile_c
+    count = np.zeros((b, s, d), np.int8)
+    chains = {}
+    for ticket in range(plan.tiles):
+        bi, d0, d1, t0, t1, j = rg_ops.tile_of(plan, ticket, s, d, reverse)
+        assert 0 <= d0 < d1 <= d and 0 <= t0 < t1 <= s
+        assert d0 % plan.tile_c == 0 and t1 - t0 <= plan.tile_t
+        count[bi, t0:t1, d0:d1] += 1
+        chains.setdefault((bi, d0), []).append((ticket, j, t0, t1))
+    assert (count == 1).all()
+    assert len(chains) == plan.chains
+    for tiles in chains.values():
+        for k, (ticket, j, t0, t1) in enumerate(tiles):
+            assert j == k
+            if k == 0:
+                assert (t1 == s) if reverse else (t0 == 0)
+                continue
+            prev = tiles[k - 1]
+            assert prev[0] == ticket - plan.chains
+            assert (t1 == prev[2]) if reverse else (t0 == prev[3])
+
+
+@pytest.mark.parametrize("b,s,d", [(1, 4096, 2560), (4, 4096, 2560),
+                                   (1, 1024, 2560), (1, 333, 100),
+                                   (2, 4097, 1), (1, 1, 2560), (8, 64, 31)])
+def test_scan_tile_plan_keeps_the_card_busy(b, s, d):
+    """A small B * D splits time finer: the launch has at least
+    ``TILES_PER_SM`` tiles per SM unless each thread is down to one step,
+    or one more halving would cut a chain into more than
+    ``MAX_TILES_PER_CHAIN`` tiles."""
+    sms = 132
+    plan = rg_ops.tile_plan(b, s, d, sms)
+    finer = -(-s // (plan.tile_t // 2)) if plan.steps > 1 else None
+    assert (plan.tiles >= rg_ops.TILES_PER_SM * sms or plan.steps == 1
+            or finer > rg_ops.MAX_TILES_PER_CHAIN)
+    assert plan.ntiles <= max(rg_ops.MAX_TILES_PER_CHAIN,
+                              -(-s // (rg_ops.WARPS * rg_ops.ELEMS
+                                       // plan.vec)))
+    if (b, s, d) == (4, 4096, 2560):    # the hybrid prefill's shape
+        assert plan == rg_ops.TilePlan(2, 8, 128, 64, 40, 160, 32, 5120,
+                                       5120 * 192, 264)
+    if (b, s, d) == (1, 4096, 2560):    # four times fewer chains
+        assert plan.tiles >= rg_ops.TILES_PER_SM * sms
+
+
+def _fma(p, q, r):
+    """fp32 fused multiply-add: the product is exact in float64, the sum
+    rounds there, then to fp32."""
+    return (p.double() * q.double() + r.double()).float()
+
+
+def _tiled_scan(a, x, h0, plan, reverse=False, depth=None):
+    """The card's single-pass scan in plain torch, in its fp32 order, every
+    chain at once: each tile's ``WARPS`` segments scanned from h = 0,
+    chained into the tile's aggregate (A, H) and each segment's exclusive
+    prefix; the carry into tile j from a look-back that walks past the
+    aggregates of up to ``depth`` predecessors (None: back to tile 0) to
+    one's inclusive carry and rolls it forward over them (tile 0 starts
+    from h0); each segment rescanned from its carry-in. Returns (hs,
+    h_last)."""
+    a, x = a.float(), x.float()
+    if reverse:                          # processing order
+        a, x = a.flip(1), x.flip(1)
+    b, s, d = a.shape
+    ones, zeros = torch.ones(b, d), torch.zeros(b, d)
+    hs = torch.empty(b, s, d)
+    aggs, incl = [], []
+    h_last = None
+    for j in range(plan.ntiles):
+        segs = []
+        for w in range(rg_ops.WARPS):
+            p0 = min(j * plan.tile_t + w * plan.steps, s)
+            p1 = min(p0 + plan.steps, s)
+            p, h = ones, zeros
+            for t in range(p0, p1):
+                h = _fma(a[:, t], h, x[:, t])
+                p = p * a[:, t]
+            segs.append((p, h, p0, p1))
+        big_a, big_h, pre = ones, zeros, []
+        for p, h, _, _ in segs:
+            pre.append((big_a, big_h))
+            big_h = _fma(p, big_h, h)
+            big_a = big_a * p
+        if j == 0:
+            cin = h0.float()
+        else:
+            k = 0 if depth is None else max(j - 1 - depth, 0)
+            cin = incl[k]
+            for pa, ph in aggs[k + 1:j]:
+                cin = _fma(pa, cin, ph)
+        aggs.append((big_a, big_h))
+        incl.append(_fma(big_a, cin, big_h))
+        for (pa, ph), (_, _, p0, p1) in zip(pre, segs):
+            h = _fma(pa, cin, ph)
+            for t in range(p0, p1):
+                h = _fma(a[:, t], h, x[:, t])
+                hs[:, t] = h
+            if p1 == s and p1 > p0:
+                h_last = h
+    return (hs.flip(1) if reverse else hs), h_last
+
+
+_EMU_INPUTS = {"f32": {}, "bf16": {}, "near_one": {"lo": 0.95, "hi": 0.99},
+               "near_zero": {"lo": 0.0, "hi": 0.05}}
+
+
+@pytest.mark.parametrize("inputs", list(_EMU_INPUTS))
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("b,s,d", [(2, 300, 100), (1, 257, 33)])
+def test_tiled_scan_emulation_matches_the_reference(b, s, d, reverse,
+                                                    inputs):
+    """The kernel's tile scans, look-back and carry-in against the
+    reference's oracle and its Pallas kernel in interpret mode, at 1e-5
+    (the reverse scan as the forward scan of the flipped inputs), with the
+    card's plan (1-step segments here: many tiles per chain) and one of
+    full segments. h0 is nonzero. A look-back that stops at the previous
+    tile, one further back or at tile 0 gives the same bits: the kernel's
+    result does not depend on how far its blocks walked."""
+    a, x, h0 = _scan_inputs(np.random.default_rng(s + d), b, s, d,
+                            **_EMU_INPUTS[inputs])
+    if inputs == "bf16":
+        ja, jx = (jnp.asarray(v, jnp.bfloat16) for v in (a, x))
+        ta, tx = (_t(v).bfloat16() for v in (a, x))
+    else:
+        ja, jx = jnp.asarray(a), jnp.asarray(x)
+        ta, tx = _t(a), _t(x)
+    if reverse:
+        ja, jx = ja[:, ::-1], jx[:, ::-1]
+    jh0 = jnp.asarray(h0)
+    wants = [j_scan_ref(ja, jx, jh0), j_scan(ja, jx, jh0, block_t=s,
+                                             block_d=d)]
+    if reverse:
+        wants = [(hs[:, ::-1], hl) for hs, hl in wants]
+    plans = [rg_ops.tile_plan(b, s, d, 132), rg_ops.tile_plan(b, s, d, 1)]
+    assert plans[0].ntiles > 8 and plans[1].steps == rg_ops.ELEMS // \
+        plans[1].vec
+    for plan in plans:
+        hs, hl = _tiled_scan(ta, tx, _t(h0), plan, reverse)
+        assert torch.equal(hl, hs[:, 0] if reverse else hs[:, -1])
+        for want_hs, want_hl in wants:
+            _close(hs, want_hs, 1e-5)
+            _close(hl, want_hl, 1e-5)
+    for depth in (0, 1):
+        hs2, hl2 = _tiled_scan(ta, tx, _t(h0), plans[1], reverse, depth)
+        assert torch.equal(hs2, hs) and torch.equal(hl2, hl)
+
+
+# ---------------------------------------------------------------------------
 # models/rglru.py, module by module
 # ---------------------------------------------------------------------------
 
