@@ -100,7 +100,26 @@ then:
 14. serves the first 8 layers of the same parameters (the sLSTM at 7
    included) in float32 on the card and on the CPU (2 prompts of 1024
    tokens, 8 new tokens) and requires identical greedy tokens (reporting
-   the top-2 logit margin where they differ).
+   the top-2 logit margin where they differ);
+15. drives the engine on the card: with an on-disk provenance store, a
+   ``Runner`` as the default and caching on, calls the ``generate``
+   calcfunction 256 times (64 distinct prompts of 8-96 tokens, each 4
+   times in shuffled order, 16 new tokens, the reduced ``aiida-demo-110m``
+   in bf16, decoding through the decode-attention kernel); checks that
+   each of the 64 cold calls advanced ``serving.decode_steps`` and each
+   of the 192 hits by zero, that the kernel launched exactly (cold decode
+   steps x layers) times, that each hit's tokens equal its cold twin's
+   and its node carries ``cached_from``, that the store holds 256
+   finished-ok CalcFunctionNodes (through ``QueryBuilder``), that the cold
+   tokens equal those of a ``BatchScheduler`` run directly on the
+   engine's parameters, and that 8 prompts served on the CPU
+   (``on_device("cpu")``, a fresh store) give the card's tokens up to a
+   step where the CPU's top-1/top-2 logit margin is below the margin
+   shift bf16 rounding itself causes on these steps (the CPU's bf16
+   margins against its float32 evaluation); prints cold and hit median
+   wall per call, a cold call's wall outside its own decode (the
+   engine's host cost), the store file's size, node and link counts, the
+   kernel's launches and a profiled cold call (device time, idle share).
 
 Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
 it), the ``nvidia-smi`` line, and as the
@@ -159,6 +178,9 @@ SERVE_X_BATCH, SERVE_X_PROMPT, SERVE_X_NEW = 4, 2048, 32
 SERVE_X_PROFILED = 512
 PARITY_X_BATCH, PARITY_X_PROMPT, PARITY_X_NEW, PARITY_X_LAYERS = \
     2, 1024, 8, 8
+# phase 15: distinct prompts, calls of each, new tokens, prompts also
+# served on the CPU
+ENGINE_PROMPTS, ENGINE_REPEATS, ENGINE_NEW, ENGINE_CPU_PROMPTS = 64, 4, 16, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -251,6 +273,12 @@ DECODE_CASES = (
                            511, 512, 513, 1023, 1024]),
     (16, 8, 4, 128, 2048, None),
     (2, 8, 1, 32, 300, [299, 37]),
+    # the engine's generate (phase 15): the reduced config's heads, its
+    # cache buckets of 128 and 256 positions
+    (4, 4, 2, 32, 128, [0, 1, 63, 64]),
+    (4, 4, 2, 32, 128, [65, 128, 1, 0]),
+    (4, 4, 2, 32, 256, [0, 1, 63, 64]),
+    (4, 4, 2, 32, 256, [65, 256, 1, 0]),
 )
 
 
@@ -1942,6 +1970,225 @@ def ssm_parity_phase(torch, cfg, params) -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the engine on the card
+# ---------------------------------------------------------------------------
+
+def engine_phase(torch, da_ops) -> dict:
+    """The ``generate`` calcfunction through the engine: provenance store
+    on disk, default runner, caching on."""
+    import os
+    import tempfile
+
+    from repro_torch.caching import disable_caching, enable_caching
+    from repro_torch.core.datatypes import ArrayData, Int, Str
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.observability.metrics import get_registry
+    from repro_torch.provenance.store import (
+        NodeType, QueryBuilder, configure_store,
+    )
+    from repro_torch.serving import inference
+    from repro_torch.serving.serve import BatchScheduler, Request
+
+    gen = torch.Generator().manual_seed(15)
+    vocab = inference._serving_config(ARCH, "pallas").vocab_size
+    prompts = [torch.randint(1, vocab, (int(n),), generator=gen).tolist()
+               for n in torch.randint(8, 97, (ENGINE_PROMPTS,),
+                                      generator=gen)]
+    check(len({tuple(p) for p in prompts}) == ENGINE_PROMPTS,
+          "engine prompts are not distinct")
+    order = [i for i in range(ENGINE_PROMPTS) for _ in range(ENGINE_REPEATS)]
+    order = [order[j] for j in torch.randperm(len(order), generator=gen)]
+
+    def call(prompt):
+        return inference.generate(
+            Str(ARCH), ArrayData(torch.tensor(prompt, dtype=torch.int32)),
+            Int(ENGINE_NEW), Int(0), Int(-1))
+
+    steps = get_registry().counter("serving.decode_steps")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="engine_",
+                                     dir=ROOT / "build") as tmp:
+        store = configure_store(os.path.join(tmp, "profile.db"))
+        set_default_runner(Runner(store=store))
+        # a cold call's wall outside its own decode (the engine's host
+        # cost: hashing, store, runner) is its wall less the decode time
+        # it reports in its stats
+        cold, cold_wall, cold_engine, hit_wall = {}, [], [], []
+        da_ops.decode_attention.launches = 0
+        with enable_caching():
+            for i in order:
+                before = steps.value
+                t = time.perf_counter()
+                out = call(prompts[i])
+                wall = time.perf_counter() - t
+                advanced = steps.value - before
+                tokens = out["tokens"].value.tolist()
+                check(len(tokens) == ENGINE_NEW
+                      and out["stats"]["finish_reason"] == "length"
+                      and all(0 <= x < vocab for x in tokens),
+                      f"engine prompt {i}: bad output {tokens} "
+                      f"{out['stats'].value}")
+                if i not in cold:
+                    check(advanced > 0, f"engine prompt {i}: a cold call "
+                                        "advanced no decode step")
+                    cold[i] = (tokens, advanced)
+                    cold_wall.append(wall)
+                    cold_engine.append(wall - out["stats"]["wall_seconds"])
+                else:
+                    check(advanced == 0, f"engine prompt {i}: a hit ran "
+                                         f"{advanced} decode steps")
+                    check(tokens == cold[i][0], f"engine prompt {i}: hit "
+                          f"tokens {tokens} != cold {cold[i][0]}")
+                    hit_wall.append(wall)
+        launches = da_ops.decode_attention.launches
+        cold_steps = sum(n for _, n in cold.values())
+        layers = inference._serving_config(ARCH, "pallas").num_layers
+        check(launches == cold_steps * layers,
+              f"engine decode launches {launches} != {cold_steps} cold "
+              f"decode steps x {layers} layers")
+
+        # the store: every call one finished-ok node; in each
+        # fingerprint's group one cold node, and every hit cloned from a
+        # node of its own group (the newest one the registry found)
+        n_ok = (QueryBuilder(store).nodes(NodeType.CALC_FUNCTION)
+                .with_state("finished").with_exit_status(0).count())
+        check(n_ok == len(order), f"store holds {n_ok} finished-ok "
+                                  f"CalcFunctionNodes, not {len(order)}")
+        rows = (QueryBuilder(store).nodes(NodeType.CALC_FUNCTION)
+                .project("uuid", "node_hash", "attributes").all())
+        by_hash: dict = {}
+        for r in rows:
+            by_hash.setdefault(r["node_hash"], []).append(
+                (r["uuid"], json.loads(r["attributes"] or "{}")))
+        check(len(by_hash) == ENGINE_PROMPTS,
+              f"{len(by_hash)} fingerprints for {ENGINE_PROMPTS} prompts")
+        for group in by_hash.values():
+            uuids = {u for u, _ in group}
+            hits = [a["cached_from"] for _, a in group if "cached_from" in a]
+            check(len(group) == ENGINE_REPEATS
+                  and len(hits) == ENGINE_REPEATS - 1
+                  and all(u in uuids for u in hits),
+                  "a fingerprint's group is not one cold node and hits "
+                  f"cloned within it: {group}")
+        # each call: a process node, its 5 inputs and 2 outputs as data
+        # nodes, one link to each
+        n_nodes, n_links = store.count_nodes(), store.count_links()
+        check(n_nodes == 8 * len(order) and n_links == 7 * len(order),
+              f"store holds {n_nodes} nodes and {n_links} links, not "
+              f"8 and 7 per call")
+        store.close()
+        store_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                          if f.is_file())
+
+    # the device's share of a cold call (caching off, so each run decodes;
+    # a hit does no device work), outside the counted run
+    set_default_runner(Runner(store=configure_store(":memory:")))
+    with disable_caching():
+        profiled = device_share(torch, lambda: call(prompts[0]), 3)
+
+    # the same prompts straight through a scheduler on the engine's
+    # parameters: the engine adds nothing to the numbers
+    eng = inference.get_engine(ARCH, 0, need_len=max(map(len, prompts))
+                               + ENGINE_NEW, device="cuda")
+    sched = BatchScheduler(eng.bundle, eng.params,
+                           batch_size=inference.DEFAULT_BATCH_SIZE,
+                           max_len=eng.scheduler.max_len, eos_id=-1,
+                           device="cuda")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=ENGINE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    direct = [r.generated for r in reqs]
+    for i, r in enumerate(direct):
+        check(r == cold[i][0], f"engine prompt {i}: generate gave "
+              f"{cold[i][0]}, the scheduler {r}")
+
+    cpu = engine_cpu_parity(torch, prompts[:ENGINE_CPU_PROMPTS],
+                            [cold[i][0] for i in range(ENGINE_CPU_PROMPTS)])
+    set_default_runner(None)
+    configure_store(":memory:")
+
+    def median_ms(xs):
+        return sorted(xs)[len(xs) // 2] * 1e3
+
+    result = {
+        "calls": len(order), "cold_calls": len(cold_wall),
+        "hits": len(hit_wall),
+        "cold_ms_median": median_ms(cold_wall),
+        "cold_engine_ms_median": median_ms(cold_engine),
+        "hit_ms_median": median_ms(hit_wall),
+        "cold_decode_steps": cold_steps,
+        "decode_launches": launches,
+        "store_bytes": store_bytes, "nodes": n_nodes, "links": n_links,
+        "cpu_parity": cpu,
+        "profile_cold_call": profiled,
+    }
+    print("engine: " + json.dumps(result))
+    return result
+
+
+def engine_cpu_parity(torch, prompts, card_tokens) -> dict:
+    """``prompts`` through ``generate`` on the CPU (a fresh store): its
+    tokens must equal the card's up to the first step where they differ,
+    and there the CPU's top-1/top-2 logit margin must be below the bar:
+    the largest shift bf16 rounding itself puts on the CPU's margins at
+    these steps (its bf16 margins against a float32 evaluation of the
+    same tokens). After a divergence the two continue from different
+    tokens and are not compared."""
+    from repro_torch.core.datatypes import ArrayData, Int, Str
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.provenance.store import configure_store
+    from repro_torch.serving import inference
+
+    set_default_runner(Runner(store=configure_store(":memory:")))
+    with inference.on_device("cpu"):
+        cpu_tokens = [inference.generate(
+            Str(ARCH), ArrayData(torch.tensor(p, dtype=torch.int32)),
+            Int(ENGINE_NEW), Int(0), Int(-1))["tokens"].value.tolist()
+            for p in prompts]
+    eng = inference.get_engine(ARCH, 0, need_len=max(map(len, prompts))
+                               + ENGINE_NEW, device="cpu")
+    cfg32 = eng.cfg.replace(dtype="float32", kv_cache_dtype="float32")
+    margins, shifts = [], []
+    with torch.no_grad():
+        for p, toks in zip(prompts, cpu_tokens):
+            seq = torch.tensor([p + toks[:-1]])
+            rows = slice(len(p) - 1, len(p) - 1 + len(toks))
+            lg = lm_forward(eng.cfg, eng.params, {"tokens": seq})[
+                0, rows, :eng.cfg.vocab_size].float()
+            lg32 = lm_forward(cfg32, eng.params, {"tokens": seq})[
+                0, rows, :eng.cfg.vocab_size].float()
+            top = lg.topk(2, dim=-1).indices
+            m = lg.gather(1, top)
+            m32 = lg32.gather(1, top)
+            margins.append((m[:, 0] - m[:, 1]).tolist())
+            shifts.append(float(((m[:, 0] - m[:, 1])
+                                 - (m32[:, 0] - m32[:, 1])).abs().max()))
+    bar = max(shifts)
+    agreed, diverged = 0, []
+    for i, (card, cpu) in enumerate(zip(card_tokens, cpu_tokens)):
+        step = next((j for j, (a, b) in enumerate(zip(card, cpu)) if a != b),
+                    None)
+        if step is None:
+            agreed += len(card)
+            continue
+        agreed += step
+        diverged.append({"prompt": i, "step": step,
+                         "cpu_margin": margins[i][step]})
+        check(margins[i][step] < bar,
+              f"engine card-vs-cpu prompt {i}: tokens differ at step "
+              f"{step} (card {card}, cpu {cpu}) where the CPU's top-2 "
+              f"margin {margins[i][step]:.3e} clears the bar {bar:.3e}")
+    print(f"engine card vs cpu ({len(prompts)} prompts, bf16): {agreed} of "
+          f"{len(prompts) * ENGINE_NEW} steps agree before any divergence; "
+          f"divergences {diverged}; margin bar {bar:.3e}")
+    return {"agreed_steps": agreed, "diverged": diverged, "margin_bar": bar,
+            "cpu_tokens": cpu_tokens}
+
+
 def main() -> int:
     import torch
 
@@ -2007,10 +2254,12 @@ def main() -> int:
                           (*counters, ml_ops.mlstm_chunk))
     ssm_parity = ssm_parity_phase(torch, cfg_x, x_params)
     del x_params
+    engine = engine_phase(torch, da_ops)
     # launches on each main path (serving, training, hybrid and ssm
-    # serving), each counted from 0
+    # serving, the engine), each counted from 0
     by_path = {
-        "decode_attention": {"serve": served["decode_launches"]},
+        "decode_attention": {"serve": served["decode_launches"],
+                             "engine": engine["decode_launches"]},
         "flash_attention_fwd": {"serve": served["flash_launches"],
                                 "train": trained["launches"][
                                     "flash_attention_fwd"]},
@@ -2036,7 +2285,7 @@ def main() -> int:
          "serve": served, "parity": parity, "train": trained,
          "train_parity": train_parity, "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
-         "ssm_parity": ssm_parity}, indent=1))
+         "ssm_parity": ssm_parity, "engine": engine}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,0 +1,19 @@
+"""Chaos subsystem: deterministic fault injection for the engine.
+
+:mod:`repro_torch.chaos.faults` is the fault-point registry. Hot paths in
+the store and the engine call ``fault_point("<seam>")`` at every
+failure window; a seeded :class:`ChaosPlan` (programmatic or via the
+``REPRO_CHAOS`` env spec) decides whether a hit crashes the process,
+raises, delays, or asks the seam to duplicate/drop a frame. Disabled, a
+fault point is one module-global load and a ``None`` check. The scenario
+runner and the post-chaos verifier (``harness``, ``invariants``,
+``workloads``) are not ported yet.
+
+Only :mod:`faults` is imported here — the instrumented layers (store,
+process) import this package, so it must not pull the engine in.
+"""
+
+from repro_torch.chaos.faults import (  # noqa: F401
+    CATALOG, ChaosInjected, ChaosPlan, activate, active_plan, deactivate,
+    fault_point, reset,
+)

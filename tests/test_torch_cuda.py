@@ -726,3 +726,40 @@ def test_xlstm_served_tokens_match_the_cpu(cuda):
             assert (mid - before, ml_ops.mlstm_chunk.launches - mid) == (7, 0)
         runs.append(torch.cat(seq, dim=1).tolist())
     assert runs[0] == runs[1]
+
+
+def test_generate_on_the_card_then_a_hit(cuda, tmp_path):
+    """The generate calcfunction on the card (its default device): a cold
+    call decodes through the decode kernel, once per layer and decode
+    step; the same call again is a cache hit with the same tokens and no
+    decode step or launch."""
+    from repro_torch.caching import enable_caching
+    from repro_torch.core.datatypes import ArrayData, Int, Str
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.observability.metrics import get_registry
+    from repro_torch.provenance.store import configure_store
+    from repro_torch.serving import inference
+
+    store = configure_store(str(tmp_path / "profile.db"))
+    set_default_runner(Runner(store=store))
+    inference.reset_engines()
+    steps = get_registry().counter("serving.decode_steps")
+    prompt = torch.tensor([3, 5, 7, 11, 13], dtype=torch.int32)
+    args = (Str("aiida-demo-110m"), ArrayData(prompt), Int(8), Int(0),
+            Int(-1))
+    try:
+        with enable_caching():
+            s0, l0 = steps.value, da_ops.decode_attention.launches
+            cold = inference.generate(*args)
+            s1, l1 = steps.value, da_ops.decode_attention.launches
+            hot = inference.generate(*args)
+            s2, l2 = steps.value, da_ops.decode_attention.launches
+    finally:
+        set_default_runner(None)
+        configure_store(":memory:")
+        inference.reset_engines()
+    layers = inference._serving_config("aiida-demo-110m", "pallas").num_layers
+    assert s1 - s0 > 0 and l1 - l0 == (s1 - s0) * layers
+    assert (s2, l2) == (s1, l1)
+    assert cold["tokens"].value.tolist() == hot["tokens"].value.tolist()
+    assert len(cold["tokens"].value) == 8

@@ -4,11 +4,14 @@ reference's, on the CPU.
 With the reference's parameters bridged into the port, the port's
 ``BatchScheduler`` must give greedy tokens (and finish reasons) identical
 to the reference scheduler in each scheduling scenario of
-``tests/test_serving.py``. Also: the engine memo, the rule that entry
-points without ``device=`` raise where there is no card, and that the
-port imports neither JAX nor ``repro``.
+``tests/test_serving.py``. Also: the engine memo, the ``generate``
+calcfunction (a cache hit runs zero decode steps; with the reference's
+parameters in float32 it returns the reference's tokens and stats), the
+rule that entry points without ``device=`` (or ``on_device``) raise where
+there is no card, and that the port imports neither JAX nor ``repro``.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -205,8 +208,10 @@ def test_prompt_fingerprint_matches_reference():
 
 
 def test_entry_points_without_device_raise_where_there_is_no_card(
-        monkeypatch, lm):
-    from repro_torch.serving.inference import ServingEngine, get_engine
+        monkeypatch, lm, port_engine):
+    from repro_torch.core.datatypes import ArrayData, Int, Str
+    from repro_torch.serving.inference import (ServingEngine, generate,
+                                               get_engine)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, (b, p) = lm
@@ -217,6 +222,8 @@ def test_entry_points_without_device_raise_where_there_is_no_card(
         lambda: ServingEngine(ARCH, 0, 128),
         lambda: get_engine(ARCH, 0),
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
+        lambda: generate(Str(ARCH), ArrayData(np.asarray([1, 2], np.int32)),
+                         Int(2), Int(0), Int(-1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -273,11 +280,20 @@ def test_port_imports_neither_jax_nor_repro():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BAD []" in proc.stdout, proc.stdout
     n = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n >= 25, proc.stdout
+    assert n >= 72, proc.stdout
     names = proc.stdout.split("NAMES")[1].split("\n")[0].split()
     for mod in ("training.data", "training.optim", "training.train_step",
                 "training.checkpoint", "launch.train", "models.xlstm",
-                "kernels.mlstm_chunk.ops", "kernels.mlstm_chunk.ref"):
+                "kernels.mlstm_chunk.ops", "kernels.mlstm_chunk.ref",
+                "observability.metrics", "observability.trace",
+                "observability.timeline", "chaos.faults",
+                "provenance.repository", "provenance.store",
+                "core.exit_code", "core.statemachine", "core.ports",
+                "core.process_spec", "core.datatypes", "core.builder",
+                "core.process", "core.process_functions",
+                "caching.hashing", "caching.config", "caching.registry",
+                "engine.communicator", "engine.transport", "engine.runner",
+                "engine.launch", "serving.inference"):
         assert f"repro_torch.{mod}" in names, mod
 
 
@@ -300,3 +316,151 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     with open(os.path.join(root, "chip_smoke.py")) as f:
         text = f.read()
     assert "import jax" not in text and "from repro." not in text
+
+
+# ---------------------------------------------------------------------------
+# the generate calcfunction
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def port_engine():
+    """The port's global engine state, fresh: caching policy, metrics
+    registry, an in-memory store with a runner as the default, and the
+    serving engine memo."""
+    from repro_torch.caching.config import reset_policy
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.observability.metrics import reset_registry
+    from repro_torch.provenance.store import configure_store
+    from repro_torch.serving.inference import reset_engines
+
+    def reset():
+        reset_policy()
+        reset_registry()
+        reset_engines()
+        set_default_runner(None)
+        return configure_store(":memory:")
+
+    runner = Runner(store=reset())
+    set_default_runner(runner)
+    yield runner
+    reset()
+
+
+def _generate(prompt, new=4, seed=0):
+    from repro_torch.core.datatypes import ArrayData, Int, Str
+    from repro_torch.serving.inference import generate
+
+    return generate(Str(ARCH), ArrayData(np.asarray(prompt, np.int32)),
+                    Int(new), Int(seed), Int(-1))
+
+
+def test_generate_cache_hit_runs_zero_decode_steps(port_engine):
+    """Twin of tests/test_serving.py's, on the CPU through on_device."""
+    from repro_torch.caching import enable_caching
+    from repro_torch.observability.metrics import get_registry
+    from repro_torch.serving.inference import on_device, prompt_fingerprint
+
+    steps = get_registry().counter("serving.decode_steps")
+    prompt = [3, 5, 7, 11, 13]
+    with on_device("cpu"), enable_caching():
+        cold = _generate(prompt)
+        before = steps.value
+        assert before > 0
+        hot = _generate(prompt)
+    assert steps.value == before, "cache hit must not touch the decoder"
+    np.testing.assert_array_equal(np.asarray(cold["tokens"].value),
+                                  np.asarray(hot["tokens"].value))
+    stats = hot["stats"].value
+    assert stats["new_tokens"] == len(np.asarray(hot["tokens"].value))
+    assert stats["fingerprint"] == prompt_fingerprint(ARCH, 0, prompt)
+    attrs = [json.loads(r["attributes"] or "{}") for r in
+             _calc_nodes(port_engine.store)]
+    assert len(attrs) == 2 and "cached_from" not in attrs[0]
+    assert attrs[1]["cached_from_pk"] == 1
+
+
+def test_generate_distinct_prompts_do_not_collide(port_engine):
+    """Twin of tests/test_serving.py's, on the CPU through on_device."""
+    from repro_torch.caching import enable_caching
+    from repro_torch.serving.inference import on_device
+
+    with on_device("cpu"), enable_caching():
+        a = _generate([1, 2, 3])
+        b = _generate([1, 2, 4])
+    fa = a["stats"].value["fingerprint"]
+    fb = b["stats"].value["fingerprint"]
+    assert fa != fb
+    nodes = _calc_nodes(port_engine.store)
+    assert len({r["node_hash"] for r in nodes}) == 2
+    assert all("cached_from" not in json.loads(r["attributes"] or "{}")
+               for r in nodes)
+
+
+def _calc_nodes(store):
+    from repro_torch.provenance.store import NodeType, QueryBuilder
+
+    return (QueryBuilder(store).nodes(NodeType.CALC_FUNCTION)
+            .project("node_hash", "attributes").all())
+
+
+def test_on_device_is_restored_and_not_fingerprinted(port_engine):
+    from repro_torch.caching import enable_caching
+    from repro_torch.serving import inference
+
+    assert inference._DEVICE is None
+    with inference.on_device("cpu"):
+        with inference.on_device(torch.device("cpu")):
+            pass
+        assert inference._DEVICE == "cpu"
+        with enable_caching():
+            _generate([9, 8, 7])
+    assert inference._DEVICE is None
+    # the device is neither an input nor a stat
+    (node,) = _calc_nodes(port_engine.store)
+    labels = {label for _, _, label in
+              port_engine.store.incoming(node["pk"])}
+    assert labels == {"arch", "prompt", "max_new_tokens", "seed", "eos_id"}
+    assert "device" not in node["attributes"]
+
+
+def test_generate_matches_reference(port_engine, runner, monkeypatch):
+    """With both packages' serving config in float32 and the reference's
+    parameters in the port's engine, the two ``generate`` calls give
+    identical tokens and stats (but the wall time)."""
+    import repro.serving.inference as j_inf
+    from repro.core.datatypes import ArrayData as JArrayData
+    from repro.core.datatypes import Int as JInt
+    from repro.core.datatypes import Str as JStr
+    from repro_torch.serving import inference
+
+    def f32(reduced):
+        return lambda arch, decode_impl: reduced(arch).replace(
+            decode_impl=decode_impl, dtype="float32",
+            kv_cache_dtype="float32")
+
+    monkeypatch.setattr(j_inf, "_serving_config", f32(j_reduced))
+    monkeypatch.setattr(inference, "_serving_config", f32(reduced_config))
+    j_inf.reset_engines()
+    prompt, new = [7, 1, 300, 42, 5, 99], 6
+    try:
+        j_eng = j_inf.get_engine(ARCH, 0, need_len=len(prompt) + new)
+        eng = inference.get_engine(ARCH, 0, need_len=len(prompt) + new,
+                                   device="cpu")
+        assert eng.cfg.dtype == "float32"
+        eng.params = params_from_numpy(
+            jax.tree.map(np.asarray, j_eng.params), "cpu")
+        eng.scheduler = BatchScheduler(
+            eng.bundle, eng.params, batch_size=inference.DEFAULT_BATCH_SIZE,
+            max_len=eng.scheduler.max_len, eos_id=-1, device="cpu")
+        want = j_inf.generate(JStr(ARCH),
+                              JArrayData(np.asarray(prompt, np.int32)),
+                              JInt(new), JInt(0), JInt(-1))
+        with inference.on_device("cpu"):
+            got = _generate(prompt, new)
+    finally:
+        j_inf.reset_engines()
+    np.testing.assert_array_equal(got["tokens"].value, want["tokens"].value)
+    assert got["tokens"].value.dtype == want["tokens"].value.dtype
+    g, w = dict(got["stats"].value), dict(want["stats"].value)
+    assert g.pop("wall_seconds") >= 0 and w.pop("wall_seconds") >= 0
+    assert g == w and g["new_tokens"] == new
