@@ -119,7 +119,25 @@ then:
    margins against its float32 evaluation); prints cold and hit median
    wall per call, a cold call's wall outside its own decode (the
    engine's host cost), the store file's size, node and link counts, the
-   kernel's launches and a profiled cold call (device time, idle share).
+   kernel's launches and a profiled cold call (device time, idle share);
+16. drives the workflow layer on the card, each part on a fresh on-disk
+   store with caching off: (a) one ``GPUTrainJob`` (full-width
+   ``aiida-demo-110m``, 6 steps of 8 x 1024 tokens, the flash kernels)
+   through a ``Runner``: finished ok, 6 finite losses, ``retrieved`` and
+   ``metrics`` among its CREATE links, each flash kernel launched as
+   often as by the same recipe run directly in this process (and more
+   than 0), losses within 1e-4 relative of the direct run's; prints both
+   walls and their difference; (b) a ``BaseRestartWorkChain`` with a
+   handler for exit code 310 over a 2-step job with an injected NaN:
+   finished ok after 2 iterations, children 310 then 0; (c) a daemon of 2
+   worker OS processes (3 slots each, so each runs two trainings) runs a
+   sweep WorkChain of 4 such jobs (seeds 0-3):
+   the WorkChain and 4 CalcJobNodes finished ok, 4 CALL_CALC links, no
+   unfinished process, every process seen in a worker's pid (never this
+   one's), no requeue, lease expiry, duplicate or stale delivery, seed
+   0's losses within 1e-4 of (a)'s, ``fsck`` and ``check_store`` clean;
+   prints the sweep's wall, the pickup latency histogram, each worker's
+   peak card memory and the store's size, nodes and links.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
 it), the ``nvidia-smi`` line, and as the
@@ -129,6 +147,7 @@ without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -2189,6 +2208,335 @@ def engine_cpu_parity(torch, prompts, card_tokens) -> dict:
             "cpu_tokens": cpu_tokens}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the workflow layer (CalcJob, restart WorkChain, daemon)
+# ---------------------------------------------------------------------------
+
+WORKFLOW_JOB = {"arch": ARCH, "reduced": False, "steps": TRAIN_STEPS,
+                "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "overrides": {"attn_impl": "pallas"}}
+RESTART_STEPS = 2
+SWEEP_JOBS, SWEEP_WORKERS = 4, 2
+# a worker's slots: the workchain holds one while it waits, so the broker
+# (which fills a worker up to its slots) hands each worker two trainings
+SWEEP_SLOTS = 1 + SWEEP_JOBS // SWEEP_WORKERS
+SWEEP_TIMEOUT_S = 600
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+
+
+@functools.cache
+def _sweep_workchain():
+    """The sweep of phase 16(c), the twin of ``tests/test_system.py``'s:
+    fan out one GPUTrainJob per seed, collect the best. A daemon worker
+    resumes it by its path ``__main__:SweepWorkChain``; in a spawned
+    worker ``__main__`` is this script, imported without running
+    ``main()``, and the module ``__getattr__`` below builds the class."""
+    from repro_torch.calcjobs import GPUTrainJob
+    from repro_torch.core import Dict, Int, WorkChain, append_
+
+    class SweepWorkChain(WorkChain):
+        @classmethod
+        def define(cls, spec):
+            super().define(spec)
+            spec.input("n_jobs", valid_type=Int, default=Int(3))
+            spec.input("config", valid_type=Dict)
+            spec.output("best_loss", valid_type=Dict)
+            spec.outline(cls.launch, cls.collect)
+
+        def launch(self):
+            base = dict(self.inputs["config"].value)
+            for seed in range(self.inputs["n_jobs"].value):
+                self.to_context(jobs=append_(self.submit(
+                    GPUTrainJob, config=Dict({**base, "seed": seed}))))
+
+        def collect(self):
+            best = None
+            for job in self.ctx.jobs:
+                assert job.is_finished_ok
+                m = job.outputs["metrics"].value
+                if best is None or m["final_loss"] < best["final_loss"]:
+                    best = m
+            self.out("best_loss", Dict(best))
+
+    SweepWorkChain.__module__ = "__main__"
+    SweepWorkChain.__qualname__ = "SweepWorkChain"
+    return SweepWorkChain
+
+
+def __getattr__(name: str):
+    if name == "SweepWorkChain":
+        return _sweep_workchain()
+    raise AttributeError(name)
+
+
+def job_reasons(runner) -> str:
+    """The simulated cluster's reason for each failed job of ``runner``."""
+    from repro_torch.calcjobs.calcjob import get_cluster
+
+    return "; ".join(f"job {jid}: {job.get('reason')}" for jid, job in
+                     get_cluster(runner).jobs.items() if job.get("reason"))
+
+
+def direct_train(torch, config: dict) -> list[float]:
+    """``GPUTrainJob``'s recipe written out, outside the engine: the full
+    config with its overrides, ``init_train_state`` from the seed, the
+    train step, batches from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.training.optim import OptimConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    cfg = get_config(config["arch"]).replace(**config["overrides"])
+    bundle = build(cfg)
+    steps, seed = config["steps"], config.get("seed", 0)
+    tcfg = TrainConfig(optim=OptimConfig(lr=3e-4, total_steps=steps,
+                                         warmup_steps=max(1, steps // 10)))
+    state = init_train_state(bundle, tcfg, seed, "cuda")
+    step_fn = make_train_step(bundle, tcfg)
+    rng = np.random.default_rng(seed)
+    b, s = config["batch"], config["seq"]
+    losses = []
+    for _ in range(steps):
+        tokens = rng.integers(0, cfg.vocab_size, (b, s + 1), dtype=np.int32)
+        state, metrics = step_fn(state, {
+            "tokens": torch.from_numpy(tokens[:, :-1].copy()).to("cuda"),
+            "labels": torch.from_numpy(tokens[:, 1:].copy()).to("cuda")})
+        losses.append(metrics["loss"])
+    return torch.stack(losses).tolist()
+
+
+def losses_close(got: list[float], want: list[float]) -> bool:
+    return len(got) == len(want) and all(
+        abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want))
+
+
+def workflow_phase(torch, fa_ops) -> dict:
+    """GPUTrainJob through the engine's workflow layer: in process, under
+    a restart WorkChain, and as a sweep through a daemon of two worker OS
+    processes, each on a fresh on-disk store with caching off."""
+    import gc
+    import os
+    import tempfile
+
+    from repro_torch.caching import disable_caching
+    from repro_torch.calcjobs import GPUTrainJob
+    from repro_torch.calcjobs.restart import (BaseRestartWorkChain,
+                                              process_handler)
+    from repro_torch.chaos.invariants import check_store
+    from repro_torch.core import Dict, Int
+    from repro_torch.engine.broker import SyncBrokerClient
+    from repro_torch.engine.daemon import Daemon
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.observability.metrics import merge_snapshots
+    from repro_torch.provenance.fsck import fsck
+    from repro_torch.provenance.store import (LinkType, NodeType,
+                                              QueryBuilder, configure_store)
+
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+            c.tensor_core_launches = 0
+
+    # workers inherit this environment when they are spawned
+    os.environ.pop("REPRO_CACHING", None)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="workflow_", dir=ROOT / "build")
+    result: dict = {"config": WORKFLOW_JOB}
+    with disable_caching():
+        # (a) one job through a Runner, then the same recipe directly;
+        # the jobs whose launches are counted run one at a time
+        store = configure_store(os.path.join(tmp.name, "inprocess.db"))
+        runner = Runner(store=store)
+        set_default_runner(runner)
+        zero()
+        t = time.perf_counter()
+        outputs, proc = runner.run(GPUTrainJob,
+                                   {"config": Dict(WORKFLOW_JOB)})
+        job_wall = time.perf_counter() - t
+        job_launches = [c.launches for c in counters]
+        job_tc = [c.tensor_core_launches for c in counters]
+        check(proc.is_finished_ok, f"calcjob: {proc.exit_code}; "
+                                   f"{job_reasons(runner)}")
+        metrics = outputs["metrics"].value
+        losses = metrics["losses"]
+        check(metrics["steps"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"calcjob metrics {metrics}")
+        labels = {label for _, _, label in
+                  store.outgoing(proc.pk, LinkType.CREATE)}
+        check({"retrieved", "metrics"} <= labels,
+              f"calcjob CREATE links {labels}")
+        zero()
+        t = time.perf_counter()
+        direct = direct_train(torch, WORKFLOW_JOB)
+        direct_wall = time.perf_counter() - t
+        direct_launches = [c.launches for c in counters]
+        check(job_launches == direct_launches and all(job_launches),
+              f"calcjob launches {job_launches} != direct {direct_launches}")
+        check(job_tc == job_launches, f"calcjob tensor-core launches "
+                                      f"{job_tc} of {job_launches}")
+        check(losses_close(losses, direct),
+              f"calcjob losses {losses} != direct {direct}")
+        result["in_process"] = {
+            "losses": losses, "direct_losses": direct,
+            "job_wall_s": job_wall, "direct_wall_s": direct_wall,
+            "engine_s": job_wall - direct_wall,
+            "launches": dict(zip(FLASH_NAMES, job_launches))}
+        print(f"workflow (a): job {job_wall:.3f} s, direct "
+              f"{direct_wall:.3f} s, engine {job_wall - direct_wall:.3f} s "
+              f"around {TRAIN_STEPS} steps; launches "
+              f"{dict(zip(FLASH_NAMES, job_launches))}")
+
+        # (b) a restart WorkChain recovers an injected NaN
+        class NanRestart(BaseRestartWorkChain):
+            _process_class = GPUTrainJob
+
+            @process_handler(310)
+            def handle_nan(self, child):
+                cfg = dict(self.ctx.process_inputs["config"].value)
+                cfg["inject_nan"] = False
+                cfg["lr"] = cfg.get("lr", 3e-4) / 10
+                self.ctx.process_inputs["config"] = Dict(cfg)
+                self.report("NaN handled: lr lowered")
+                return None
+
+        outputs, proc = runner.run(NanRestart, {"config": Dict(
+            {**WORKFLOW_JOB, "steps": RESTART_STEPS, "inject_nan": True})})
+        statuses = [c.exit_status for c in proc.ctx.children]
+        check(proc.is_finished_ok and proc.ctx.iteration == 2
+              and statuses == [310, 0],
+              f"restart: {proc.exit_code}, iteration {proc.ctx.iteration}, "
+              f"children {statuses}; {job_reasons(runner)}")
+        result["restart"] = {"iterations": proc.ctx.iteration,
+                             "child_exit_statuses": statuses}
+        print(f"workflow (b): restart children {statuses}")
+        set_default_runner(None)
+        store.close()
+        configure_store(":memory:")
+        del outputs, proc, runner, store
+
+    # (c) the sweep through a daemon: release what the earlier phases
+    # cached on the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["smoke_reserved_bytes"] = torch.cuda.memory_reserved()
+    daemon = Daemon(os.path.join(tmp.name, "daemon"), workers=SWEEP_WORKERS,
+                    slots=SWEEP_SLOTS)
+    t = time.perf_counter()
+    daemon.start()
+    try:
+        start_s = time.perf_counter() - t
+        t = time.perf_counter()
+        wc_pk = daemon.submit(_sweep_workchain(), {
+            "n_jobs": Int(SWEEP_JOBS), "config": Dict(WORKFLOW_JOB)})
+        dstore = configure_store(daemon.store_path)
+        ran_in: dict[int, set] = {}
+        with daemon.controller() as ctl:
+            while True:
+                for advert in ctl.workers():
+                    for pk in advert["pks"]:
+                        ran_in.setdefault(pk, set()).add(advert["pid"])
+                node = dstore.get_node(wc_pk)
+                if node["process_state"] in ("finished", "excepted",
+                                             "killed"):
+                    break
+                check(time.perf_counter() - t < SWEEP_TIMEOUT_S,
+                      f"sweep not done in {SWEEP_TIMEOUT_S} s: {node}")
+                check(daemon.supervise() == 0,
+                      "a daemon worker or the broker died")
+                time.sleep(0.2)
+            sweep_wall = time.perf_counter() - t
+            adverts = ctl.workers()
+        broker = SyncBrokerClient(daemon.host, daemon.port)
+        try:
+            stats = broker.broker_stats()
+        finally:
+            broker.close()
+        worker_pids = set(daemon.worker_pids())
+    finally:
+        daemon.stop()
+
+    jobs = QueryBuilder(dstore).nodes(NodeType.CALC_JOB).project(
+        "pk", "process_state", "exit_status", "exit_message").all()
+    job_pks = [r["pk"] for r in jobs]
+    check(node["process_state"] == "finished" and node["exit_status"] == 0,
+          f"sweep workchain: {node['process_state']} "
+          f"{node['exit_status']} {node['exit_message']}; jobs {jobs}")
+    n_ok = (QueryBuilder(dstore).nodes(NodeType.CALC_JOB)
+            .with_state("finished").with_exit_status(0).count())
+    calls = dstore.outgoing(wc_pk, LinkType.CALL_CALC)
+    check(n_ok == SWEEP_JOBS and len(jobs) == SWEEP_JOBS
+          and len(calls) == SWEEP_JOBS,
+          f"sweep: {n_ok} finished-ok CalcJobNodes of {len(jobs)}, "
+          f"{len(calls)} CALL_CALC links")
+    check(dstore.unfinished_processes() == [], "unfinished processes left")
+    for pk in (wc_pk, *job_pks):
+        pids = ran_in.get(pk, set())
+        check(pids and pids <= worker_pids and os.getpid() not in pids,
+              f"process {pk} ran in {pids}, workers {worker_pids}, smoke "
+              f"{os.getpid()}")
+    merged = merge_snapshots(a["metrics"] for a in adverts)
+    counters_seen = merged["counters"]
+    requeues = stats["tasks_delivered"] - stats["tasks_enqueued"]
+    anomalies = {"requeues": requeues,
+                 "leases_expired": stats["leases_expired"],
+                 "duplicate_tasks": counters_seen.get(
+                     "daemon.duplicate_tasks", 0),
+                 "stale_deliveries": counters_seen.get(
+                     "daemon.stale_deliveries", 0)}
+    check(stats["tasks_enqueued"] == 1 + SWEEP_JOBS
+          and not any(anomalies.values()),
+          f"daemon: {anomalies}, enqueued {stats['tasks_enqueued']}")
+    seeds = {}
+    for pk in job_pks:
+        cfg = next(dstore.load_data(p).value for p, _, label in
+                   dstore.incoming(pk) if label == "config")
+        metrics = next(dstore.load_data(p).value for p, _, label in
+                       dstore.outgoing(pk, LinkType.CREATE)
+                       if label == "metrics")
+        seeds[cfg["seed"]] = metrics["losses"]
+    check(sorted(seeds) == list(range(SWEEP_JOBS))
+          and losses_close(seeds[0], result["in_process"]["losses"]),
+          f"sweep seed 0 losses {seeds.get(0)} != in-process "
+          f"{result['in_process']['losses']}")
+    report = fsck(dstore, broker_db=daemon.broker_db)
+    invariants = check_store(dstore, [wc_pk, *job_pks])
+    check(report.clean, f"fsck: {report.counts()}")
+    check(invariants.ok, f"check_store: {invariants.summary()}")
+    n_nodes, n_links = dstore.count_nodes(), dstore.count_links()
+    dstore.close()
+    configure_store(":memory:")
+    store_bytes = sum(f.stat().st_size for f in Path(daemon.store_path)
+                      .parent.rglob("*") if f.is_file()
+                      and str(f).startswith(daemon.store_path))
+    tmp.cleanup()
+    result["daemon"] = {
+        "workers": SWEEP_WORKERS, "slots": SWEEP_SLOTS, "jobs": SWEEP_JOBS,
+        "start_s": start_s, "sweep_wall_s": sweep_wall,
+        "losses_by_seed": seeds, "anomalies": anomalies,
+        "broker": {k: stats[k] for k in ("tasks_enqueued",
+                                         "tasks_delivered",
+                                         "leases_granted",
+                                         "clients_dropped")},
+        "pickup_seconds": merged["histograms"].get("daemon.pickup_seconds"),
+        "worker_peak_cuda_bytes": {a["pid"]: a["cuda_peak_bytes"]
+                                   for a in adverts},
+        "worker_tasks": {a["pid"]: a["metrics"]["counters"].get(
+            "daemon.tasks", 0) for a in adverts},
+        "worker_preload_s": {a["pid"]: a["preload_s"] for a in adverts},
+        "store_bytes": store_bytes, "nodes": n_nodes, "links": n_links}
+    print("workflow: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2255,18 +2603,23 @@ def main() -> int:
     ssm_parity = ssm_parity_phase(torch, cfg_x, x_params)
     del x_params
     engine = engine_phase(torch, da_ops)
+    workflow = workflow_phase(torch, fa_ops)
+    calcjob = workflow["in_process"]["launches"]
     # launches on each main path (serving, training, hybrid and ssm
-    # serving, the engine), each counted from 0
+    # serving, the engine, the calcjob), each counted from 0
     by_path = {
         "decode_attention": {"serve": served["decode_launches"],
                              "engine": engine["decode_launches"]},
         "flash_attention_fwd": {"serve": served["flash_launches"],
                                 "train": trained["launches"][
-                                    "flash_attention_fwd"]},
+                                    "flash_attention_fwd"],
+                                "calcjob": calcjob["flash_attention_fwd"]},
         "flash_attention_bwd_dq": {"train": trained["launches"][
-            "flash_attention_bwd_dq"]},
+            "flash_attention_bwd_dq"],
+            "calcjob": calcjob["flash_attention_bwd_dq"]},
         "flash_attention_bwd_dkv": {"train": trained["launches"][
-            "flash_attention_bwd_dkv"]},
+            "flash_attention_bwd_dkv"],
+            "calcjob": calcjob["flash_attention_bwd_dkv"]},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
         "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
@@ -2285,7 +2638,8 @@ def main() -> int:
          "serve": served, "parity": parity, "train": trained,
          "train_parity": train_parity, "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
-         "ssm_parity": ssm_parity, "engine": engine}, indent=1))
+         "ssm_parity": ssm_parity, "engine": engine,
+         "workflow": workflow}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -5,12 +5,14 @@ the store and the engine call ``fault_point("<seam>")`` at every
 failure window; a seeded :class:`ChaosPlan` (programmatic or via the
 ``REPRO_CHAOS`` env spec) decides whether a hit crashes the process,
 raises, delays, or asks the seam to duplicate/drop a frame. Disabled, a
-fault point is one module-global load and a ``None`` check. The scenario
-runner and the post-chaos verifier (``harness``, ``invariants``,
-``workloads``) are not ported yet.
+fault point is one module-global load and a ``None`` check.
+:mod:`repro_torch.chaos.invariants` is the post-chaos verifier: zero
+lost / duplicated / resurrected processes and a consistent provenance
+graph. The scenario runner (``harness``, ``workloads``) is not ported
+yet.
 
 Only :mod:`faults` is imported here — the instrumented layers (store,
-process) import this package, so it must not pull the engine in.
+broker, process) import this package, so it must not pull the engine in.
 """
 
 from repro_torch.chaos.faults import (  # noqa: F401

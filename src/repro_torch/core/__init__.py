@@ -1,6 +1,6 @@
-# The event-based process engine — ProcessSpec/ports, the extended state
-# machine and the calcfunction/workfunction provenance decorators. The
-# WorkChain outline DSL (``core/workchain.py``) is not ported yet.
+# The paper's primary contribution: the event-based process engine —
+# ProcessSpec/ports, the extended state machine, calcfunction/workfunction
+# provenance decorators, and the checkpointable WorkChain outline DSL.
 
 from repro_torch.core.builder import (  # noqa: F401
     ProcessBuilder, ProcessBuilderNamespace, UnknownPortError,
@@ -20,4 +20,7 @@ from repro_torch.core.process_spec import ProcessSpec  # noqa: F401
 from repro_torch.core.statemachine import (  # noqa: F401
     InvalidTransitionError, ProcessState, StateMachine, TERMINAL_STATES,
     TRANSITIONS,
+)
+from repro_torch.core.workchain import (  # noqa: F401
+    ToContext, WorkChain, append_, if_, return_, while_,
 )

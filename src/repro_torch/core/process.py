@@ -65,6 +65,10 @@ class ProcessKilled(Exception):
     pass
 
 
+class ReferenceCheckpointError(RuntimeError):
+    """A checkpoint names a process class of the reference package."""
+
+
 class Process(StateMachine):
     NODE_TYPE: NodeType = NodeType.PROCESS
     # caching (AiiDA 1.0 §caching): bump CACHE_VERSION to invalidate every
@@ -389,6 +393,14 @@ class Process(StateMachine):
         import importlib
 
         mod_name, _, qual = checkpoint["process_class"].partition(":")
+        # both packages share one store schema, so a profile can hold the
+        # reference's checkpoints; importing their module would load the
+        # JAX package, and their extras need not match the port's
+        if mod_name == "repro" or mod_name.startswith("repro."):
+            raise ReferenceCheckpointError(
+                f"process {checkpoint.get('pk')} is a "
+                f"{checkpoint['process_class']} of the reference package; "
+                f"repro_torch resumes only its own processes")
         mod = importlib.import_module(mod_name)
         klass = mod
         for part in qual.split("."):

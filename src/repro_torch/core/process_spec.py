@@ -60,9 +60,8 @@ class ProcessSpec:
 
     # -- outline (workchains, §II.B.3.a) --------------------------------------
     def outline(self, *instructions) -> None:
-        raise NotImplementedError(
-            "WorkChain outlines need core/workchain.py, which the port does "
-            "not have yet (ROADMAP.md queue 1, item 1(b))")
+        from repro_torch.core.workchain import _build_outline
+        self._outline = _build_outline(instructions)
 
     def get_outline(self):
         return self._outline

@@ -2,15 +2,15 @@
 transport, with vertical scaling via *process slots*.
 
 A runner can drive any number of concurrent processes (bounded by its slot
-count). The reference's daemon scales horizontally by running one runner
-per OS worker process; the port has no daemon yet, so its runners are
-in-process only.
+count); the daemon (engine/daemon.py) scales horizontally by running one
+runner per OS worker process.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from typing import Any, Iterable
 
 from repro_torch.core.exit_code import ExitCode
@@ -43,6 +43,13 @@ class ProcessHandle:
     async def wait(self) -> ExitCode:
         await self.process.wait_done()
         return self.process.exit_code
+
+
+class QueuedHandle:
+    """Handle for a process shipped to the daemon via the task queue."""
+
+    def __init__(self, pk: int):
+        self.pk = pk
 
 
 class Runner:
@@ -93,18 +100,12 @@ class Runner:
     # -- submission --------------------------------------------------------------------
     def submit(self, process_class, inputs: dict | None = None,
                parent_pk: int | None = None):
-        """Instantiate + schedule a process (class or ProcessBuilder) on
-        this runner's loop. Prefer the free functions in
-        ``engine/launch.py`` — this is the underlying mechanism for
-        explicit-runner use. A distributed (daemon) runner would ship the
-        process through the durable task queue; that needs
-        ``engine/daemon.py``, which the port does not have yet, so such a
-        runner raises before any node is created rather than running the
-        process in-process."""
-        if getattr(self, "distributed", False):
-            raise NotImplementedError(
-                "distributed submission needs engine/daemon.py, which the "
-                "port does not have yet (ROADMAP.md queue 1, item 1(b))")
+        """Instantiate + schedule a process (class or ProcessBuilder). In
+        distributed (daemon) mode the process node + checkpoint are
+        created locally but execution is shipped through the durable task
+        queue, so any worker can pick it up (and resume it if that worker
+        dies). Prefer the free functions in ``engine/launch.py`` — this is
+        the underlying mechanism for explicit-runner use."""
         from repro_torch.core.builder import expand_launch_target
         with trace.span("engine.submit"):
             process_class, inputs = expand_launch_target(process_class,
@@ -112,6 +113,15 @@ class Runner:
             process = process_class(inputs=inputs, runner=self,
                                     parent_pk=parent_pk)
             _metrics.get_registry().counter("engine.submits").inc()
+            if getattr(self, "distributed", False):
+                from repro_torch.engine.daemon import PROCESS_QUEUE
+                # "ts" lets the picking worker measure queue latency;
+                # "submitter" feeds the broker's fair-dispatch rotation
+                payload = {"pk": process.pk, "ts": time.time()}
+                if self.submitter_id is not None:
+                    payload["submitter"] = self.submitter_id
+                self.communicator.task_send(PROCESS_QUEUE, payload)
+                return QueuedHandle(process.pk)
             return self._schedule(process)
 
     def _schedule(self, process: Process) -> ProcessHandle:

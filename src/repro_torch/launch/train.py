@@ -57,7 +57,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.data_mesh > 1 or args.model_mesh > 1:
         raise NotImplementedError(
             "data/model meshes above one device wait for the port's "
-            "multi-device slice (ROADMAP queue 1, item 13)")
+            "multi-device slice (ROADMAP queue 1, item 6)")
     device = torch.device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     bundle = build(cfg)

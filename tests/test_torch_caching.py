@@ -3,7 +3,7 @@
 Twins of ``tests/test_caching.py`` (hash stability and sensitivity,
 cache-hit output cloning with ``cached_from`` provenance, policy scoping,
 invalidation, collision telemetry) run against ``repro_torch``; the
-CalcJob and daemon cases wait for those layers. The parity cases hold the
+CalcJob and daemon cases are in ``tests/test_torch_{calcjob,daemon}.py``. The parity cases hold the
 port's ``hash_data_value`` and ``to_payload`` to the reference's.
 """
 
@@ -455,7 +455,8 @@ class TestPolicy:
     def test_workflows_never_cached(self, store, runner):
         ran = []
 
-        # a work-like node type (the port has no WorkChain yet)
+        # a work-like node type (the WorkChain twin is in
+        # tests/test_torch_workchain.py)
         class Chain(Process):
             NODE_TYPE = NodeType.WORK_CHAIN
 

@@ -1,0 +1,674 @@
+"""The port's CalcJob layer on the CPU: the four transport tasks under
+exponential back-off, the job manager, ``BaseRestartWorkChain`` and
+``GPUTrainJob`` (paper §II.B.4, fig. 3).
+
+Twins of ``tests/test_calcjob.py`` and ``tests/test_restart.py``, and of
+the back-off, job-manager and CalcJob-caching cases of
+``tests/test_engine.py`` and ``tests/test_caching.py``, run against
+``repro_torch``; every job carries ``"device": "cpu"``. The parity cases
+send the same inputs through the reference's ``TPUTrainJob`` and the
+port's ``GPUTrainJob`` and hold exit statuses, link labels, metrics keys
+and back-off failure counts together; the port job's losses are held to
+the bit to a direct loop of the same recipe.
+"""
+
+import asyncio
+import contextlib
+import importlib
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.calcjobs import GPUTrainJob
+from repro_torch.calcjobs.calcjob import get_cluster
+from repro_torch.calcjobs.restart import (
+    BaseRestartWorkChain, HandlerReport, process_handler,
+)
+from repro_torch.calcjobs.scheduler import SimScheduler, SimulatedCluster
+from repro_torch.chaos import faults
+from repro_torch.chaos.faults import ChaosPlan
+from repro_torch.core import Dict, Int, Process
+from repro_torch.core.process import ProcessKilled
+from repro_torch.engine.backoff import (
+    TransportTaskExhausted, exponential_backoff_retry,
+)
+from repro_torch.engine.jobmanager import JobManager
+from repro_torch.engine.transport import FlakyTransport, TransportQueue
+from repro_torch.provenance.store import LinkType, NodeType, QueryBuilder
+
+SMALL = {"arch": "qwen2-0.5b", "steps": 2, "batch": 1, "seq": 16,
+         "device": "cpu"}
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_state(monkeypatch):
+    """The port's global state: caching policy, metrics registry, default
+    runner, current store and armed chaos plan."""
+    from repro_torch.caching.config import ENV_VAR, reset_policy
+    from repro_torch.engine.runner import set_default_runner
+    from repro_torch.observability.metrics import reset_registry
+    from repro_torch.provenance.store import configure_store
+
+    def reset():
+        reset_policy()
+        reset_registry()
+        set_default_runner(None)
+        configure_store(":memory:")
+        faults.deactivate()
+
+    monkeypatch.delenv(ENV_VAR, raising=False)
+    reset()
+    yield
+    reset()
+
+
+@pytest.fixture()
+def store():
+    """Fresh in-memory port store, no default runner."""
+    from repro_torch.engine.runner import set_default_runner
+    from repro_torch.provenance.store import configure_store
+
+    st = configure_store(":memory:")
+    set_default_runner(None)
+    yield st
+    set_default_runner(None)
+
+
+@pytest.fixture()
+def runner(store):
+    from repro_torch.engine.runner import Runner, set_default_runner
+
+    r = Runner(store=store)
+    set_default_runner(r)
+    yield r
+
+
+def run(coro):
+    loop = asyncio.new_event_loop()
+    try:
+        return loop.run_until_complete(coro)
+    finally:
+        loop.close()
+
+
+# ===========================================================================
+# twins of tests/test_calcjob.py
+# ===========================================================================
+
+
+def test_gpu_train_job_happy_path(store, runner):
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(SMALL)})
+    assert proc.is_finished_ok
+    metrics = outputs["metrics"].value
+    assert metrics["steps"] == 2
+    assert all(l > 0 for l in metrics["losses"])
+    # retrieved folder linked as output
+    outs = store.outgoing(proc.pk, LinkType.CREATE)
+    assert {label for _, _, label in outs} >= {"retrieved", "metrics"}
+
+
+def test_transport_faults_recovered_by_backoff(store, runner):
+    cluster = get_cluster(runner)
+    flaky = FlakyTransport(fail_first=2, hostname="flaky")
+    flaky.command_handler = cluster.handle_command
+    flaky.files = cluster.filesystems.setdefault("flaky", {})
+    runner.transport_queue.register_transport(flaky)
+
+    outputs, proc = runner.run(GPUTrainJob, {
+        "config": Dict(SMALL), "metadata": {"computer": "flaky"}})
+    assert proc.is_finished_ok
+    # every stage hit the injected failures yet the job finished
+    assert flaky._failures["put"] == 2
+    assert flaky._failures["exec:sbatch"] == 2
+
+
+def test_scheduler_job_failure_maps_to_exit_code(store, runner):
+    cluster = get_cluster(runner)
+    cluster.fail_rate = 1.0   # every job fails on the cluster
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(SMALL)})
+    assert not proc.is_finished_ok
+    assert proc.exit_code.status == 100
+    cluster.fail_rate = 0.0
+
+
+def test_nan_loss_exit_code(store, runner):
+    cfg = dict(SMALL)
+    cfg["inject_nan"] = True
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(cfg)})
+    assert proc.exit_code.status == 310
+
+
+class GPURestart(BaseRestartWorkChain):
+    _process_class = GPUTrainJob
+
+    @process_handler(310)
+    def handle_nan(self, child):
+        cfg = dict(self.ctx.process_inputs["config"].value)
+        cfg["inject_nan"] = False
+        cfg["lr"] = cfg.get("lr", 3e-4) / 10
+        self.ctx.process_inputs["config"] = Dict(cfg)
+        self.report("NaN handled: lr lowered")
+        return None
+
+    @process_handler(100)
+    def handle_scheduler(self, child):
+        self.report("scheduler failure: plain retry")
+        return None
+
+
+def test_restart_workchain_recovers_nan(store, runner):
+    cfg = dict(SMALL)
+    cfg["inject_nan"] = True
+    outputs, proc = runner.run(GPURestart, {"config": Dict(cfg)})
+    assert proc.is_finished_ok
+    assert proc.ctx.iteration == 2
+    assert "metrics" in outputs
+
+
+def test_restart_workchain_gives_up_after_max_iterations(store, runner):
+    cluster = get_cluster(runner)
+    cluster.fail_rate = 1.0
+    outputs, proc = runner.run(GPURestart, {
+        "config": Dict(SMALL), "max_iterations": Int(2)})
+    assert not proc.is_finished_ok
+    assert proc.exit_code.status == 401
+    assert proc.ctx.iteration == 2
+    cluster.fail_rate = 0.0
+
+
+def test_unhandled_exit_code_is_unrecoverable(store, runner):
+    class NoHandlers(BaseRestartWorkChain):
+        _process_class = GPUTrainJob
+
+    cfg = dict(SMALL)
+    cfg["inject_nan"] = True     # 310 with no handler registered
+    outputs, proc = runner.run(NoHandlers, {"config": Dict(cfg)})
+    assert proc.exit_code.status == 402
+
+
+def test_calcjob_checkpoints_record_stage(store, runner):
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(SMALL)})
+    # terminal processes have their checkpoint deleted, but stages were
+    # persisted along the way — verify via the reports/logs trail
+    logs = store.get_logs(proc.pk)
+    msgs = " ".join(l["message"] for l in logs)
+    assert "uploaded" in msgs and "submitted" in msgs
+
+
+# ===========================================================================
+# twins of tests/test_restart.py
+# ===========================================================================
+
+
+class BrittleCalc(Process):
+    """Fails with exit 310 until its ``good`` input flips to 1 — the
+    knob a process handler turns on retry."""
+
+    NODE_TYPE = NodeType.CALC_FUNCTION
+    CACHEABLE = False
+
+    @classmethod
+    def define(cls, spec):
+        super().define(spec)
+        spec.input("good", valid_type=Int, default=Int(0))
+        spec.output("value", valid_type=Int)
+        spec.exit_code(310, "ERROR_BAD_INPUT", "the input was bad")
+
+    async def run(self):
+        if not self.inputs["good"].value:
+            return self.exit_codes.ERROR_BAD_INPUT
+        self.out("value", Int(42))
+
+
+class SuicidalCalc(Process):
+    """Dies by kill (no exit code recorded) while ``armed``."""
+
+    NODE_TYPE = NodeType.CALC_FUNCTION
+    CACHEABLE = False
+
+    @classmethod
+    def define(cls, spec):
+        super().define(spec)
+        spec.input("armed", valid_type=Int, default=Int(1))
+        spec.output("value", valid_type=Int)
+
+    async def run(self):
+        if self.inputs["armed"].value:
+            raise ProcessKilled("chaos kill")
+        self.out("value", Int(7))
+
+
+class BrittleRestart(BaseRestartWorkChain):
+    _process_class = BrittleCalc
+
+    @process_handler(310)
+    def handle_bad_input(self, child):
+        # modify the retry's inputs — the canonical handler move
+        self.ctx.process_inputs["good"] = Int(1)
+        self.report("bad input handled: flipping 'good' for the retry")
+        return None
+
+
+def test_handler_fires_and_modifies_inputs(store, runner):
+    outputs, proc = runner.run(BrittleRestart, {"good": Int(0)})
+    assert proc.is_finished_ok
+    assert proc.ctx.iteration == 2
+    assert outputs["value"].value == 42
+    # first child failed with the injected status, second succeeded
+    first, second = proc.ctx.children
+    assert first.exit_status == 310
+    assert second.is_finished_ok
+
+
+class NeverHealsRestart(BaseRestartWorkChain):
+    _process_class = BrittleCalc
+
+    @process_handler(310)
+    def handle_plain_retry(self, child):
+        return None  # retry without changing anything — stays broken
+
+
+def test_max_iterations_exhausted(store, runner):
+    outputs, proc = runner.run(NeverHealsRestart, {
+        "good": Int(0), "max_iterations": Int(2)})
+    assert not proc.is_finished_ok
+    assert proc.exit_code.status == 401
+    assert proc.ctx.iteration == 2
+
+
+def test_restart_unhandled_exit_code_is_unrecoverable(store, runner):
+    class NoHandlers(BaseRestartWorkChain):
+        _process_class = BrittleCalc
+
+    outputs, proc = runner.run(NoHandlers, {"good": Int(0)})
+    assert not proc.is_finished_ok
+    assert proc.exit_code.status == 402
+
+
+class SuicideRestart(BaseRestartWorkChain):
+    _process_class = SuicidalCalc
+
+    # killed children record exit status 998; excepted ones record nothing
+    # and surface as the synthetic EXIT_STATUS_DIED
+    @process_handler(998, BaseRestartWorkChain.EXIT_STATUS_DIED)
+    def handle_dead_child(self, child):
+        assert child.process_state in ("killed", "excepted")
+        self.ctx.process_inputs["armed"] = Int(0)
+        self.report("dead child handled: disarming the retry")
+        return None
+
+
+def test_killed_child_restarted_cleanly(store, runner):
+    """A child that dies without an exit code (killed) must not read as
+    success — the handler disarms it and the retry completes."""
+    outputs, proc = runner.run(SuicideRestart, {"armed": Int(1)})
+    assert proc.is_finished_ok
+    assert proc.ctx.iteration == 2
+    assert outputs["value"].value == 7
+    assert proc.ctx.children[0].process_state == "killed"
+
+
+class ChaosChildRestart(BaseRestartWorkChain):
+    _process_class = BrittleCalc
+
+    @process_handler(BaseRestartWorkChain.EXIT_STATUS_DIED)
+    def handle_dead_child(self, child):
+        return None  # plain retry; the chaos rule only fires once
+
+    @process_handler(310)
+    def handle_bad_input(self, child):
+        self.ctx.process_inputs["good"] = Int(1)
+        return None
+
+
+def test_chaos_excepted_child_restarted_cleanly(store, runner):
+    """Inject a one-shot fault into the first child's terminal step via
+    the chaos registry; the child excepts, the handler retries it."""
+    faults.activate(ChaosPlan(seed=1).on("process.terminal.pre", "raise",
+                                         nth=1))
+    outputs, proc = runner.run(ChaosChildRestart, {"good": Int(1)})
+    faults.deactivate()
+    assert proc.is_finished_ok
+    assert outputs["value"].value == 42
+    assert proc.ctx.children[0].process_state == "excepted"
+    assert proc.ctx.iteration == 2
+
+
+def test_handler_report_exit_code_short_circuits(store, runner):
+    class GiveUpRestart(BaseRestartWorkChain):
+        _process_class = BrittleCalc
+
+        @process_handler(310)
+        def handle_fatal(self, child):
+            from repro_torch.core import ExitCode
+            return HandlerReport(
+                do_break=True,
+                exit_code=ExitCode(402, "declared unrecoverable"))
+
+    outputs, proc = runner.run(GiveUpRestart, {"good": Int(0)})
+    assert proc.exit_code.status == 402
+    assert proc.ctx.iteration == 1
+
+
+# ===========================================================================
+# twins of the back-off and job-manager cases of tests/test_engine.py
+# ===========================================================================
+
+def test_backoff_retries_until_success():
+    attempts = []
+    sleeps = []
+
+    async def flaky():
+        attempts.append(1)
+        if len(attempts) < 4:
+            raise ConnectionError("nope")
+        return "ok"
+
+    async def fake_sleep(dt):
+        sleeps.append(dt)
+
+    result = run(exponential_backoff_retry(
+        flaky, initial_interval=0.1, max_attempts=5, sleeper=fake_sleep,
+        jitter=False))
+    assert result == "ok"
+    assert len(attempts) == 4
+    # intervals double: 0.1, 0.2, 0.4
+    assert sleeps == [0.1, 0.2, pytest.approx(0.4)]
+
+
+def test_backoff_full_jitter_bounded_and_counted():
+    import random
+
+    from repro_torch.observability import metrics as _metrics
+
+    registry = _metrics.reset_registry()
+    sleeps = []
+
+    async def always_fails():
+        raise ConnectionError("nope")
+
+    async def fake_sleep(dt):
+        sleeps.append(dt)
+
+    with pytest.raises(TransportTaskExhausted):
+        run(exponential_backoff_retry(
+            always_fails, initial_interval=0.1, max_attempts=4,
+            sleeper=fake_sleep, rng=random.Random(7)))
+    assert len(sleeps) == 3
+    for dt, ceiling in zip(sleeps, [0.1, 0.2, 0.4]):
+        assert 0.0 <= dt <= ceiling
+    assert registry.counter("backoff.retries").value == 3
+    assert registry.counter("backoff.exhausted").value == 1
+
+
+def test_backoff_exhaustion_raises():
+    async def always_fails():
+        raise TimeoutError("down")
+
+    async def fake_sleep(dt):
+        pass
+
+    with pytest.raises(TransportTaskExhausted) as exc:
+        run(exponential_backoff_retry(always_fails, max_attempts=3,
+                                      sleeper=fake_sleep, name="upload"))
+    assert exc.value.attempts == 3
+    assert "upload" in str(exc.value)
+
+
+def test_backoff_non_retryable_propagates():
+    async def fails():
+        raise ValueError("logic bug")
+
+    with pytest.raises(ValueError):
+        run(exponential_backoff_retry(fails, non_retryable=(ValueError,)))
+
+
+def test_job_manager_bundles_scheduler_queries():
+    cluster = SimulatedCluster(queue_delay=0.0, runtime=10.0)
+
+    async def main():
+        tq = TransportQueue(safe_interval=0.0)
+        tq.register_transport(cluster.make_transport("hpc"))
+        manager = JobManager(tq, SimScheduler(), "hpc", flush_interval=0.02)
+        t = await tq.request_transport("hpc")
+        job_ids = []
+        for i in range(20):
+            t.files[f"s{i}.job"] = b"{}"
+            rc, out, _ = await t.exec_command(f"sbatch s{i}.job")
+            job_ids.append(out.rsplit(" ", 1)[-1])
+        # 20 concurrent status requests -> ONE squeue
+        before = cluster.stats["queries"]
+        states = await asyncio.gather(
+            *[manager.request_job_state(j) for j in job_ids])
+        return cluster.stats["queries"] - before, states
+
+    queries, states = run(main())
+    assert queries == 1
+    assert all(s in ("PENDING", "RUNNING") for s in states)
+
+
+# ===========================================================================
+# twin of tests/test_caching.py::test_hit_skips_scheduler_entirely
+# ===========================================================================
+
+def test_hit_skips_scheduler_entirely(store, runner):
+    from repro_torch.caching import enable_caching
+    from repro_torch.calcjobs.calcjob import CalcInfo, CalcJob
+    from repro_torch.core import FolderData, Str
+
+    class EchoJob(CalcJob):
+        @classmethod
+        def define(cls, spec):
+            super().define(spec)
+            spec.input("text", valid_type=Str)
+            spec.output("echoed", valid_type=Str)
+
+        def prepare_for_submission(self):
+            return CalcInfo(
+                files={"in.txt": self.inputs["text"].value.encode()},
+                executable="echo", retrieve_list=["in.txt"])
+
+        def parse(self, retrieved: FolderData):
+            self.out("echoed",
+                     Str(retrieved.get_bytes("in.txt").decode()))
+
+    get_cluster(runner).register_executable(
+        "echo", lambda inputs: dict(inputs))
+
+    async def drive(proc):
+        return await proc.step_until_terminated()
+
+    with enable_caching():
+        p1 = EchoJob({"text": Str("hello")}, runner=runner)
+        runner.run_until_complete(drive(p1))
+        assert p1.is_finished_ok
+        n_jobs_after_first = len(get_cluster(runner).jobs)
+        assert n_jobs_after_first >= 1
+
+        p2 = EchoJob({"text": Str("hello")}, runner=runner)
+        runner.run_until_complete(drive(p2))
+    assert p2.is_finished_ok
+    assert p2.outputs["echoed"].value == "hello"
+    # no new scheduler job, no new upload
+    assert len(get_cluster(runner).jobs) == n_jobs_after_first
+    attrs = json.loads(store.get_node(p2.pk)["attributes"])
+    assert attrs["cached_from_pk"] == p1.pk
+    labels = {lbl for _, _, lbl in store.outgoing(p2.pk, LinkType.CREATE)}
+    assert labels == {"retrieved", "echoed"}
+
+
+# ===========================================================================
+# GPUTrainJob against the reference's TPUTrainJob
+# ===========================================================================
+
+@contextlib.contextmanager
+def _engine(pkg: str):
+    """A fresh in-memory store and default runner of package ``pkg``."""
+    runner_mod = importlib.import_module(f"{pkg}.engine.runner")
+    store_mod = importlib.import_module(f"{pkg}.provenance.store")
+    store = store_mod.configure_store(":memory:")
+    runner = runner_mod.Runner(store=store)
+    runner_mod.set_default_runner(runner)
+    try:
+        yield store, runner
+    finally:
+        runner_mod.set_default_runner(None)
+        store_mod.configure_store(":memory:")
+
+
+def _job_classes(pkg: str):
+    """(train job, its no-retrieve variant, restart chain) of ``pkg``."""
+    calcjobs = importlib.import_module(f"{pkg}.calcjobs")
+    restart = importlib.import_module(f"{pkg}.calcjobs.restart")
+    core = importlib.import_module(f"{pkg}.core")
+    job = (calcjobs.GPUTrainJob if pkg == "repro_torch"
+           else calcjobs.TPUTrainJob)
+
+    class NoRetrieve(job):
+        """Retrieves nothing, so ``parse`` finds no metrics.json."""
+
+        def prepare_for_submission(self):
+            info = super().prepare_for_submission()
+            info.retrieve_list = []
+            return info
+
+    class Restart(restart.BaseRestartWorkChain):
+        _process_class = job
+
+        @restart.process_handler(100)
+        def handle_scheduler(self, child):
+            return None
+
+    return job, NoRetrieve, Restart, core
+
+
+#: case -> (runs the restart chain, config changes, cluster fail rate,
+#: max_iterations, expected exit status)
+PARITY_CASES = {
+    "ok": (False, {}, 0.0, None, 0),
+    "scheduler_failed": (False, {}, 1.0, None, 100),
+    "nan": (False, {"inject_nan": True}, 0.0, None, 310),
+    "no_metrics": (False, {}, 0.0, None, 311),
+    "restart_exhausted": (True, {}, 1.0, 2, 401),
+    "restart_unhandled": (True, {"inject_nan": True}, 0.0, None, 402),
+}
+
+
+def _parity_run(pkg: str, case: str) -> dict:
+    chain, changes, fail_rate, max_it, _ = PARITY_CASES[case]
+    job, no_retrieve, restart_chain, core = _job_classes(pkg)
+    cfg = {**SMALL, **changes}
+    if pkg == "repro":
+        cfg.pop("device")
+    with _engine(pkg) as (store, runner):
+        get_cluster_fn = importlib.import_module(
+            f"{pkg}.calcjobs.calcjob").get_cluster
+        get_cluster_fn(runner).fail_rate = fail_rate
+        inputs = {"config": core.Dict(cfg)}
+        if max_it is not None:
+            inputs["max_iterations"] = core.Int(max_it)
+        cls = (restart_chain if chain
+               else no_retrieve if case == "no_metrics" else job)
+        outputs, proc = runner.run(cls, inputs)
+        links = sorted({(lt, label) for _, lt, label in
+                        store.outgoing(proc.pk)})
+        metrics = outputs.get("metrics")
+        return {"exit_status": proc.exit_code.status, "links": links,
+                "metrics_keys": sorted(metrics.value) if metrics else None,
+                "steps": metrics.value["steps"] if metrics else None}
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_CASES))
+def test_train_job_parity_with_reference(case):
+    ref = _parity_run("repro", case)
+    port = _parity_run("repro_torch", case)
+    assert port == ref
+    assert port["exit_status"] == PARITY_CASES[case][-1]
+
+
+def test_backoff_failure_counts_parity_with_reference():
+    counts = {}
+    for pkg in ("repro", "repro_torch"):
+        job, _, _, core = _job_classes(pkg)
+        transport = importlib.import_module(f"{pkg}.engine.transport")
+        cfg = dict(SMALL)
+        if pkg == "repro":
+            cfg.pop("device")
+        with _engine(pkg) as (store, runner):
+            cluster = importlib.import_module(
+                f"{pkg}.calcjobs.calcjob").get_cluster(runner)
+            flaky = transport.FlakyTransport(fail_first=2, hostname="flaky")
+            flaky.command_handler = cluster.handle_command
+            flaky.files = cluster.filesystems.setdefault("flaky", {})
+            runner.transport_queue.register_transport(flaky)
+            _, proc = runner.run(job, {"config": core.Dict(cfg),
+                                       "metadata": {"computer": "flaky"}})
+            assert proc.is_finished_ok
+            counts[pkg] = dict(flaky._failures)
+    assert counts["repro_torch"] == counts["repro"]
+    assert counts["repro_torch"]["put"] == 2
+
+
+def _direct_losses(config: dict) -> list[float]:
+    """The job's recipe written out: reduced config, the train step on the
+    CPU, batches drawn from ``default_rng(seed)``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build
+    from repro_torch.training.optim import OptimConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    cfg = reduced_config(config["arch"])
+    bundle = build(cfg)
+    steps, seed = config["steps"], config.get("seed", 0)
+    tcfg = TrainConfig(optim=OptimConfig(lr=3e-4, total_steps=steps,
+                                         warmup_steps=max(1, steps // 10)))
+    state = init_train_state(bundle, tcfg, seed, "cpu")
+    step_fn = make_train_step(bundle, tcfg)
+    rng = np.random.default_rng(seed)
+    b, s = config["batch"], config["seq"]
+    losses = []
+    for _ in range(steps):
+        tokens = rng.integers(0, cfg.vocab_size, (b, s + 1), dtype=np.int32)
+        state, metrics = step_fn(state, {
+            "tokens": torch.from_numpy(tokens[:, :-1].copy()),
+            "labels": torch.from_numpy(tokens[:, 1:].copy())})
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def test_job_losses_equal_direct_loop_to_the_bit(store, runner):
+    config = {**SMALL, "steps": 3, "seed": 5}
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(config)})
+    assert proc.is_finished_ok
+    assert outputs["metrics"].value["losses"] == _direct_losses(config)
+
+
+def test_job_device_is_part_of_the_fingerprint(store, runner):
+    """A CPU run and a card run are different inputs: the device key
+    changes the job's input hash."""
+    from repro_torch.caching.hashing import compute_input_hash
+
+    hashes = {compute_input_hash(GPUTrainJob, {"config": Dict(
+        {**SMALL, "device": device})}) for device in ("cpu", "cuda")}
+    assert len(hashes) == 2
+
+
+def test_job_without_device_fails_naming_the_card(store, runner):
+    """No "device" key and no card: the payload raises, the job ends with
+    ERROR_SCHEDULER_FAILED and the cluster's reason names the card. It
+    never trains on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("holds the missing-card path; this machine has a card")
+    cfg = {k: v for k, v in SMALL.items() if k != "device"}
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(cfg)})
+    assert proc.exit_code.status == 100
+    assert "metrics" not in outputs
+    jobs = get_cluster(runner).jobs
+    assert len(jobs) == 1
+    reason = next(iter(jobs.values()))["reason"]
+    assert "CUDA device" in reason
+    assert "CUDA device" in proc.exit_code.message

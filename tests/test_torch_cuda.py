@@ -763,3 +763,34 @@ def test_generate_on_the_card_then_a_hit(cuda, tmp_path):
     assert (s2, l2) == (s1, l1)
     assert cold["tokens"].value.tolist() == hot["tokens"].value.tolist()
     assert len(cold["tokens"].value) == 8
+
+
+def test_gpu_train_job_on_the_card_launches_the_flash_kernels(cuda):
+    """GPUTrainJob at the reduced config on the card (its default device,
+    no "device" key) with the flash kernels: it finishes ok with finite
+    losses, and every step launched the forward and both backward
+    passes."""
+    import math
+
+    from repro_torch.calcjobs import GPUTrainJob
+    from repro_torch.core import Dict
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.provenance.store import configure_store
+
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    runner = Runner(store=configure_store(":memory:"))
+    set_default_runner(runner)
+    try:
+        outputs, proc = runner.run(GPUTrainJob, {"config": Dict({
+            "arch": "aiida-demo-110m", "steps": 2, "batch": 2, "seq": 64,
+            "overrides": {"attn_impl": "pallas"}})})
+    finally:
+        set_default_runner(None)
+        configure_store(":memory:")
+    assert proc.is_finished_ok, proc.exit_code
+    metrics = outputs["metrics"].value
+    assert metrics["steps"] == 2
+    assert all(math.isfinite(x) for x in metrics["losses"])
+    assert all(c.launches > n for c, n in zip(counters, before))

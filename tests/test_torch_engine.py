@@ -5,8 +5,8 @@ Twins of ``tests/test_ports.py``, ``tests/test_statemachine.py``,
 ``tests/test_builder.py``, ``tests/test_process_functions.py`` and
 ``tests/test_engine.py`` run against ``repro_torch``. Where the reference
 builds a WorkChain, a plain Process with the same spec stands in (the
-port has no WorkChain yet); the daemon, backoff and job-manager cases
-wait for those layers. The parity cases hold one lifted function's input
+WorkChain versions are in ``tests/test_torch_workchain.py``, the daemon,
+back-off and job-manager cases in ``tests/test_torch_{daemon,calcjob}.py``). The parity cases hold one lifted function's input
 hash and provenance rows to the reference's, and the branches this slice
 leaves out to raising.
 """
@@ -349,8 +349,9 @@ def test_entered_hook_fires_exactly_once_per_transition(targets):
 # twins of tests/test_builder.py
 # ===========================================================================
 
-# the reference's SubChain and TopChain are WorkChains; the port has no
-# WorkChain yet, so plain Processes with the same specs stand in: TopChain
+# the reference's SubChain and TopChain are WorkChains; here plain
+# Processes with the same specs stand in (the WorkChain versions are in
+# tests/test_torch_workchain.py): TopChain
 # submits SubChain with its exposed inputs and waits for it
 class SubChain(Process):
     @classmethod
@@ -969,12 +970,26 @@ def test_to_data_value_refuses_bf16_tensor():
 
 
 def test_outline_needs_the_workchain_layer():
-    with pytest.raises(NotImplementedError, match="workchain"):
-        ProcessSpec().outline()
+    """``ProcessSpec.outline`` builds its steps through
+    ``core/workchain.py``: one step per plain callable."""
+    from repro_torch.core.workchain import _Step
+
+    def go(self):
+        pass
+
+    spec = ProcessSpec()
+    assert spec.get_outline() is None
+    spec.outline(go)
+    (step,) = spec.get_outline()
+    assert isinstance(step, _Step) and step.name == "go"
 
 
 def test_distributed_runner_raises_before_creating_a_node(store):
-    from repro_torch.engine.runner import Runner
+    """A distributed (daemon) runner creates the process node and its
+    checkpoint here and ships only the pk through the durable task queue;
+    nothing runs in this process."""
+    from repro_torch.engine.daemon import PROCESS_QUEUE
+    from repro_torch.engine.runner import QueuedHandle, Runner
 
     class Echo(Process):
         @classmethod
@@ -983,10 +998,71 @@ def test_distributed_runner_raises_before_creating_a_node(store):
             spec.input("x", valid_type=Int)
 
         async def run(self):
-            pass
+            raise AssertionError("a distributed submit must not run it")
 
-    r = Runner(store=store)
+    class Capture(LocalCommunicator):
+        def task_send(self, queue, payload):
+            sent.append((queue, payload))
+
+    sent = []
+    r = Runner(store=store, communicator=Capture())
     r.distributed = True
-    with pytest.raises(NotImplementedError, match="daemon"):
-        r.submit(Echo, {"x": Int(1)})
-    assert store.count_nodes() == 0
+    r.submitter_id = "tests"
+    handle = r.submit(Echo, {"x": Int(1)})
+    assert isinstance(handle, QueuedHandle)
+    ((queue, payload),) = sent
+    assert queue == PROCESS_QUEUE and payload["pk"] == handle.pk
+    assert payload["submitter"] == "tests" and payload["ts"] > 0
+    assert store.get_node(handle.pk)["process_state"] == "created"
+    assert store.load_checkpoint(handle.pk) is not None
+
+
+def test_reference_checkpoint_is_refused_without_importing_it(tmp_path):
+    """Both packages share one store schema. A checkpoint the reference
+    wrote names ``repro.<module>:<Class>``; resuming it in the port must
+    raise and load neither the reference nor JAX. The resume runs in a
+    fresh interpreter, so this test's own imports cannot mask an import."""
+    import os
+    import subprocess
+    import sys
+
+    from repro.calcjobs import TPUTrainJob
+    from repro.core import Dict as RefDict
+    from repro.engine.runner import Runner as RefRunner
+    from repro.provenance.store import configure_store as ref_configure
+
+    db = str(tmp_path / "profile.db")
+    ref_store = ref_configure(db)
+    pk = TPUTrainJob(inputs={"config": RefDict({"arch": "qwen2-0.5b"})},
+                     runner=RefRunner(store=ref_store)).pk
+    ref_store.close()
+    ref_configure(":memory:")
+
+    code = (
+        "import sys\n"
+        "from repro_torch.core.process import (Process,\n"
+        "                                      ReferenceCheckpointError)\n"
+        "from repro_torch.engine.runner import Runner\n"
+        "from repro_torch.provenance.store import configure_store\n"
+        f"store = configure_store({db!r})\n"
+        f"ckpt = store.load_checkpoint({pk})\n"
+        "try:\n"
+        "    Process.recreate_from_checkpoint(ckpt,\n"
+        "                                     runner=Runner(store=store))\n"
+        "except ReferenceCheckpointError as exc:\n"
+        "    print('refused:', exc)\n"
+        "else:\n"
+        "    print('resumed')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+        "             or m.startswith(('jax.', 'repro.')))\n"
+        "print('loaded:', bad)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("refused:"), out.stdout
+    assert "repro.calcjobs.tpujob:TPUTrainJob" in lines[0]
+    assert "resumes only its own processes" in lines[0]
+    assert lines[-1] == "loaded: []", out.stdout

@@ -539,7 +539,8 @@ class TestUnitOfWork:
         from repro_torch.core import Int as _Int
         from repro_torch.core import Process
 
-        # a plain Process body (the port has no WorkChain yet)
+        # a plain Process body (the WorkChain twin is in
+        # tests/test_torch_workchain.py)
         class Chain(Process):
             @classmethod
             def define(cls, spec):
@@ -565,7 +566,8 @@ class TestCheckpointByReference:
     def test_checkpoint_has_no_payload_copy(self, store, runner):
         from repro_torch.core import Process
 
-        # a plain Process (the port has no WorkChain or CalcJob yet)
+        # a plain Process (the WorkChain twin is in
+        # tests/test_torch_workchain.py)
         class Hold(Process):
             @classmethod
             def define(cls, spec):
