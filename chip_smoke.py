@@ -137,7 +137,35 @@ then:
    one's), no requeue, lease expiry, duplicate or stale delivery, seed
    0's losses within 1e-4 of (a)'s, ``fsck`` and ``check_store`` clean;
    prints the sweep's wall, the pickup latency histogram, each worker's
-   peak card memory and the store's size, nodes and links.
+   peak card memory, the store's size, nodes and links, and each client
+   the broker dropped, named a daemon worker or a sync client;
+17. drives the rest of the engine on the card, each part on its own
+   on-disk store: (a) ``examples/train_lm_torch.py``'s
+   ``PretrainWorkChain`` in this process (full-width ``aiida-demo-110m``
+   on the flash kernels, 12 steps of 4 x 128 tokens in chunks of 4, lr
+   3e-3): finished ok, 12 steps, 3 finite losses, 24 flash forwards, 12
+   dq and 12 dk/dv passes per step, all on the tensor-core bodies; (b)
+   the same recipe as a subprocess of the example, SIGKILLed once its
+   store holds the first chunk's checkpoint, then ``--resume <pk>``:
+   finished ok at 12 steps, its report names the restored model
+   checkpoint, losses within 1e-4 relative of (a)'s; prints whether they
+   are bit-equal and the SIGKILL-to-finish wall; (c) ``python -m
+   repro_torch.cli`` over (b)'s store, each command a subprocess:
+   ``process list|report|show``, ``graph export``, ``stats``, ``store
+   fsck``, ``chaos check``: each exits 0, the list and report name the
+   chain and its chunk reports, fsck and the invariants are clean; prints
+   each command's wall; (d) ``archive create``, ``inspect``, ``import``
+   into a fresh profile at the same path, and a re-export from it: the
+   two archives are byte-identical and fsck of the target is clean;
+   prints the archive's bytes and nodes; (e) the crash script's recipe
+   over phase 16's job: 4 ``GPUTrainJob``s (seeds 0-3) through a daemon
+   of 2 workers that exit 1.5 s after connecting until 4 restarts: at
+   least one restart and one requeue, every job exit status 0, seed 0's
+   losses within 1e-4 of phase 16 (a)'s, ``fsck`` and ``check_store``
+   clean; (f) the chaos scenarios ``kill9-midstep``, ``zombie-worker``
+   and ``broker-kill9`` (seed 1) through the CLI: each ok with no
+   violation, ``kill9-midstep`` with a requeue; prints each one's elapsed
+   time, its workers' start and restarts.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
 it), the ``nvidia-smi`` line, and as the
@@ -2310,6 +2338,13 @@ def direct_train(torch, config: dict) -> list[float]:
     return torch.stack(losses).tolist()
 
 
+def named_drops(stats: dict) -> list[dict]:
+    """The broker's drop records, each named a daemon worker (it said
+    hello with its name) or a sync client (it never did)."""
+    return [{**d, "kind": "daemon worker" if d["worker"] else "sync client"}
+            for d in stats.get("dropped", [])]
+
+
 def losses_close(got: list[float], want: list[float]) -> bool:
     return len(got) == len(want) and all(
         abs(g - w) <= 1e-4 * abs(w) for g, w in zip(got, want))
@@ -2495,6 +2530,10 @@ def workflow_phase(torch, fa_ops) -> dict:
     check(stats["tasks_enqueued"] == 1 + SWEEP_JOBS
           and not any(anomalies.values()),
           f"daemon: {anomalies}, enqueued {stats['tasks_enqueued']}")
+    dropped = named_drops(stats)
+    print(f"workflow (c): broker dropped {len(dropped)} client(s): "
+          + "; ".join(f"{d['client']} {d['kind']} ({d['reason']})"
+                      for d in dropped))
     seeds = {}
     for pk in job_pks:
         cfg = next(dstore.load_data(p).value for p, _, label in
@@ -2526,6 +2565,7 @@ def workflow_phase(torch, fa_ops) -> dict:
                                          "tasks_delivered",
                                          "leases_granted",
                                          "clients_dropped")},
+        "dropped_clients": dropped,
         "pickup_seconds": merged["histograms"].get("daemon.pickup_seconds"),
         "worker_peak_cuda_bytes": {a["pid"]: a["cuda_peak_bytes"]
                                    for a in adverts},
@@ -2534,6 +2574,334 @@ def workflow_phase(torch, fa_ops) -> dict:
         "worker_preload_s": {a["pid"]: a["preload_s"] for a in adverts},
         "store_bytes": store_bytes, "nodes": n_nodes, "links": n_links}
     print("workflow: " + json.dumps(result))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rest of the engine (the pretraining example killed and
+# resumed, the CLI, archives, crash recovery, chaos scenarios)
+# ---------------------------------------------------------------------------
+
+TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
+CRASH_SCRIPT = ROOT / "scripts" / "daemon_crash_test_torch.py"
+PRETRAIN_STEPS, PRETRAIN_CHUNK, PRETRAIN_LR = 12, 4, 3e-3
+PRETRAIN_ARGS = ["--preset", "110m", "--steps", str(PRETRAIN_STEPS),
+                 "--chunk", str(PRETRAIN_CHUNK), "--lr", str(PRETRAIN_LR)]
+# flash launches per step of the training recipe (phase 7's)
+STEP_LAUNCHES = (24, 12, 12)
+CHAOS_SCENARIOS = ("kill9-midstep", "zombie-worker", "broker-kill9")
+SUBPROCESS_TIMEOUT_S = 300
+
+
+def load_file(name: str, path: Path):
+    """Import the module at ``path`` under ``name``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sub_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(SRC))
+
+
+def run_sub(args: list[str], cwd) -> tuple[subprocess.CompletedProcess,
+                                             float]:
+    """``python <args>`` in ``cwd``; the completed process and its wall."""
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=cwd, env=sub_env(),
+                         capture_output=True, text=True,
+                         timeout=SUBPROCESS_TIMEOUT_S)
+    return out, time.perf_counter() - t
+
+
+def chain_rows(db: str) -> list[dict]:
+    from repro_torch.provenance.store import (NodeType, ProvenanceStore,
+                                              QueryBuilder)
+
+    store = ProvenanceStore(db)
+    try:
+        return (QueryBuilder(store).nodes(NodeType.WORK_CHAIN)
+                .project("pk", "process_state", "exit_status").all())
+    finally:
+        store.close()
+
+
+def committed_step(db: str, pk: int) -> int:
+    """The chain's step in its last durable engine checkpoint."""
+    from repro_torch.provenance.store import ProvenanceStore
+
+    store = ProvenanceStore(db)
+    try:
+        ck = store.load_checkpoint(pk)
+    finally:
+        store.close()
+    if not ck:
+        return 0
+    return ck["extras"]["ctx"].get("step", {}).get("__raw__", 0)
+
+
+def chain_outcome(db: str, pk: int) -> tuple[dict, list[str]]:
+    """The chain's final metrics and its reports."""
+    from repro_torch.provenance.store import LinkType, ProvenanceStore
+
+    store = ProvenanceStore(db)
+    try:
+        metrics = next((store.load_data(p).value for p, _, label in
+                        store.outgoing(pk, LinkType.RETURN)
+                        if label == "final_metrics"), {})
+        reports = [log["message"] for log in store.get_logs(pk)]
+    finally:
+        store.close()
+    return metrics, reports
+
+
+def engine_phase_17(torch, fa_ops, sweep_losses: list[float]) -> dict:
+    """The pretraining example at full width on the card, in process and
+    killed and resumed as a subprocess; the CLI, an archive round trip,
+    crash recovery and chaos scenarios over real stores."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.caching import disable_caching
+    from repro_torch.chaos.invariants import check_store
+    from repro_torch.engine.launch import run_get_node
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.provenance.fsck import fsck
+    from repro_torch.provenance.store import configure_store
+
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+        c.tensor_core_launches = 0
+    tmp = tempfile.TemporaryDirectory(prefix="engine17_", dir=ROOT / "build")
+    work = Path(tmp.name)
+    result: dict = {}
+
+    # (a) the chain in this process
+    ex = load_file("train_lm_torch", TRAIN_EXAMPLE)
+    with disable_caching():
+        store = configure_store(str(work / "inprocess.db"))
+        set_default_runner(Runner(store=store))
+        builder = ex.PretrainWorkChain.get_builder()
+        builder.preset = ex.PRESETS["110m"]
+        builder.total_steps = PRETRAIN_STEPS
+        builder.chunk_steps = PRETRAIN_CHUNK
+        builder.lr = PRETRAIN_LR
+        builder.ckpt_dir = {"dir": str(work / "ckpt_a")}
+        t = time.perf_counter()
+        outputs, proc = run_get_node(builder)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t
+        launches = [c.launches for c in counters]
+        tc = [c.tensor_core_launches for c in counters]
+        reports = [log["message"] for log in store.get_logs(proc.pk)]
+        set_default_runner(None)
+        store.close()
+        configure_store(":memory:")
+    check(proc.is_finished_ok, f"pretrain (a): {proc.exit_code}; "
+                               f"reports {reports}")
+    metrics = outputs["final_metrics"].value
+    losses = metrics["losses"]
+    check(metrics["steps"] == PRETRAIN_STEPS
+          and len(losses) == PRETRAIN_STEPS // PRETRAIN_CHUNK
+          and all(math.isfinite(x) for x in losses),
+          f"pretrain (a) metrics {metrics}")
+    want = [n * PRETRAIN_STEPS for n in STEP_LAUNCHES]
+    check(launches == want and tc == launches,
+          f"pretrain (a) launches {launches} (tensor-core {tc}), want "
+          f"{want}")
+    result["in_process"] = {"wall_s": wall_a, "losses": losses,
+                            "launches": dict(zip(FLASH_NAMES, launches))}
+    print(f"engine (a): PretrainWorkChain {PRETRAIN_STEPS} steps in "
+          f"{wall_a:.3f} s, losses {losses}, launches "
+          f"{dict(zip(FLASH_NAMES, launches))}")
+
+    # (b) the example as a subprocess, SIGKILLed once its first chunk is
+    # committed, then resumed
+    run_dir = work / "b"
+    run_dir.mkdir()
+    db = str(run_dir / "examples_out" / "train_lm.db")
+    log_path = work / "b.log"
+    t = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, str(TRAIN_EXAMPLE), *PRETRAIN_ARGS],
+            cwd=run_dir, env=sub_env(), stdout=log, stderr=subprocess.STDOUT)
+        pk, step = None, 0
+        try:
+            while child.poll() is None:
+                check(time.perf_counter() - t < SUBPROCESS_TIMEOUT_S,
+                      "pretrain (b): no chunk committed in time")
+                if pk is None and os.path.exists(db):
+                    rows = chain_rows(db)
+                    pk = rows[0]["pk"] if rows else None
+                if pk is not None:
+                    step = committed_step(db, pk)
+                    if step >= PRETRAIN_CHUNK:
+                        break
+                time.sleep(0.02)
+        finally:
+            child.send_signal(signal.SIGKILL)
+            child.wait()
+    t_kill = time.perf_counter()
+    check(child.returncode == -signal.SIGKILL and pk is not None,
+          f"pretrain (b): exit {child.returncode} before a commit; "
+          f"{log_path.read_text()[-2000:]}")
+    check(chain_rows(db)[0]["process_state"] not in ("finished",
+                                                     "excepted", "killed"),
+          "pretrain (b): the chain ended before the kill")
+    resumed, _ = run_sub([str(TRAIN_EXAMPLE), "--resume", str(pk)], run_dir)
+    kill_to_finish = time.perf_counter() - t_kill
+    check(resumed.returncode == 0 and "state=finished" in resumed.stdout,
+          f"pretrain (b) resume: {resumed.returncode} {resumed.stdout} "
+          f"{resumed.stderr[-2000:]}")
+    row = chain_rows(db)[0]
+    metrics_b, reports_b = chain_outcome(db, pk)
+    losses_b = metrics_b.get("losses", [])
+    check(row["process_state"] == "finished" and row["exit_status"] == 0
+          and metrics_b.get("steps") == PRETRAIN_STEPS,
+          f"pretrain (b): {row}, metrics {metrics_b}")
+    check(f"restored model checkpoint at step {step}" in reports_b,
+          f"pretrain (b) reports {reports_b}")
+    check(losses_close(losses_b, losses),
+          f"pretrain (b) losses {losses_b} != (a) {losses}")
+    result["kill_resume"] = {
+        "killed_at_step": step, "losses": losses_b,
+        "bit_equal": losses_b == losses, "kill_to_finish_s": kill_to_finish,
+        "first_run_s": t_kill - t}
+    print(f"engine (b): killed at step {step}, resumed to "
+          f"{PRETRAIN_STEPS}; losses bit-equal to (a): "
+          f"{losses_b == losses}; SIGKILL to finish {kill_to_finish:.3f} s")
+
+    # (c) the CLI over (b)'s store, each command a subprocess
+    cli = ["-m", "repro_torch.cli", "-p", db]
+    commands = {
+        "process list": ["process", "list"],
+        "process report": ["process", "report", str(pk)],
+        "process show": ["process", "show", str(pk)],
+        "graph export": ["graph", "export", str(pk)],
+        "stats": ["stats"],
+        "store fsck": ["store", "fsck"],
+        "chaos check": ["chaos", "check", "--pk", str(pk),
+                        "--expect-terminal"],
+    }
+    walls, outs = {}, {}
+    for name, args in commands.items():
+        out, walls[name] = run_sub([*cli, *args], run_dir)
+        check(out.returncode == 0, f"cli {name}: {out.returncode} "
+                                   f"{out.stdout[-1000:]} {out.stderr[-1000:]}")
+        outs[name] = out.stdout
+    check("PretrainWorkChain" in outs["process list"],
+          f"cli process list: {outs['process list']}")
+    chunk_reports = [f"step {n}: loss=" for n in
+                     range(PRETRAIN_CHUNK, PRETRAIN_STEPS + 1,
+                           PRETRAIN_CHUNK)]
+    check("PretrainWorkChain" in outs["process report"]
+          and all(r in outs["process report"] for r in chunk_reports),
+          f"cli process report: {outs['process report']}")
+    check("findings (found) : 0" in outs["store fsck"],
+          f"cli store fsck: {outs['store fsck']}")
+    check("violations        : 0" in outs["chaos check"],
+          f"cli chaos check: {outs['chaos check']}")
+    result["cli_s"] = walls
+    print("engine (c): cli walls " + json.dumps(
+        {k: round(v, 3) for k, v in walls.items()}))
+
+    # (d) an archive of the chain, imported into a fresh profile at the
+    # same path (the manifest names the profile) and exported again
+    first, again = work / "first.zip", work / "again.zip"
+    steps_d = {}
+    out, steps_d["create"] = run_sub([*cli, "archive", "create", "-o",
+                                      str(first), "--pk", str(pk)], run_dir)
+    check(out.returncode == 0, f"archive create: {out.stderr[-1000:]}")
+    n_nodes = int(re.search(r": (\d+) node\(s\)", out.stdout).group(1))
+    out, steps_d["inspect"] = run_sub([*cli, "archive", "inspect",
+                                       str(first)], run_dir)
+    check(out.returncode == 0 and "archive version 1" in out.stdout,
+          f"archive inspect: {out.stdout} {out.stderr[-1000:]}")
+    shutil.move(str(run_dir / "examples_out"), str(work / "b_source"))
+    out, steps_d["import"] = run_sub([*cli, "archive", "import",
+                                      str(first)], run_dir)
+    check(out.returncode == 0 and f"imported {n_nodes} node(s)" in out.stdout,
+          f"archive import: {out.stdout} {out.stderr[-1000:]}")
+    out, steps_d["re-export"] = run_sub([*cli, "archive", "create", "-o",
+                                         str(again), "--all"], run_dir)
+    check(out.returncode == 0, f"archive re-export: {out.stderr[-1000:]}")
+    check(first.read_bytes() == again.read_bytes(),
+          "archive: the re-export differs from the first archive")
+    out, steps_d["fsck"] = run_sub([*cli, "store", "fsck"], run_dir)
+    check(out.returncode == 0 and "findings (found) : 0" in out.stdout,
+          f"archive target fsck: {out.stdout} {out.stderr[-1000:]}")
+    result["archive"] = {"bytes": first.stat().st_size, "nodes": n_nodes,
+                         "walls_s": steps_d}
+    print(f"engine (d): archive {first.stat().st_size} bytes, {n_nodes} "
+          f"nodes; re-export byte-identical; walls " + json.dumps(
+              {k: round(v, 3) for k, v in steps_d.items()}))
+
+    # (e) crash recovery: the crash script's recipe, phase 16's jobs
+    os.environ.pop("REPRO_CACHING", None)
+    crash = load_file("daemon_crash_test_torch", CRASH_SCRIPT)
+    out_e = crash.crash_recovery(str(work / "crash"), WORKFLOW_JOB,
+                                 timeout=SWEEP_TIMEOUT_S)
+    stats = out_e["broker"]
+    requeues = stats["tasks_delivered"] - stats["tasks_enqueued"]
+    check(out_e["restarts"] >= 1 and requeues >= 1,
+          f"crash: {out_e['restarts']} restarts, {requeues} requeues")
+    check(set(out_e["exit_statuses"].values()) == {0},
+          f"crash: states {out_e['states']}, exit statuses "
+          f"{out_e['exit_statuses']}")
+    cstore = configure_store(out_e["store_path"])
+    seed0 = next(
+        cstore.load_data(p).value["losses"]
+        for p, _, label in cstore.outgoing(out_e["pks"][0])
+        if label == "metrics")
+    check(losses_close(seed0, sweep_losses),
+          f"crash: seed 0 losses {seed0} != phase 16 (a) {sweep_losses}")
+    report = fsck(cstore, broker_db=out_e["broker_db"])
+    invariants = check_store(cstore, out_e["pks"])
+    check(report.clean, f"crash fsck: {report.counts()}")
+    check(invariants.ok, f"crash check_store: {invariants.summary()}")
+    cstore.close()
+    configure_store(":memory:")
+    result["crash"] = {"restarts": out_e["restarts"], "requeues": requeues,
+                       "wall_s": out_e["wall_s"],
+                       "dropped_clients": named_drops(stats)}
+    print(f"engine (e): {crash.JOBS} jobs through crashing workers in "
+          f"{out_e['wall_s']:.3f} s, {out_e['restarts']} restarts, "
+          f"{requeues} requeues")
+
+    # (f) chaos scenarios through the CLI, workers on this machine
+    result["chaos"] = {}
+    for name in CHAOS_SCENARIOS:
+        out, wall = run_sub(["-m", "repro_torch.cli", "chaos", "run",
+                             "--scenario", name, "--seed", "1", "--json",
+                             "--workdir", str(work / f"chaos_{name}")],
+                            work)
+        doc = json.loads(out.stdout[out.stdout.index("{"):])
+        check(out.returncode == 0 and doc["ok"] and not doc["violations"],
+              f"chaos {name}: {doc['failures']} {doc['violations']}")
+        requeues = (doc["broker_stats"]["tasks_delivered"]
+                    - doc["broker_stats"]["tasks_enqueued"])
+        if name == "kill9-midstep":
+            check(requeues >= 1, f"chaos {name}: no requeue; "
+                                 f"{doc['broker_stats']}")
+        result["chaos"][name] = {
+            "elapsed_s": doc["elapsed"], "restarts": doc["restarts"],
+            "connect_wait_s": doc["connect_wait"], "requeues": requeues,
+            "wall_s": wall}
+        print(f"engine (f): {name} ok in {doc['elapsed']:.3f} s after "
+              f"{doc['connect_wait']:.3f} s of worker start, "
+              f"{doc['restarts']} restarts, {requeues} requeues")
+    tmp.cleanup()
+    print("engine17: " + json.dumps(result))
     return result
 
 
@@ -2605,21 +2973,28 @@ def main() -> int:
     engine = engine_phase(torch, da_ops)
     workflow = workflow_phase(torch, fa_ops)
     calcjob = workflow["in_process"]["launches"]
+    engine17 = engine_phase_17(torch, fa_ops,
+                               workflow["in_process"]["losses"])
+    pretrain = engine17["in_process"]["launches"]
     # launches on each main path (serving, training, hybrid and ssm
-    # serving, the engine, the calcjob), each counted from 0
+    # serving, the engine, the calcjob, the pretraining chain), each
+    # counted from 0
     by_path = {
         "decode_attention": {"serve": served["decode_launches"],
                              "engine": engine["decode_launches"]},
         "flash_attention_fwd": {"serve": served["flash_launches"],
                                 "train": trained["launches"][
                                     "flash_attention_fwd"],
-                                "calcjob": calcjob["flash_attention_fwd"]},
+                                "calcjob": calcjob["flash_attention_fwd"],
+                                "pretrain": pretrain["flash_attention_fwd"]},
         "flash_attention_bwd_dq": {"train": trained["launches"][
             "flash_attention_bwd_dq"],
-            "calcjob": calcjob["flash_attention_bwd_dq"]},
+            "calcjob": calcjob["flash_attention_bwd_dq"],
+            "pretrain": pretrain["flash_attention_bwd_dq"]},
         "flash_attention_bwd_dkv": {"train": trained["launches"][
             "flash_attention_bwd_dkv"],
-            "calcjob": calcjob["flash_attention_bwd_dkv"]},
+            "calcjob": calcjob["flash_attention_bwd_dkv"],
+            "pretrain": pretrain["flash_attention_bwd_dkv"]},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
         "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
@@ -2639,10 +3014,10 @@ def main() -> int:
          "train_parity": train_parity, "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
          "ssm_parity": ssm_parity, "engine": engine,
-         "workflow": workflow}, indent=1))
+         "workflow": workflow, "engine17": engine17}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(smi)

@@ -7,6 +7,9 @@
 # are cloned as new nodes linked to the new process node, which records
 # `cached_from` in its metadata.
 
+from repro_torch.caching.backfill import (  # noqa: F401
+    BackfillStats, backfill_hashes,
+)
 from repro_torch.caching.config import (  # noqa: F401
     CachingPolicy, disable_caching, enable_caching, get_policy,
     is_caching_enabled_for, reset_policy,

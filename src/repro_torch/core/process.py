@@ -65,8 +65,20 @@ class ProcessKilled(Exception):
     pass
 
 
-class ReferenceCheckpointError(RuntimeError):
-    """A checkpoint names a process class of the reference package."""
+class ReferencePackageError(RuntimeError):
+    """A checkpoint, class path or module names the reference package."""
+
+
+def refuse_reference(module: str, what: str) -> None:
+    """Raise :class:`ReferencePackageError` when ``module`` is ``repro``
+    or a ``repro.*`` module, before anything imports it. Both packages
+    share one store schema, so a profile can name the reference's
+    classes; importing them would load the JAX package, and their
+    extras and hashes are not this package's."""
+    if module == "repro" or module.startswith("repro."):
+        raise ReferencePackageError(
+            f"{what} is of the reference package ({module}); repro_torch "
+            "runs only its own process classes")
 
 
 class Process(StateMachine):
@@ -393,14 +405,8 @@ class Process(StateMachine):
         import importlib
 
         mod_name, _, qual = checkpoint["process_class"].partition(":")
-        # both packages share one store schema, so a profile can hold the
-        # reference's checkpoints; importing their module would load the
-        # JAX package, and their extras need not match the port's
-        if mod_name == "repro" or mod_name.startswith("repro."):
-            raise ReferenceCheckpointError(
-                f"process {checkpoint.get('pk')} is a "
-                f"{checkpoint['process_class']} of the reference package; "
-                f"repro_torch resumes only its own processes")
+        refuse_reference(mod_name, f"process {checkpoint.get('pk')}, a "
+                                   f"{checkpoint['process_class']},")
         mod = importlib.import_module(mod_name)
         klass = mod
         for part in qual.split("."):

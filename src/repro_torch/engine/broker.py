@@ -83,6 +83,8 @@ CREATE TABLE IF NOT EXISTS leases (
 
 #: keep at most this many events in the durable broadcast log
 EVENT_LOG_CAP = 10000
+#: drop records the broker keeps for ``broker_stats``
+DROPPED_KEPT = 64
 
 _TERMINAL = tuple(s.value for s in TERMINAL_STATES)
 _PROCESS_ID = re.compile(r"^process\.(\d+)$")
@@ -129,6 +131,11 @@ class BrokerServer:
         self._dirty = 0
         self._conn = None
         self._reaper_task: asyncio.Task | None = None
+        #: the clients dropped last (newest last), served by
+        #: ``broker_stats`` as ``dropped``: each one's worker name (None
+        #: for a client that never said hello, such as a sync client),
+        #: why it was dropped and whether it consumed a task queue
+        self.dropped: list[dict] = []
         #: control-plane traffic accounting, served by ``broker_stats``
         self.stats = {
             "messages_in": 0, "messages_out": 0, "tasks_enqueued": 0,
@@ -257,7 +264,7 @@ class BrokerServer:
         finally:
             self._drop_client(cid)
 
-    def _drop_client(self, cid: str) -> None:
+    def _drop_client(self, cid: str, reason: str = "disconnected") -> None:
         """Full disconnect cleanup, run the moment a client's connection
         dies (EOF/reset — a SIGKILLed worker's sockets close immediately)
         or its heartbeats lapse. Auto-disowns every pk the client claimed
@@ -269,6 +276,12 @@ class BrokerServer:
         had_beat = self._last_beat.pop(cid, None) is not None
         if had_conn or had_beat:
             self.stats["clients_dropped"] += 1
+            self.dropped.append({
+                "client": cid[:8], "worker": self._names.get(cid),
+                "reason": reason,
+                "consumer": any(cid in members
+                                for members in self._consumers.values())})
+            del self.dropped[:-DROPPED_KEPT]
         self._subs.pop(cid, None)
         self._prefetch.pop(cid, None)
         for consumers in self._consumers.values():
@@ -517,7 +530,8 @@ class BrokerServer:
                                         "rpc_identifiers": len(self._rpc),
                                         "leases": len(self._leases),
                                         "event_log_size": n_events,
-                                        "queues": queues}})
+                                        "queues": queues,
+                                        "dropped": list(self.dropped)}})
         elif kind == "events_since":
             # durable replay: stream the logged events this client missed
             pattern = msg.get("pattern")
@@ -808,12 +822,13 @@ class BrokerServer:
             dead = [cid for cid, beat in self._last_beat.items()
                     if beat < deadline]
             for cid in dead:
-                logger.warning("consumer %s missed heartbeats; requeueing",
-                               cid[:8])
+                logger.warning("consumer %s (%s) missed heartbeats; "
+                               "requeueing", cid[:8],
+                               self._names.get(cid, "no worker name"))
                 writer = self._clients.get(cid)
                 if writer is not None:
                     writer.close()
-                self._drop_client(cid)
+                self._drop_client(cid, reason="missed heartbeats")
             if dead:
                 for queue in list(self._consumers):
                     self._deliver(queue)

@@ -46,7 +46,7 @@ def make_process_task_handler(runner, store, owned: set | None = None):
     the pks this worker currently runs — advertised over the worker's own
     RPC endpoint. Factored out so tests can exercise the exact
     resume/kill-durability path without spawning OS processes."""
-    from repro_torch.core.process import Process, ReferenceCheckpointError
+    from repro_torch.core.process import Process, ReferencePackageError
 
     #: pks this handler is currently driving — a second delivery of the
     #: same pk (duplicate task row after a partition/requeue race) must
@@ -103,7 +103,7 @@ def make_process_task_handler(runner, store, owned: set | None = None):
                     process = Process.recreate_from_checkpoint(
                         checkpoint, runner=runner,
                         epoch=int(epoch) if epoch is not None else None)
-                except ReferenceCheckpointError as exc:
+                except ReferencePackageError as exc:
                     # no worker of this package can ever resume it: settle
                     # the task as failed instead of nacking it into an
                     # endless requeue, and keep the worker up

@@ -1041,7 +1041,7 @@ def test_reference_checkpoint_is_refused_without_importing_it(tmp_path):
     code = (
         "import sys\n"
         "from repro_torch.core.process import (Process,\n"
-        "                                      ReferenceCheckpointError)\n"
+        "                                      ReferencePackageError)\n"
         "from repro_torch.engine.runner import Runner\n"
         "from repro_torch.provenance.store import configure_store\n"
         f"store = configure_store({db!r})\n"
@@ -1049,7 +1049,7 @@ def test_reference_checkpoint_is_refused_without_importing_it(tmp_path):
         "try:\n"
         "    Process.recreate_from_checkpoint(ckpt,\n"
         "                                     runner=Runner(store=store))\n"
-        "except ReferenceCheckpointError as exc:\n"
+        "except ReferencePackageError as exc:\n"
         "    print('refused:', exc)\n"
         "else:\n"
         "    print('resumed')\n"
@@ -1064,5 +1064,5 @@ def test_reference_checkpoint_is_refused_without_importing_it(tmp_path):
     lines = out.stdout.splitlines()
     assert lines[0].startswith("refused:"), out.stdout
     assert "repro.calcjobs.tpujob:TPUTrainJob" in lines[0]
-    assert "resumes only its own processes" in lines[0]
+    assert "runs only its own process classes" in lines[0]
     assert lines[-1] == "loaded: []", out.stdout

@@ -5,7 +5,7 @@ Twins of ``tests/test_store.py`` (blob repository, payload routing, bulk
 writes and reads, transaction hooks, legacy migration, the unit of work,
 checkpoints by reference, cache hits on blobs), ``tests/test_querybuilder.py``
 and ``tests/test_provenance.py`` run against ``repro_torch``; the archive
-and multi-writer cases wait for ``provenance/archive.py``. The parity
+and multi-writer cases are in ``tests/test_torch_archive.py``. The parity
 cases hold the port's schema and a profile it writes to the reference's
 store.
 """
