@@ -12,7 +12,9 @@ then:
 2. holds the split-KV decode-attention kernel against its plain PyTorch
    version (bf16 at 2e-2, f32 at 5e-5): kv_len 0, 1, Smax and across the
    tile and split edges, B * Hkv of 4, 16 and 64 (splits of 64 and 128
-   positions), hd 32/64/128, G = 3/2/8, each call launched twice for the
+   positions), hd 32/64/128, G = 3/2/8, and the decode shapes of phases
+   18 and 19 (G = 1 and 7 at hd 128, caches of 1024 and 3072), each call
+   launched twice for the
    same output (the merge's tickets back at zero); requires ptxas to
    report no spills; times kernel (events and the profiler's device time
    per launch), plain version and SDPA at the serving shape;
@@ -23,7 +25,10 @@ then:
    prompts 96/250/511/700, causal and not, Skv > Sq with q_offset =
    Skv - Sq, Skv = 0, windows 1/64/127, softcap with a window, G = 1/3/4,
    strided q/k/v views, views at an odd element offset (copied
-   contiguous by the wrapper), and the training shape B = 8, S = 1024; out also
+   contiguous by the wrapper), the attention shapes of phases 18, 19 and
+   21 (hd 128: moonshot's prompts and its 8 x 1024 batch with G = 1,
+   llava's 3008 positions with G = 7 at B = 1 and 2), and the training
+   shape B = 8, S = 1024; out also
    within 1e-2 / 1e-4 of its norm and lse within 1e-4 absolute; requires
    ptxas to report no spills; times it at each serving shape and at the
    training shape, printing kernel, device and SDPA ms, kernel/SDPA and
@@ -39,9 +44,10 @@ then:
    ``tensor_core_launches``, f32 on their CUDA-core bodies) against their
    plain version on the card: hd 32/64/128, Sq at the tile edges
    1/63/64/65/127/128/129/250/1024, causal and not, Skv > Sq with
-   q_offset, windows 1/64, softcap, G = 1/3/4, strided q/k/v/do views and
-   keyless rows (f32 at 1e-4, bf16 at 2e-2, and each output's error
-   within 1e-4 / 1e-2 of its norm, or within 1e-4 of zero where the plain
+   q_offset, windows 1/64, softcap, G = 1/3/4, strided q/k/v/do views,
+   keyless rows and phase 21's training batches (moonshot 8 x 1024 with
+   G = 1, llava 2 x 3008 with G = 7, hd 128) (f32 at 1e-4, bf16 at 2e-2,
+   and each output's error within 1e-4 / 1e-2 of its norm, or within 1e-4 of zero where the plain
    version's is zero to rounding); requires ptxas to report no spills;
    checks them again at the training shape (B = 8, S = 1024, bf16) and
    times each pass there (events and the profiler's device time), the
@@ -165,7 +171,38 @@ then:
    clean; (f) the chaos scenarios ``kill9-midstep``, ``zombie-worker``
    and ``broker-kill9`` (seed 1) through the CLI: each ok with no
    violation, ``kill9-midstep`` with a requeue; prints each one's elapsed
-   time, its workers' start and restarts.
+   time, its workers' start and restarts;
+18. serves ``moonshot-v1-16b-a3b`` (MoE, 64 experts, top 6) at full width
+   and depth (48 layers, 28.06 B parameters, bf16 weights drawn on the
+   card from a seed): 8 requests of 96/250/511/700 tokens, 32 new tokens
+   each, batch 4, cache 1024, through ``BatchScheduler``; every prefill
+   on the flash forward's tensor-core body (``attn_impl="pallas"``, a
+   change from the published ``"chunked"``), every decode step on the
+   decode kernel; prints prefill ms by length, the median decode step,
+   the least time a decode step can take (each weight it needs read once:
+   of each layer's experts those its tokens were routed to) beside the
+   time of the bytes the dense dispatch reads (every expert), peak
+   memory, parameters and a profiled decode step (device time, idle
+   share);
+19. serves ``llava-next-34b`` (VLM) at full width and depth (60 layers,
+   34.44 B parameters, bf16 on the card, drawn after phase 18's are
+   freed): one row of 2880 patch embeddings and 128 text tokens (the
+   flash forward at 3008 positions, 7 query heads per KV head), 32 new
+   tokens, cache 3072, through ``make_prefill_step`` /
+   ``make_decode_step``; prints what phase 18 prints and the card's free
+   memory before the init;
+20. at full width and 4 layers in float32, greedy tokens of each family
+   on the card (the flash and decode kernels) identical to the CPU's
+   (plain versions), from the same parameters: moonshot 2 prompts of 64
+   tokens, llava one of 32 tokens after 256 patches, 8 new tokens;
+   prints the smallest top-2 logit margin and the smallest gap between
+   the k-th and (k+1)-th router probability of any token;
+21. one ``GPUTrainJob`` per family through a ``Runner``, full width, 2
+   layers (the card's memory: fp32 parameters, gradients and AdamW
+   moments), 3 steps (moonshot 8 x 1024 tokens, llava 2 x (2880 patches
+   + 128 tokens)): finished ok, finite losses, every flash forward,
+   recompute, dq and dk/dv launch on the tensor-core bodies, moonshot's
+   aux loss finite and positive; prints losses, aux, peak memory, wall.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
 it), the ``nvidia-smi`` line, and as the
@@ -326,6 +363,19 @@ DECODE_CASES = (
     (4, 4, 2, 32, 128, [65, 128, 1, 0]),
     (4, 4, 2, 32, 256, [0, 1, 63, 64]),
     (4, 4, 2, 32, 256, [65, 256, 1, 0]),
+    # phase 18's moonshot (G = 1, hd 128, cache 1024): its prompts' first,
+    # timed and last decode steps, and the edges
+    (4, 16, 16, 128, 1024, [97, 251, 512, 701]),
+    (4, 16, 16, 128, 1024, [113, 267, 528, 717]),
+    (4, 16, 16, 128, 1024, [127, 281, 542, 731]),
+    (4, 16, 16, 128, 1024, [0, 1, 1023, 1024]),
+    # phase 19's llava (G = 7, hd 128, cache 3072): 2880 patches and 128
+    # tokens, the decode steps' first, timed and last lengths, and a full
+    # cache
+    (1, 56, 8, 128, 3072, [3009]),
+    (1, 56, 8, 128, 3072, [3025]),
+    (1, 56, 8, 128, 3072, [3039]),
+    (1, 56, 8, 128, 3072, [3072]),
 )
 
 
@@ -393,7 +443,8 @@ def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
     # host cost as much as the card's
     rotate = itertools.cycle(sets)
     prof = device_share(
-        torch, lambda: da_ops.decode_attention(*next(rotate), kv), 40)
+        torch, lambda: da_ops.decode_attention(*next(rotate), kv), 40,
+        expect="decode_attention")
     device_ms = prof["device_ms_per_launch_by_kind"]["decode_attention"]
     device_seen = prof["launches_by_kind"]["decode_attention"]
     plain_ms = time_ms(
@@ -443,6 +494,16 @@ def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
 # phase 3: flash attention forward
 # ---------------------------------------------------------------------------
 
+# the attention shapes of phases 18, 19 and 21: moonshot's prompts (G = 1,
+# hd 128) and its training batch, llava's 2880 patches + 128 tokens (G = 7,
+# 3008 positions, no multiple of the tile) in its prefill and its training
+# batch of 2; the forward and backward sweeps both hold them
+FAMILY_ATTN_CASES = (
+    [dict(b=1, sq=s, skv=s, h=16, hkv=16, hd=128) for s in SERVE_PROMPTS]
+    + [dict(b=8, sq=1024, skv=1024, h=16, hkv=16, hd=128),
+       dict(b=1, sq=3008, skv=3008, h=56, hkv=8, hd=128),
+       dict(b=2, sq=3008, skv=3008, h=56, hkv=8, hd=128)])
+
 # the forward's sweep: each case is (b, sq, skv, h, hkv, hd, options); a
 # "strided" case reads q, k and v as views of one fused (b, s, h + 2 hkv,
 # hd) projection, so q's rows are strided; an "odd" case reads views one
@@ -474,7 +535,8 @@ FLASH_CASES = (
        dict(_C, sq=65, skv=200, q_offset=135, hd=128, odd=True)]
     # the earlier sweep's cases
     + [dict(_C, sq=37, skv=37), dict(_C, sq=511, skv=511, softcap=30.0),
-       dict(_C, sq=37, skv=42, q_offset=5)])
+       dict(_C, sq=37, skv=42, q_offset=5)]
+    + FAMILY_ATTN_CASES)
 
 
 def flash_inputs(torch, gen, c: dict, dt):
@@ -688,7 +750,7 @@ def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd) -> dict:
     rotate = itertools.cycle(sets)
     device_ms = device_share(
         torch, lambda: fa_ops.flash_attention_fwd(*next(rotate)),
-        20)["device_ms_by_kind"]["flash_fwd"]
+        20, expect="flash_fwd")["device_ms_by_kind"]["flash_fwd"]
     pairs = b * s * (s + 1) // 2
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
@@ -745,10 +807,25 @@ def serve(torch, cfg, prompts, new_tokens, batch, device, seed=0):
     return sched, reqs
 
 
-def device_share(torch, fn, n: int) -> dict:
+def device_share(torch, fn, n: int, expect: str | None = None) -> dict:
     """Run ``fn`` ``n`` times under ``torch.profiler``: wall ms per run,
     the device time the profiler saw per run, the idle share, and the
-    kernels that took the most device time."""
+    kernels that took the most device time.
+
+    With ``expect``, a kernel kind the window must hold: a window whose
+    trace lost every launch of that kind (the profiler drops a short
+    window's device events now and then) is profiled again, up to three
+    times, and then fails."""
+    for _ in range(3):
+        got = _profiled(torch, fn, n)
+        if expect is None or expect in got["device_ms_per_launch_by_kind"]:
+            return got
+        print(f"profiler: no {expect} launch in a window of {n} runs; "
+              "profiling again")
+    raise SmokeFailure(f"profiler: three windows held no {expect} launch")
+
+
+def _profiled(torch, fn, n: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -961,7 +1038,9 @@ BWD_CASES = (
        dict(_D, sq=129, skv=129, hd=128, strided=True),
        dict(_D, sq=65, skv=65, hd=32, strided=True)]
     + [dict(_D, sq=40, skv=40, q_offset=-10),
-       dict(_D, sq=100, skv=100, q_offset=-70, hd=128, window=16)])
+       dict(_D, sq=100, skv=100, q_offset=-70, hd=128, window=16)]
+    # the families' training batches (phase 21)
+    + FAMILY_ATTN_CASES[-3::2])
 
 
 def bwd_inputs(torch, gen, c: dict, dt):
@@ -1057,7 +1136,8 @@ def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
         fn(q, k, v, do, lse, delta, opts)
 
     device_ms = {
-        name: device_share(torch, lambda: one_pass(fn), 10)[
+        name: device_share(torch, lambda: one_pass(fn), 10,
+                           expect=f"flash_bwd_{name}")[
             "device_ms_by_kind"][f"flash_bwd_{name}"]
         for name, fn in (("dq", fa_ops.flash_attention_bwd_dq),
                          ("dkv", fa_ops.flash_attention_bwd_dkv))}
@@ -1424,7 +1504,8 @@ def rglru_phase(torch, rg_ops, rg_ref, build_log: str) -> dict:
         ms, stream_ms = (sum(v) / len(v) for v in runs.values())
         rotate = itertools.cycle(sets)
         prof = device_share(torch,
-                            lambda: rg_ops.rglru_scan(*next(rotate)), 20)
+                            lambda: rg_ops.rglru_scan(*next(rotate)), 20,
+                            expect="rglru_scan")
         plain_ms = (time_ms(torch, rg_ref.rglru_scan_ref, sets[:1], iters=2)
                     if plain else None)
         plan = rg_ops.tile_plan(b, s, d, sms)
@@ -1805,7 +1886,8 @@ def mlstm_phase(torch, ml_ops, ml_ref, build_log: str) -> dict:
           "a timed bf16 call missed the tensor-core body")
     rotate = itertools.cycle(sets)
     prof = device_share(
-        torch, lambda: ml_ops.mlstm_chunk(*next(rotate), chunk=L), 10)
+        torch, lambda: ml_ops.mlstm_chunk(*next(rotate), chunk=L), 10,
+        expect="mlstm_chunk")
     device_ms = prof["device_ms_per_launch_by_kind"]["mlstm_chunk"]
     device_seen = prof["launches_by_kind"]["mlstm_chunk"]
     plain_ms = time_ms(torch,
@@ -1945,15 +2027,18 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
     return result
 
 
-def greedy_margins(torch, bundle, params, prompts, new_tokens, max_len,
+def greedy_margins(torch, bundle, params, batch, new_tokens, max_len,
                    device):
     """Greedy tokens through the bundle's prefill and decode functions (the
-    ones the serving steps wrap), with each step's top-2 logit margin."""
+    ones the serving steps wrap), with each step's top-2 logit margin;
+    decode positions start after the prefill's (a VLM's patches
+    included)."""
+    n = bundle.cfg.num_patches + batch["tokens"].shape[1]
     tok_all, margins = [], []
     with torch.no_grad():
-        cache = bundle.init_cache(len(prompts), max_len, device)
+        cache = bundle.init_cache(batch["tokens"].shape[0], max_len, device)
         logits, cache = bundle.prefill_fn(
-            params, {"tokens": torch.tensor(prompts, device=device)}, cache)
+            params, {k: v.to(device) for k, v in batch.items()}, cache)
         for i in range(new_tokens):
             lg = logits[:, -1, :bundle.cfg.vocab_size].float()
             top = lg.topk(2, dim=-1).values
@@ -1962,8 +2047,7 @@ def greedy_margins(torch, bundle, params, prompts, new_tokens, max_len,
             tok_all.append(tok.cpu())
             if i + 1 < new_tokens:
                 logits, cache = bundle.decode_fn(
-                    params, cache, tok,
-                    torch.tensor(len(prompts[0]) + i, device=device))
+                    params, cache, tok, torch.tensor(n + i, device=device))
     return torch.cat(tok_all, dim=1), torch.stack(margins, dim=1)
 
 
@@ -1992,8 +2076,9 @@ def ssm_parity_phase(torch, cfg, params) -> dict:
         p = cast_for_compute(sub, torch.float32, torch.device(dev))
         before = ml_ops.mlstm_chunk.launches
         t = time.perf_counter()
-        runs[dev] = greedy_margins(torch, bundle, p, prompts, PARITY_X_NEW,
-                                   max_len, dev)
+        runs[dev] = greedy_margins(torch, bundle, p,
+                                   {"tokens": torch.tensor(prompts)},
+                                   PARITY_X_NEW, max_len, dev)
         secs[dev] = time.perf_counter() - t
         if dev == "cuda":
             launched = ml_ops.mlstm_chunk.launches - before
@@ -2204,9 +2289,9 @@ def engine_cpu_parity(torch, prompts, card_tokens) -> dict:
         for p, toks in zip(prompts, cpu_tokens):
             seq = torch.tensor([p + toks[:-1]])
             rows = slice(len(p) - 1, len(p) - 1 + len(toks))
-            lg = lm_forward(eng.cfg, eng.params, {"tokens": seq})[
+            lg = lm_forward(eng.cfg, eng.params, {"tokens": seq})[0][
                 0, rows, :eng.cfg.vocab_size].float()
-            lg32 = lm_forward(cfg32, eng.params, {"tokens": seq})[
+            lg32 = lm_forward(cfg32, eng.params, {"tokens": seq})[0][
                 0, rows, :eng.cfg.vocab_size].float()
             top = lg.topk(2, dim=-1).indices
             m = lg.gather(1, top)
@@ -2905,6 +2990,512 @@ def engine_phase_17(torch, fa_ops, sweep_losses: list[float]) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phases 18 to 21: the MoE and VLM families (moonshot-v1-16b-a3b,
+# llava-next-34b) at full width
+# ---------------------------------------------------------------------------
+
+MOE, VLM = "moonshot-v1-16b-a3b", "llava-next-34b"
+MOE_BATCH, MOE_MAX_LEN, MOE_NEW = 4, 1024, 32
+VLM_TEXT, VLM_NEW, VLM_MAX_LEN = 128, 32, 3072
+FAMILY_DECODE_TIMED, FAMILY_PROFILED = 10, 3
+# phase 20: layers, and rows x prompt tokens (a VLM's patches cut to
+# VLM_PARITY_PATCHES for the CPU's time), new tokens
+PARITY_FAMILY_LAYERS, PARITY_FAMILY_NEW = 4, 8
+MOE_PARITY_BATCH, MOE_PARITY_PROMPT = 2, 64
+VLM_PARITY_PATCHES, VLM_PARITY_TEXT = 256, 32
+# phase 21: one GPUTrainJob per family, 2 layers (the card's memory:
+# fp32 parameters, gradients and AdamW moments), 3 steps
+FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 2, 3
+FAMILY_JOBS = {
+    MOE: {"arch": MOE, "reduced": False, "steps": FAMILY_TRAIN_STEPS,
+          "batch": 8, "seq": 1024,
+          "overrides": {"num_layers": FAMILY_TRAIN_LAYERS,
+                        "attn_impl": "pallas"}},
+    VLM: {"arch": VLM, "reduced": False, "steps": FAMILY_TRAIN_STEPS,
+          "batch": 2, "seq": 128,
+          "overrides": {"num_layers": FAMILY_TRAIN_LAYERS,
+                        "attn_impl": "pallas"}},
+}
+
+
+def free_card(torch) -> dict:
+    """Release what earlier phases cached on the card; its free and
+    total bytes after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    return {"free_bytes": free, "total_bytes": total}
+
+
+def card_params(torch, cfg, seed: int):
+    """``cfg``'s parameters drawn on the card in its param dtype (the
+    route for full-width models: no host or fp32 copy of the tree);
+    returns them, their count and bytes, and the seconds the draw took."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build
+
+    t = time.perf_counter()
+    params = build(cfg).init_params_on_device(
+        torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    leaves = [p for _, p in tree_leaves(params)]
+    return (params, sum(p.numel() for p in leaves),
+            sum(p.numel() * p.element_size() for p in leaves), secs)
+
+
+def decode_bound_ms(cfg, params, kv_rows: list[int],
+                    experts_touched: list[int] | None = None) -> dict:
+    """The least time a decode step can take on this card: each weight the
+    step needs read once, and each row's cache read up to its length, over
+    the data sheet's memory rate. Of the embedding table the step needs
+    the batch's rows (all of it when it is tied to the output head), of
+    the projector nothing (only the prefill reads it), and of a MoE layer
+    the experts its tokens were routed to (``experts_touched``, one count
+    per layer, from this run's router). ``dense_dispatch_ms`` is the time
+    of the bytes the port's dense dispatch reads: every expert."""
+    from repro_torch.models.common import tree_leaves
+
+    def nbytes(p):
+        return p.numel() * p.element_size()
+
+    leaves = dict(tree_leaves(params))
+    experts = {k for k in leaves if k.startswith("layers/moe/w_")}
+    emb = leaves["embedding"]
+    base = sum(nbytes(p) for k, p in leaves.items()
+               if k not in experts and k not in ("embedding", "mm_projector"))
+    base += nbytes(emb) if cfg.tie_embeddings else \
+        len(kv_rows) * cfg.d_model * emb.element_size()
+    every_expert = sum(nbytes(leaves[k]) for k in experts)
+    if experts:
+        per_expert = every_expert // (cfg.num_layers * cfg.num_experts)
+        check(experts_touched is not None
+              and len(experts_touched) == cfg.num_layers,
+              f"decode bound: routed experts per layer {experts_touched}")
+        routed = sum(experts_touched) * per_expert
+    else:
+        routed = 0
+    kv = sum(kv_rows) * cfg.num_layers * 2 * cfg.kv_heads_eff * cfg.hd * 2
+    return {"weight_bytes": base + routed, "routed_expert_bytes": routed,
+            "every_expert_bytes": every_expert,
+            "experts_touched": experts_touched, "kv_bytes": kv,
+            "bound_ms": (base + routed + kv) / HBM_BYTES_PER_S * 1e3,
+            "dense_dispatch_ms": (base + every_expert + kv)
+            / HBM_BYTES_PER_S * 1e3}
+
+
+def experts_routed(torch, step) -> list[int]:
+    """The distinct experts each MoE layer's router picked in one call of
+    ``step`` (the counts a decode step's bound reads)."""
+    from repro_torch.models import mlp as mlp_mod
+
+    top_k, counts = mlp_mod.top_k_stable, []
+
+    def watched(probs, k):
+        w, i = top_k(probs, k)
+        counts.append(int(torch.unique(i).numel()))
+        return w, i
+
+    mlp_mod.top_k_stable = watched
+    try:
+        step()
+    finally:
+        mlp_mod.top_k_stable = top_k
+    return counts
+
+
+def zero_counters(counters) -> None:
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "tensor_core_launches"):
+            c.tensor_core_launches = 0
+
+
+def moe_serve_phase(torch, da_ops, fa_ops) -> dict:
+    """moonshot-v1-16b-a3b at full width and depth (48 layers, bf16
+    weights drawn on the card), 8 requests through ``BatchScheduler``:
+    every prefill on the flash kernel's tensor-core body, every decode
+    step on the decode kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.observability.metrics import get_registry
+    from repro_torch.serving.serve import BatchScheduler, Request
+
+    card = free_card(torch)
+    cfg = get_config(MOE).replace(param_dtype="bfloat16",
+                                  attn_impl="pallas", decode_impl="pallas")
+    params, n_params, n_bytes, init_s = card_params(torch, cfg, 18)
+    print(f"moe serve: {MOE} {n_params} parameters, {n_bytes} bytes bf16, "
+          f"drawn on the card in {init_s:.2f} s; card before: {card}")
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(18)
+    prompts = [torch.randint(1, cfg.vocab_size,
+                             (SERVE_PROMPTS[i % len(SERVE_PROMPTS)],),
+                             generator=gen).tolist()
+               for i in range(N_REQUESTS)]
+    sched = BatchScheduler(bundle, params, batch_size=MOE_BATCH,
+                           max_len=MOE_MAX_LEN, device="cuda")
+    warm = Request(rid=-1, prompt=prompts[0][:16], max_new_tokens=2)
+    sched.submit(warm)
+    sched.run()
+    torch.cuda.synchronize()
+
+    steps = get_registry().counter("serving.decode_steps")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=MOE_NEW)
+            for i, p in enumerate(prompts)]
+    steps_before = steps.value
+    zero_counters((da_ops.decode_attention, fa_ops.flash_attention_fwd))
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"decode_attention": da_ops.decode_attention.launches,
+                "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+    flash_tc = fa_ops.flash_attention_fwd.tensor_core_launches
+    decode_steps = steps.value - steps_before
+    check(all(r.done and r.finish_reason == "length"
+              and len(r.generated) == MOE_NEW for r in reqs),
+          "moe: not every request finished with its tokens: "
+          f"{[(r.done, r.finish_reason, len(r.generated)) for r in reqs]}")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "moe: a generated token is out of vocab")
+    layers = cfg.num_layers
+    check(launches["flash_attention_fwd"] == layers * N_REQUESTS,
+          f"moe flash launches {launches['flash_attention_fwd']} != "
+          f"{layers} x {N_REQUESTS}")
+    check(flash_tc == launches["flash_attention_fwd"],
+          f"moe: {launches['flash_attention_fwd'] - flash_tc} flash "
+          "launches missed the tensor-core body")
+    check(launches["decode_attention"] == layers * decode_steps,
+          f"moe decode launches {launches['decode_attention']} != {layers} "
+          f"x {decode_steps}")
+    tokens = sum(len(r.generated) for r in reqs)
+
+    prefill_ms = {}
+    for n in SERVE_PROMPTS:
+        p = torch.tensor([prompts[SERVE_PROMPTS.index(n)]], device="cuda")
+        row = bundle.init_cache(1, MOE_MAX_LEN, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, _ = sched.prefill_step(sched.params, {"tokens": p}, row)
+        int(tok[0, 0])
+        prefill_ms[str(n)] = (time.perf_counter() - t) * 1e3
+        del row
+    toks = torch.ones((MOE_BATCH, 1), dtype=torch.int64, device="cuda")
+    kv_rows = [n + MOE_NEW // 2 for n in SERVE_PROMPTS]
+    pos = torch.tensor(kv_rows, device="cuda")
+    step_ms = []
+    for _ in range(FAMILY_DECODE_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nxt, _ = sched.decode_step(sched.params, sched.cache, toks, pos)
+        nxt.cpu()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    step_ms.sort()
+    profiled = device_share(torch, lambda: sched.decode_step(
+        sched.params, sched.cache, toks, pos)[0].cpu(), FAMILY_PROFILED)
+    touched = experts_routed(torch, lambda: sched.decode_step(
+        sched.params, sched.cache, toks, pos)[0].cpu())
+    bound = decode_bound_ms(cfg, params, kv_rows, touched)
+    result = {
+        "arch": MOE, "layers": layers, "cut": None,
+        "parameters": n_params, "param_bytes": n_bytes, "init_s": init_s,
+        "requests": N_REQUESTS, "prompts": list(SERVE_PROMPTS),
+        "new_tokens": MOE_NEW, "batch": MOE_BATCH, "max_len": MOE_MAX_LEN,
+        "wall_s": wall, "tokens_generated": tokens,
+        "tokens_per_s": tokens / wall, "decode_steps": decode_steps,
+        "launches": launches, "flash_tensor_core_launches": flash_tc,
+        "prefill_ms_by_len": prefill_ms,
+        "decode_step_ms_median": step_ms[len(step_ms) // 2],
+        "decode_bound": bound,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "card_before": card, "profile_decode_step": profiled,
+        "first_tokens": [r.generated[:8] for r in reqs[:2]],
+    }
+    print("moe serve: " + json.dumps(result))
+    del sched, params
+    return result
+
+
+def vlm_serve_phase(torch, da_ops, fa_ops) -> dict:
+    """llava-next-34b at full width and depth (60 layers, bf16 weights
+    drawn on the card), one row of 2880 patch embeddings and 128 text
+    tokens through ``make_prefill_step`` / ``make_decode_step`` (the
+    reference's scheduler sends tokens only): the prefill on the flash
+    kernel (3008 positions, 7 query heads per KV head), every decode step
+    on the decode kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    card = free_card(torch)
+    print(f"vlm serve: card before the init: {card}")
+    cfg = get_config(VLM).replace(param_dtype="bfloat16",
+                                  attn_impl="pallas", decode_impl="pallas")
+    params, n_params, n_bytes, init_s = card_params(torch, cfg, 19)
+    print(f"vlm serve: {VLM} {n_params} parameters, {n_bytes} bytes bf16, "
+          f"drawn on the card in {init_s:.2f} s")
+    bundle = build(cfg)
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (1, VLM_TEXT),
+                                     generator=gen, device="cuda")}
+    for name, (shape, dtype) in bundle.extra_inputs(1).items():
+        batch[name] = torch.randn(shape, generator=gen, device="cuda",
+                                  dtype=dtype)
+    n = cfg.num_patches + VLM_TEXT
+    # warm-up (library handles, allocator) outside the counted run
+    warm = bundle.init_cache(1, VLM_MAX_LEN, "cuda")
+    tok, warm = prefill(params, batch, warm)
+    decode(params, warm, tok.long(), torch.tensor(n, device="cuda"))
+    del warm
+    torch.cuda.synchronize()
+
+    zero_counters((da_ops.decode_attention, fa_ops.flash_attention_fwd))
+    cache = bundle.init_cache(1, VLM_MAX_LEN, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, cache = prefill(params, batch, cache)
+    out = [tok.cpu()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for i in range(VLM_NEW - 1):
+        t = time.perf_counter()
+        tok, cache = decode(params, cache, tok.long(),
+                            torch.tensor(n + i, device="cuda"))
+        out.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    tokens = torch.cat(out, dim=1)
+    launches = {"decode_attention": da_ops.decode_attention.launches,
+                "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+    flash_tc = fa_ops.flash_attention_fwd.tensor_core_launches
+    layers = cfg.num_layers
+    check(tokens.shape == (1, VLM_NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        f"vlm tokens {tokens.tolist()}")
+    check(launches["flash_attention_fwd"] == layers and flash_tc == layers,
+          f"vlm flash launches {launches['flash_attention_fwd']} "
+          f"(tensor-core {flash_tc}) != {layers}")
+    check(launches["decode_attention"] == layers * (VLM_NEW - 1),
+          f"vlm decode launches {launches['decode_attention']} != "
+          f"{layers} x {VLM_NEW - 1}")
+    step_ms.sort()
+    pos = torch.tensor(n + VLM_NEW // 2, device="cuda")
+    profiled = device_share(torch, lambda: decode(
+        params, cache, tok.long(), pos)[0].cpu(), FAMILY_PROFILED)
+    bound = decode_bound_ms(cfg, params, [n + VLM_NEW // 2])
+    result = {
+        "arch": VLM, "layers": layers, "cut": None,
+        "parameters": n_params, "param_bytes": n_bytes, "init_s": init_s,
+        "batch": 1, "patches": cfg.num_patches, "text": VLM_TEXT,
+        "positions": n, "new_tokens": VLM_NEW, "max_len": VLM_MAX_LEN,
+        "wall_s": wall, "prefill_ms": prefill_ms,
+        "prefill_positions_per_s": n / prefill_ms * 1e3,
+        "decode_step_ms_median": step_ms[len(step_ms) // 2],
+        "decode_bound": bound, "launches": launches,
+        "flash_tensor_core_launches": flash_tc,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "card_before": card, "profile_decode_step": profiled,
+        "first_tokens": tokens[:, :8].tolist(),
+    }
+    print("vlm serve: " + json.dumps(result))
+    del cache, params
+    return result
+
+
+def family_parity_phase(torch, da_ops, fa_ops) -> dict:
+    """Each family at full width and 4 layers in float32: greedy tokens on
+    the card (the flash and decode kernels) identical to the CPU's (plain
+    versions), from the same parameters (drawn on the card, copied to the
+    host; attention projections fan-in scaled). Reports the smallest
+    top-2 logit margin and, for the MoE, the smallest gap between the
+    k-th and (k+1)-th router probability of any token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.common import map_tree
+    from repro_torch.models.registry import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    top_k = mlp_mod.top_k_stable
+    gaps = []
+
+    def watched_top_k(probs, k):
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        gaps.append(float((srt[..., k - 1] - srt[..., k]).min()))
+        return top_k(probs, k)
+
+    result = {}
+    for arch, seed in ((MOE, 20), (VLM, 21)):
+        free_card(torch)
+        cfg = get_config(arch).replace(
+            num_layers=PARITY_FAMILY_LAYERS, dtype="float32",
+            kv_cache_dtype="float32", param_dtype="float32",
+            attn_impl="pallas", decode_impl="pallas")
+        gen = torch.Generator().manual_seed(seed)
+        if arch == VLM:
+            cfg = cfg.replace(num_patches=VLM_PARITY_PATCHES)
+            b, s = 1, VLM_PARITY_TEXT
+        else:
+            b, s = MOE_PARITY_BATCH, MOE_PARITY_PROMPT
+        bundle = build(cfg)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
+                                         generator=gen)}
+        for name, (shape, dtype) in bundle.extra_inputs(b).items():
+            batch[name] = torch.randn(shape, generator=gen, dtype=dtype)
+        params, _, _, _ = card_params(torch, cfg, seed)
+        params = fan_in_scaled(cfg, params)
+        max_len = cfg.num_patches + batch["tokens"].shape[1] \
+            + PARITY_FAMILY_NEW
+        runs, secs, launched, router_gap = {}, {}, {}, {}
+        mlp_mod.top_k_stable = watched_top_k
+        try:
+            for dev in ("cuda", "cpu"):
+                p = params if dev == "cuda" else map_tree(
+                    lambda t: t.cpu(), params)
+                zero_counters((da_ops.decode_attention,
+                               fa_ops.flash_attention_fwd))
+                gaps.clear()
+                t = time.perf_counter()
+                runs[dev] = greedy_margins(torch, bundle, p, batch,
+                                           PARITY_FAMILY_NEW, max_len, dev)
+                secs[dev] = time.perf_counter() - t
+                launched[dev] = {
+                    "decode_attention": da_ops.decode_attention.launches,
+                    "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+                router_gap[dev] = min(gaps) if gaps else None
+                del p
+        finally:
+            mlp_mod.top_k_stable = top_k
+        del params
+        card, cpu = runs["cuda"][0], runs["cpu"][0]
+        if not torch.equal(card, cpu):
+            row, step = (card != cpu).nonzero()[0].tolist()
+            raise SmokeFailure(
+                f"{arch} f32 greedy tokens differ: card {card.tolist()} cpu "
+                f"{cpu.tolist()}; first at row {row} step {step}, where the "
+                f"CPU's top-2 logit margin is "
+                f"{float(runs['cpu'][1][row, step]):.3e}")
+        layers = cfg.num_layers
+        want = {"decode_attention": layers * (PARITY_FAMILY_NEW - 1),
+                "flash_attention_fwd": layers}
+        check(launched["cuda"] == want,
+              f"{arch} parity launches {launched['cuda']} != {want}")
+        check(launched["cpu"] == {k: 0 for k in want},
+              f"{arch} parity: the CPU run launched {launched['cpu']}")
+        margin = float(runs["cpu"][1].min())
+        result[arch] = {"layers": layers, "tokens": card.tolist(),
+                        "min_logit_margin": margin,
+                        "min_router_gap": router_gap, "seconds": secs}
+        print(f"{arch} parity f32 ({layers} layers, tokens "
+              f"{tuple(batch['tokens'].shape)}"
+              + (f", {cfg.num_patches} patches" if arch == VLM else "")
+              + f"): card and cpu tokens identical: {card.tolist()}; "
+              f"smallest top-2 margin {margin:.3e}; smallest router gap "
+              f"{router_gap}")
+    return result
+
+
+def family_train_phase(torch, fa_ops) -> dict:
+    """One ``GPUTrainJob`` per family through a ``Runner`` at full width,
+    2 layers (the card's memory: fp32 parameters, gradients and AdamW
+    moments): finished ok, 3 finite losses, every flash launch (forward,
+    its remat recompute, dq and dk/dv) on the tensor-core bodies, and the
+    MoE's aux loss positive and finite at every layer call."""
+    import os
+    import tempfile
+
+    from repro_torch.caching import disable_caching
+    from repro_torch.calcjobs import GPUTrainJob
+    from repro_torch.configs import get_config
+    from repro_torch.core import Dict
+    from repro_torch.engine.runner import Runner, set_default_runner
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.provenance.store import configure_store
+
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    moe_forward = mlp_mod.moe_forward
+    aux_seen = []
+
+    def watched_moe(cfg, p, x):
+        out, aux = moe_forward(cfg, p, x)
+        aux_seen.append(aux.detach())
+        return out, aux
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="family_", dir=ROOT / "build")
+    result = {}
+    with disable_caching():
+        for arch, config in FAMILY_JOBS.items():
+            card = free_card(torch)
+            store = configure_store(os.path.join(tmp.name, f"{arch}.db"))
+            runner = Runner(store=store)
+            set_default_runner(runner)
+            zero_counters(counters)
+            aux_seen.clear()
+            mlp_mod.moe_forward = watched_moe
+            try:
+                t = time.perf_counter()
+                outputs, proc = runner.run(GPUTrainJob,
+                                           {"config": Dict(config)})
+                wall = time.perf_counter() - t
+            finally:
+                mlp_mod.moe_forward = moe_forward
+            launches = dict(zip(FLASH_NAMES, (c.launches for c in counters)))
+            tc = [c.tensor_core_launches for c in counters]
+            check(proc.is_finished_ok, f"{arch} train job: {proc.exit_code}; "
+                                       f"{job_reasons(runner)}")
+            losses = outputs["metrics"].value["losses"]
+            check(len(losses) == FAMILY_TRAIN_STEPS
+                  and all(math.isfinite(x) for x in losses),
+                  f"{arch} train losses {losses}")
+            steps, layers = FAMILY_TRAIN_STEPS, FAMILY_TRAIN_LAYERS
+            want = {"flash_attention_fwd": 2 * layers * steps,
+                    "flash_attention_bwd_dq": layers * steps,
+                    "flash_attention_bwd_dkv": layers * steps}
+            check(launches == want, f"{arch} train launches {launches} != "
+                                    f"{want}")
+            check(tc == list(launches.values()),
+                  f"{arch} train tensor-core launches {tc} of {launches}")
+            # each MoE layer's forward, then its recompute in the backward
+            # (which stops once it has what the backward needs)
+            aux = [float(a) for a in aux_seen]
+            if arch == MOE:
+                check(len(aux) >= layers * steps
+                      and all(math.isfinite(a) and a > 0 for a in aux),
+                      f"{arch} aux losses {aux}")
+            else:
+                check(not aux, f"{arch} ran a MoE layer")
+            result[arch] = {
+                "layers": layers, "cut": f"depth {layers} of "
+                f"{get_config(arch).num_layers} layers (the card's memory: "
+                "fp32 parameters, gradients and AdamW moments)",
+                "batch": config["batch"], "seq": config["seq"],
+                "losses": losses, "aux_loss": aux, "wall_s": wall,
+                "launches": launches, "tensor_core_launches": tc,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "card_before": card}
+            print(f"family train {arch}: losses {losses}, wall {wall:.3f} s, "
+                  f"peak {result[arch]['peak_memory_bytes']} bytes, launches "
+                  f"{launches}" + (f", aux min {min(aux):.6f} max "
+                                   f"{max(aux):.6f}" if aux else ""))
+            set_default_runner(None)
+            store.close()
+            configure_store(":memory:")
+            del outputs, proc, runner, store
+    tmp.cleanup()
+    print("family train: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2976,25 +3567,41 @@ def main() -> int:
     engine17 = engine_phase_17(torch, fa_ops,
                                workflow["in_process"]["losses"])
     pretrain = engine17["in_process"]["launches"]
+    moe = moe_serve_phase(torch, da_ops, fa_ops)
+    vlm = vlm_serve_phase(torch, da_ops, fa_ops)
+    family_parity = family_parity_phase(torch, da_ops, fa_ops)
+    family_train = family_train_phase(torch, fa_ops)
+
+    def trained_families(name):
+        return sum(family_train[a]["launches"][name] for a in FAMILY_JOBS)
+
     # launches on each main path (serving, training, hybrid and ssm
-    # serving, the engine, the calcjob, the pretraining chain), each
-    # counted from 0
+    # serving, the engine, the calcjob, the pretraining chain, MoE and
+    # VLM serving, the families' training), each counted from 0
     by_path = {
-        "decode_attention": {"serve": served["decode_launches"],
-                             "engine": engine["decode_launches"]},
-        "flash_attention_fwd": {"serve": served["flash_launches"],
-                                "train": trained["launches"][
-                                    "flash_attention_fwd"],
-                                "calcjob": calcjob["flash_attention_fwd"],
-                                "pretrain": pretrain["flash_attention_fwd"]},
-        "flash_attention_bwd_dq": {"train": trained["launches"][
-            "flash_attention_bwd_dq"],
+        "decode_attention": {
+            "serve": served["decode_launches"],
+            "engine": engine["decode_launches"],
+            "moe_serve": moe["launches"]["decode_attention"],
+            "vlm_serve": vlm["launches"]["decode_attention"]},
+        "flash_attention_fwd": {
+            "serve": served["flash_launches"],
+            "train": trained["launches"]["flash_attention_fwd"],
+            "calcjob": calcjob["flash_attention_fwd"],
+            "pretrain": pretrain["flash_attention_fwd"],
+            "moe_serve": moe["launches"]["flash_attention_fwd"],
+            "vlm_serve": vlm["launches"]["flash_attention_fwd"],
+            "family_train": trained_families("flash_attention_fwd")},
+        "flash_attention_bwd_dq": {
+            "train": trained["launches"]["flash_attention_bwd_dq"],
             "calcjob": calcjob["flash_attention_bwd_dq"],
-            "pretrain": pretrain["flash_attention_bwd_dq"]},
-        "flash_attention_bwd_dkv": {"train": trained["launches"][
-            "flash_attention_bwd_dkv"],
+            "pretrain": pretrain["flash_attention_bwd_dq"],
+            "family_train": trained_families("flash_attention_bwd_dq")},
+        "flash_attention_bwd_dkv": {
+            "train": trained["launches"]["flash_attention_bwd_dkv"],
             "calcjob": calcjob["flash_attention_bwd_dkv"],
-            "pretrain": pretrain["flash_attention_bwd_dkv"]},
+            "pretrain": pretrain["flash_attention_bwd_dkv"],
+            "family_train": trained_families("flash_attention_bwd_dkv")},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
         "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
@@ -3014,7 +3621,9 @@ def main() -> int:
          "train_parity": train_parity, "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
          "ssm_parity": ssm_parity, "engine": engine,
-         "workflow": workflow, "engine17": engine17}, indent=1))
+         "workflow": workflow, "engine17": engine17, "moe_serve": moe,
+         "vlm_serve": vlm, "family_parity": family_parity,
+         "family_train": family_train}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

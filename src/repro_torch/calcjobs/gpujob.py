@@ -64,11 +64,13 @@ def gpu_train_executable(input_files: dict[str, bytes]) -> dict[str, bytes]:
     for _ in range(steps):
         tokens = data_rng.integers(0, cfg.vocab_size, (b, s + 1),
                                    dtype=np.int32)
-        # the VLM and audio families' extra inputs wait for those families
-        # (``build`` raises for them)
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in (("tokens", tokens[:, :-1]),
                               ("labels", tokens[:, 1:]))}
+        # a VLM's patches are zeros, as the reference's recipe feeds them
+        # (the audio family's frames wait for that family)
+        for name, (shape, dtype) in bundle.extra_inputs(b).items():
+            batch[name] = torch.zeros(shape, dtype=dtype, device=device)
         state, metrics = step_fn(state, batch)
         losses.append(metrics["loss"])      # read once, after the last step
     losses = torch.stack(losses).tolist()

@@ -30,6 +30,14 @@ its victim among the workers that hold leases, where there are any, and
 the harness reaps what it killed, so the supervisor's next pass counts
 the restart. The loop wakes at each scheduled fault's offset, not at the
 next quarter-second tick after it.
+
+These four departures from ``repro.chaos.harness`` are approved; each is
+needed because this package's workers take seconds to import torch and
+start CUDA. The scenarios are the reference's but for one field: the
+``pause`` of ``fleet-churn`` (1.0 s, so its calcs outlast the kill
+window) and of ``broker-kill9`` (0.4 s, so its calcs outlast the broker
+kill at 1.0 s). Their calcs drained before the first fault fired at the
+reference's pauses once the clock starts at the workers' connect.
 """
 
 from __future__ import annotations
@@ -212,7 +220,7 @@ SCENARIOS: dict[str, Scenario] = {s.name: s for s in [
                     "supervisor restarts it on the same port, the "
                     "replacement rebuilds leases/tasks from sqlite, "
                     "workers reconnect and re-own — exactly-once holds.",
-        n=6, steps=5, pause=0.15, workers=2,
+        n=6, steps=5, pause=0.4, workers=2,
         broker_kill_at=1.0,
         expect_broker_restarts=True),
     Scenario(
@@ -220,7 +228,7 @@ SCENARIOS: dict[str, Scenario] = {s.name: s for s in [
         description="Rolling SIGKILLs across a 3-worker fleet under "
                     "load; leases expire, epochs advance, replacements "
                     "resume from checkpoints — no duplicated outputs.",
-        n=8, steps=5, pause=0.12, workers=3,
+        n=8, steps=5, pause=1.0, workers=3,
         sigkills=5, sigkill_window=(0.5, 4.0),
         expect_restarts=True),
 ]}

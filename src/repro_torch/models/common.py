@@ -218,30 +218,10 @@ def tree_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return out
 
 
-def init_params(generator: torch.Generator, spec_tree: SpecTree,
-                dtype: torch.dtype, device: torch.device) -> ParamTree:
-    """Materialise a parameter tree by the reference's init rules.
-
-    Values are drawn on the CPU from ``generator`` (a CPU generator) in
-    sorted-key order and then moved, so one seed gives the same parameters
-    on every device."""
-
-    def draw(s: ParamSpec) -> torch.Tensor:
-        if s.init == "zeros":
-            t = torch.zeros(s.shape, dtype=dtype)
-        elif s.init == "ones":
-            t = torch.ones(s.shape, dtype=dtype)
-        elif s.init == "rglru_lambda":
-            u = 0.9 + 0.099 * torch.rand(s.shape, generator=generator,
-                                         dtype=dtype)
-            a2 = u ** (1.0 / 8.0)
-            t = torch.log(a2 / (1.0 - a2))
-        else:
-            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-            std = s.scale / math.sqrt(max(1, fan_in))
-            t = std * torch.randn(s.shape, generator=generator, dtype=dtype)
-        return t.to(device)
-
+def _draw_tree(spec_tree: SpecTree,
+               draw: Callable[[ParamSpec], torch.Tensor]) -> ParamTree:
+    """``spec_tree`` with every spec replaced by ``draw(spec)``, the leaves
+    drawn in sorted-key order (the reference's flattening order)."""
     drawn = {path: draw(s) for path, s in tree_leaves(spec_tree)}
 
     def rebuild(tree, prefix=""):
@@ -252,6 +232,76 @@ def init_params(generator: torch.Generator, spec_tree: SpecTree,
         return drawn[prefix.rstrip("/")]
 
     return rebuild(spec_tree)
+
+
+def _init_rule(s: ParamSpec) -> tuple[str, float]:
+    """The reference's init rule for ``s``, which both draw routes follow:
+    its kind ("zeros", "ones", "rglru_lambda" or "normal") and, for a
+    normal leaf, its std (``s.scale`` over the square root of the fan-in,
+    taken from shape[-2])."""
+    if s.init in ("zeros", "ones", "rglru_lambda"):
+        return s.init, 0.0
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    return "normal", s.scale / math.sqrt(max(1, fan_in))
+
+
+def _rglru_lambda(r: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU's Lambda from uniform draws ``r`` in [0, 1): a^(1/8)'s
+    logit with a uniform in [0.9, 0.999)."""
+    a2 = (0.9 + 0.099 * r) ** (1.0 / 8.0)
+    return torch.log(a2 / (1.0 - a2))
+
+
+def init_params(generator: torch.Generator, spec_tree: SpecTree,
+                dtype: torch.dtype, device: torch.device) -> ParamTree:
+    """Materialise a parameter tree by the reference's init rules.
+
+    Values are drawn on the CPU from ``generator`` (a CPU generator) in
+    sorted-key order and then moved, so one seed gives the same parameters
+    on every device."""
+
+    def draw(s: ParamSpec) -> torch.Tensor:
+        kind, std = _init_rule(s)
+        if kind == "zeros":
+            t = torch.zeros(s.shape, dtype=dtype)
+        elif kind == "ones":
+            t = torch.ones(s.shape, dtype=dtype)
+        elif kind == "rglru_lambda":
+            t = _rglru_lambda(torch.rand(s.shape, generator=generator,
+                                         dtype=dtype))
+        else:
+            t = std * torch.randn(s.shape, generator=generator, dtype=dtype)
+        return t.to(device)
+
+    return _draw_tree(spec_tree, draw)
+
+
+def init_params_on_device(generator: torch.Generator, spec_tree: SpecTree,
+                          dtype: torch.dtype) -> ParamTree:
+    """Materialise a parameter tree by the reference's init rules, each leaf
+    drawn in ``dtype`` on ``generator``'s device, in sorted-key order.
+
+    A normal leaf is filled in place (``normal_``), so a bf16 tree on the
+    card never has an fp32 or host copy: a full-width model's largest leaf
+    is drawn where it lives. The numbers differ from :func:`init_params`'s
+    (another generator), the rules do not."""
+    device = generator.device
+
+    def draw(s: ParamSpec) -> torch.Tensor:
+        kind, std = _init_rule(s)
+        if kind == "zeros":
+            return torch.zeros(s.shape, dtype=dtype, device=device)
+        if kind == "ones":
+            return torch.ones(s.shape, dtype=dtype, device=device)
+        if kind == "rglru_lambda":
+            # a small leaf, drawn in fp32: log(a / (1 - a)) near a = 1
+            # loses every digit in bf16
+            return _rglru_lambda(torch.rand(s.shape, generator=generator,
+                                            device=device)).to(dtype)
+        return torch.empty(s.shape, dtype=dtype, device=device).normal_(
+            0.0, std, generator=generator)
+
+    return _draw_tree(spec_tree, draw)
 
 
 #: leaves the reference keeps in fp32 at use: norm weights and biases go

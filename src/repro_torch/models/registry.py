@@ -11,9 +11,10 @@ entry points the scheduler drives:
     init_params(generator, device)          -> parameter dict
     loss_fn(params, batch)                  -> (loss, metrics)
 
-Dense LMs, the hybrid (recurrentgemma / Griffin) and the ssm family
-(xLSTM) are built here; the audio family, MoE and the VLM prefix come
-with their slices.
+The LM families (dense, MoE, VLM), the hybrid (recurrentgemma / Griffin)
+and the ssm family (xLSTM) are built here; the audio family comes with
+its slice. A VLM batch carries ``patches`` (B, num_patches, d_model)
+beside its tokens (``extra_inputs``, ``batch_shapes``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.models import rglru, transformer, xlstm
 from repro_torch.models.common import (ModelConfig, init_params,
-                                       resolve_device)
+                                       init_params_on_device, resolve_device)
 
 LM_FAMILIES = ("dense", "moe", "vlm")
 
@@ -48,6 +49,37 @@ class ModelBundle:
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
         return init_params(generator, self.specs, self.cfg.weight_dtype, dev)
+
+    def init_params_on_device(self, generator: torch.Generator) -> Any:
+        """Parameters in the config's ``param_dtype``, each leaf drawn where
+        ``generator`` lives (a ``torch.Generator(device="cuda")`` draws on
+        the card): the route for full-width models, with no copy of the
+        tree on the host and none in fp32 when the dtype is bf16. Same
+        init rules, other numbers than :meth:`init_params`."""
+        return init_params_on_device(generator, self.specs,
+                                     self.cfg.weight_dtype)
+
+    def extra_inputs(self, batch_size: int
+                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """The family's inputs beside its tokens, name -> (shape, dtype): a
+        VLM's ``patches`` (B, num_patches, d_model); none for the others."""
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return {"patches": ((batch_size, cfg.num_patches, cfg.d_model),
+                                cfg.activation_dtype)}
+        return {}
+
+    def batch_shapes(self, batch_size: int, seq_len: int
+                     ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """A training or prefill batch's inputs, name -> (shape, dtype), as
+        the reference's ``batch_struct`` gives them: a VLM's ``seq_len``
+        spans its patches and its text (at least 16 text tokens)."""
+        extra = self.extra_inputs(batch_size)
+        s = seq_len
+        if "patches" in extra:
+            s = max(s - self.cfg.num_patches, 16)
+        return {"tokens": ((batch_size, s), torch.int32),
+                "labels": ((batch_size, s), torch.int32), **extra}
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: str | torch.device | None = None) -> Any:

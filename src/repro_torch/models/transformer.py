@@ -1,10 +1,11 @@
-"""Decoder-only LM: the dense family.
+"""Decoder-only LM covering the dense, MoE and VLM families.
 
 Counterpart of ``repro.models.transformer``. The layer stack is a Python
 loop over parameters stacked along a leading ``layers`` dimension (the
 reference scans over it), each layer under the config's remat policy.
-The KV cache is updated in place. MoE layers and the VLM patch prefix wait
-for later slices of the port.
+The KV cache is updated in place. A MoE layer adds its load-balancing
+loss to the stack's aux loss; the VLM prepends its projected patch
+embeddings to the text and takes logits on the text positions only.
 """
 
 from __future__ import annotations
@@ -28,25 +29,21 @@ from repro_torch.models.common import (
 )
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family waits for a later slice of the "
-            "PyTorch port; this one runs the dense LM")
-
-
 # ---------------------------------------------------------------------------
 # Parameter specs
 # ---------------------------------------------------------------------------
 
 def make_layer_specs(cfg: ModelConfig) -> dict[str, Any]:
-    _require_dense(cfg)
-    return {
+    specs: dict[str, Any] = {
         "ln_attn": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "ln_mlp": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
         "attn": attn.make_attn_specs(cfg),
-        "mlp": mlp_mod.make_mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        specs["moe"] = mlp_mod.make_moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_mod.make_mlp_specs(cfg)
+    return specs
 
 
 def make_lm_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -58,6 +55,9 @@ def make_lm_specs(cfg: ModelConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, vp), ("embed", "vocab"))
+    if cfg.family == "vlm":
+        specs["mm_projector"] = ParamSpec(
+            (cfg.d_model, cfg.d_model), ("embed", "embed_out"))
     return specs
 
 
@@ -85,11 +85,17 @@ def lm_logits(cfg: ModelConfig, params: dict[str, Any],
     return logits
 
 
-def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any],
-                  h: torch.Tensor) -> torch.Tensor:
+def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any], h: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The MLP (or MoE) half of a block: (h + its residual, the MoE's aux
+    loss, None for a dense MLP)."""
     hn = rms_norm(h, lp["ln_mlp"], cfg.norm_eps)
-    return h + mul_scalar(mlp_mod.mlp_forward(cfg, lp["mlp"], hn),
-                          cfg.residual_multiplier)
+    aux = None
+    if cfg.family == "moe":
+        m, aux = mlp_mod.moe_forward(cfg, lp["moe"], hn)
+    else:
+        m = mlp_mod.mlp_forward(cfg, lp["mlp"], hn)
+    return h + mul_scalar(m, cfg.residual_multiplier), aux
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +103,10 @@ def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any],
 # ---------------------------------------------------------------------------
 
 def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """Pre-norm block."""
+                   positions: torch.Tensor) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Pre-norm block. Returns (x, the MoE's aux loss, None for a dense
+    MLP)."""
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
     x = x + mul_scalar(attn.attn_forward(cfg, lp["attn"], h, positions,
                                          causal=True),
@@ -109,28 +117,60 @@ def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
 def _stack_forward(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
-    """Every layer, each under ``cfg.remat_policy``. Returns (x, aux_loss);
-    dense layers add no auxiliary loss."""
+    """Every layer, each under ``cfg.remat_policy`` (a MoE layer's
+    dispatch one-hots are recomputed, never kept, under the policies that
+    save no activations). Returns (x, the layers' aux losses summed, zero
+    for a dense stack, whose layers add nothing)."""
     body = maybe_remat(
         lambda h, lp: _layer_forward(cfg, lp, h, positions),
         cfg.remat_policy)
+    aux = None
     for i in range(cfg.num_layers):
-        x = body(x, layer_slice(params["layers"], i))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = body(x, layer_slice(params["layers"], i))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
 # Full forward / loss
 # ---------------------------------------------------------------------------
 
-def lm_forward(cfg: ModelConfig, params: dict[str, Any],
-               batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    """Logits over the whole sequence, (B, S, Vp)."""
-    _require_dense(cfg)
+def _maybe_prepend_patches(cfg: ModelConfig, params: dict[str, Any],
+                           x: torch.Tensor, batch: dict[str, torch.Tensor]
+                           ) -> torch.Tensor:
+    """VLM family: prepend the projected patch embeddings (B, P, D) to the
+    text's (the image frontend is the reference's stub: the batch carries
+    precomputed patch embeddings)."""
+    if cfg.family != "vlm":
+        return x
+    patches = batch["patches"].to(x.dtype)
+    proj = patches @ params["mm_projector"].to(x.dtype)
+    return torch.cat([proj, x], dim=1)
+
+
+def _embed_and_stack(cfg: ModelConfig, params: dict[str, Any],
+                     batch: dict[str, torch.Tensor]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embeddings (the VLM's patches first) through every layer; returns
+    the text positions' hidden states and the aux loss."""
     x = embed_tokens(cfg, params, batch["tokens"])
+    x = _maybe_prepend_patches(cfg, params, x, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _stack_forward(cfg, params, x, positions)
-    return lm_logits(cfg, params, x)
+    x, aux = _stack_forward(cfg, params, x, positions)
+    if cfg.family == "vlm":
+        x = x[:, cfg.num_patches:]                       # loss on text only
+    return x, aux
+
+
+def lm_forward(cfg: ModelConfig, params: dict[str, Any],
+               batch: dict[str, torch.Tensor]
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits over the text region (B, S, Vp), aux_loss)."""
+    x, aux = _embed_and_stack(cfg, params, batch)
+    return lm_logits(cfg, params, x), aux
 
 
 def _chunked_ce(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
@@ -165,13 +205,10 @@ def lm_loss(cfg: ModelConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor]
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(CE + 0.01 aux, {ce_loss, aux_loss, tokens}) over ``batch``'s
-    tokens, labels and optional mask."""
-    _require_dense(cfg)
+    tokens, labels and optional mask (and, for the VLM, patches)."""
     labels = batch["labels"]
     mask = batch.get("mask")
-    x = embed_tokens(cfg, params, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _stack_forward(cfg, params, x, positions)
+    x, aux = _embed_and_stack(cfg, params, batch)
     if cfg.ce_chunk:
         loss, denom = _chunked_ce(cfg, params, x, labels, mask)
     else:
@@ -194,18 +231,21 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
 def lm_prefill(cfg: ModelConfig, params: dict[str, Any],
                batch: dict[str, torch.Tensor], cache: dict[str, Any]
                ) -> tuple[torch.Tensor, dict[str, Any]]:
-    """Run the prompt through the stack, filling ``cache`` in place.
+    """Run the prompt (after the VLM's patches) through the stack, filling
+    ``cache`` in place: positions 0 .. P + S - 1 for a VLM, so its decode
+    positions start at P + S.
 
     Returns (last-position logits (B, 1, Vp), cache)."""
-    _require_dense(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
+    x = _maybe_prepend_patches(cfg, params, x, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         a, _ = attn.prefill_into_cache(cfg, lp["attn"], hn, positions,
                                        layer_slice(cache, i))
-        x = _mlp_residual(cfg, lp, x + mul_scalar(a, cfg.residual_multiplier))
+        x, _ = _mlp_residual(cfg, lp,
+                             x + mul_scalar(a, cfg.residual_multiplier))
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
@@ -214,12 +254,12 @@ def lm_decode_step(cfg: ModelConfig, params: dict[str, Any],
                    pos: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:
     """One decode step. tokens: (B, 1); pos: scalar or (B,) positions.
     Writes the new k/v into ``cache`` in place."""
-    _require_dense(cfg)
     x = embed_tokens(cfg, params, tokens)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
         a, _ = attn.attn_decode(cfg, lp["attn"], hn, layer_slice(cache, i),
                                 pos)
-        x = _mlp_residual(cfg, lp, x + mul_scalar(a, cfg.residual_multiplier))
+        x, _ = _mlp_residual(cfg, lp,
+                             x + mul_scalar(a, cfg.residual_multiplier))
     return lm_logits(cfg, params, x), cache

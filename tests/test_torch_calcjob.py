@@ -16,6 +16,7 @@ import asyncio
 import contextlib
 import importlib
 import json
+import math
 
 import numpy as np
 import pytest
@@ -613,7 +614,8 @@ def test_backoff_failure_counts_parity_with_reference():
 
 def _direct_losses(config: dict) -> list[float]:
     """The job's recipe written out: reduced config, the train step on the
-    CPU, batches drawn from ``default_rng(seed)``."""
+    CPU, batches drawn from ``default_rng(seed)``; a VLM's patches are
+    zeros, as ``repro/calcjobs/tpujob.py`` makes them."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.registry import build
     from repro_torch.training.optim import OptimConfig
@@ -633,9 +635,11 @@ def _direct_losses(config: dict) -> list[float]:
     losses = []
     for _ in range(steps):
         tokens = rng.integers(0, cfg.vocab_size, (b, s + 1), dtype=np.int32)
-        state, metrics = step_fn(state, {
-            "tokens": torch.from_numpy(tokens[:, :-1].copy()),
-            "labels": torch.from_numpy(tokens[:, 1:].copy())})
+        batch = {"tokens": torch.from_numpy(tokens[:, :-1].copy()),
+                 "labels": torch.from_numpy(tokens[:, 1:].copy())}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros(b, cfg.num_patches, cfg.d_model)
+        state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
     return losses
 
@@ -645,6 +649,66 @@ def test_job_losses_equal_direct_loop_to_the_bit(store, runner):
     outputs, proc = runner.run(GPUTrainJob, {"config": Dict(config)})
     assert proc.is_finished_ok
     assert outputs["metrics"].value["losses"] == _direct_losses(config)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "moonshot-v1-16b-a3b"])
+def test_family_job_losses_equal_the_recipe(store, runner, arch):
+    """A VLM job feeds the model zero patches beside its tokens (the
+    reference's recipe), a MoE job trains with its aux loss: each finishes
+    ok with the losses of the recipe run directly, to the bit."""
+    config = {**SMALL, "arch": arch, "steps": 2, "seed": 5}
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(config)})
+    assert proc.is_finished_ok
+    losses = outputs["metrics"].value["losses"]
+    assert losses == _direct_losses(config)
+    assert all(math.isfinite(x) for x in losses)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "moonshot-v1-16b-a3b"])
+def test_family_job_losses_equal_the_reference_recipe(store, runner, arch,
+                                                      monkeypatch):
+    """The port's job against ``tpujob.py``'s recipe, run as the reference
+    runs it (its build, its zero patches, its train step), from the port
+    job's initial parameters bridged to the reference: the losses agree
+    at 1e-4 relative. In float32 (the ``overrides`` both recipes apply),
+    so that the bound tests the batch layout and the aux loss, not bf16
+    rounding."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.calcjobs.tpujob import tpu_train_executable
+    from repro.training import optim as j_optim
+    from repro.training import train_step as j_train_step
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.convert import params_to_numpy
+    from repro_torch.models.registry import build
+    from repro_torch.training.train_step import TrainConfig, init_train_state
+
+    over = {"dtype": "float32", "kv_cache_dtype": "float32"}
+    config = {**SMALL, "arch": arch, "steps": 2, "seed": 5,
+              "overrides": over}
+    outputs, proc = runner.run(GPUTrainJob, {"config": Dict(config)})
+    assert proc.is_finished_ok
+    losses = outputs["metrics"].value["losses"]
+
+    bundle = build(reduced_config(arch).replace(**over))
+    bridged = jax.tree.map(jnp.asarray, params_to_numpy(
+        init_train_state(bundle, TrainConfig(), 5, "cpu")["params"]))
+    reference_init = j_train_step.init_train_state
+
+    def init_from_port(j_bundle, tcfg, rng):
+        state = reference_init(j_bundle, tcfg, rng)
+        assert (jax.tree.map(jnp.shape, state["params"])
+                == jax.tree.map(jnp.shape, bridged))
+        return {**state, "params": bridged,
+                "opt": j_optim.opt_init(tcfg.optim, bridged)}
+
+    monkeypatch.setattr(j_train_step, "init_train_state", init_from_port)
+    ref_config = {k: v for k, v in config.items() if k != "device"}
+    want = json.loads(tpu_train_executable(
+        {"config.json": json.dumps(ref_config).encode()})["metrics.json"])
+    assert len(losses) == len(want["losses"]) == 2
+    np.testing.assert_allclose(losses, want["losses"], rtol=1e-4)
 
 
 def test_job_device_is_part_of_the_fingerprint(store, runner):

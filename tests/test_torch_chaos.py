@@ -8,7 +8,10 @@ and seeds. A worker of this package imports torch before it connects, so
 the harness starts a scenario's clock once every worker has connected;
 two cases hold that, and that ``kill9-midstep`` kills a worker holding
 leases (its tasks are delivered again). Every scenario equals the
-reference's, field by field.
+reference's, field by field, but the pause of ``fleet-churn`` and
+``broker-kill9``, whose calcs must outlast their faults: two cases hold
+that a ``fleet-churn`` kill lands on a lease holder and that the broker
+dies before ``broker-kill9``'s last calc finishes.
 """
 
 import dataclasses
@@ -325,13 +328,28 @@ def test_invariants_pass_on_clean_run(store, runner):
     assert report.ok, report.summary()
 
 
+#: scenarios whose calcs take longer here, and the least run time
+#: (steps x pause, seconds) each calc must have: past fleet-churn's kill
+#: window (0.5-4.0 s) and past broker-kill9's broker kill (1.0 s)
+LONGER_PAUSE = {"fleet-churn": 5.0, "broker-kill9": 2.0}
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_scenario_equals_the_reference(name):
+    """Every scenario is the reference's, field by field, but the pause of
+    the two in ``LONGER_PAUSE``: once the clock starts at the workers'
+    connect, their calcs drained at the reference's pause before the
+    first fault fired."""
     from repro.chaos.harness import SCENARIOS as REFERENCE
 
     assert sorted(SCENARIOS) == sorted(REFERENCE)
-    assert (dataclasses.asdict(SCENARIOS[name])
-            == dataclasses.asdict(REFERENCE[name]))
+    mine = dataclasses.asdict(SCENARIOS[name])
+    ref = dataclasses.asdict(REFERENCE[name])
+    if name in LONGER_PAUSE:
+        sc = SCENARIOS[name]
+        assert sc.steps * sc.pause >= LONGER_PAUSE[name]
+        assert mine.pop("pause") != ref.pop("pause")
+    assert mine == ref
 
 
 # ---------------------------------------------------------------------------
@@ -394,3 +412,52 @@ def test_kill9_midstep_kills_a_worker_holding_leases(tmp_path):
     # a killed lease holder's tasks go out again
     assert stats["tasks_delivered"] - stats["tasks_enqueued"] >= 1, stats
     assert stats["leases_expired"] >= 1, stats
+
+
+@pytest.mark.slow
+def test_fleet_churn_kills_land_on_lease_holders(tmp_path):
+    result = run_scenario("fleet-churn", seed=1,
+                          workdir=str(tmp_path / "churn"))
+    assert result.ok, result.summary()
+    stats = result.broker_stats
+    # at least one kill landed on a worker holding work: its tasks went
+    # out again
+    assert stats["tasks_delivered"] - stats["tasks_enqueued"] >= 1, stats
+
+
+@pytest.mark.slow
+def test_broker_kill9_fires_before_the_last_calc_finishes(tmp_path,
+                                                         monkeypatch):
+    import os
+    import signal
+    import sqlite3
+
+    kills = []
+    kill = os.kill
+
+    def watched_kill(pid, sig):
+        if sig == signal.SIGKILL:
+            kills.append(time.time())
+        return kill(pid, sig)
+
+    monkeypatch.setattr(os, "kill", watched_kill)
+    workdir = tmp_path / "broker"
+    result = run_scenario("broker-kill9", seed=1, workdir=str(workdir))
+    assert result.ok, result.summary()
+    assert result.broker_restarts >= 1
+    # the scenario schedules no worker kill: the first SIGKILL is the
+    # broker's
+    broker_killed_at = kills[0]
+    conn = sqlite3.connect(str(workdir / "provenance.db"))
+    try:
+        rows = conn.execute(
+            "SELECT attributes FROM nodes WHERE pk IN (%s)"
+            % ",".join("?" * len(result.states)),
+            list(result.states)).fetchall()
+    finally:
+        conn.close()
+    finished = [t for (attrs,) in rows
+                for state, t in json.loads(attrs)["state_history"]
+                if state == "finished"]
+    assert len(finished) == SCENARIOS["broker-kill9"].n
+    assert broker_killed_at < max(finished)

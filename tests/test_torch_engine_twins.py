@@ -16,7 +16,9 @@ top-level names are the reference's plus the ones listed. The departures:
   SIGKILLs (``_reap``) and supervises once more after its loop; the loop
   wakes at each scheduled fault's offset (``_sleep_until_next``), not at
   the next quarter-second tick; ``ScenarioResult.connect_wait`` records
-  the wait.
+  the wait. ``broker-kill9`` and ``fleet-churn`` take a longer ``pause``
+  (``tests/test_torch_chaos.py`` holds every other field to the
+  reference's). These departures are approved.
 * ``cli.py``: bare class names resolve in ``repro_torch.core`` and
   ``repro_torch.calcjobs``, a ``repro``/``repro.*`` class path or resolver
   module is refused with the CLI's error exit, the usage text names
@@ -45,6 +47,8 @@ TWINS = {
         "        from repro.core.process import Process",
     ], set()),
     "chaos/harness.py": ([
+        "        n=6, steps=5, pause=0.15, workers=2,",
+        "        n=8, steps=5, pause=0.12, workers=3,",
         "    t0 = time.time()",
         "        deadline = t0 + sc.timeout",
         "                    os.kill(live[victim % len(live)], "

@@ -76,7 +76,9 @@ def test_config_matches_reference_field_for_field(arch, reduced):
     assert str(mine.activation_dtype).endswith(ref.dtype)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + ["moonshot-v1-16b-a3b",
+                                                "grok-1-314b",
+                                                "llava-next-34b"])
 def test_params_bridge_round_trips_leaf_for_leaf(arch):
     (_, jb, jp), (_, b, p) = _pair_models(arch)
     ref = _np_tree(jp)
@@ -153,30 +155,66 @@ def test_lm_forward_matches(arch, attn_impl):
     (jcfg, _, jp), (cfg, _, p) = _pair_models(arch, attn_impl=attn_impl)
     tokens = np.random.default_rng(2).integers(1, 500, (2, 12))
     want, _ = j_tf.lm_forward(jcfg, jp, {"tokens": jnp.asarray(tokens)})
-    got = tf.lm_forward(cfg, p, {"tokens": torch.from_numpy(tokens)})
+    got, aux = tf.lm_forward(cfg, p, {"tokens": torch.from_numpy(tokens)})
     _close(got, want)
+    assert float(aux) == 0.0             # dense layers add no aux loss
 
 
-@pytest.mark.parametrize("attn_impl", ["direct", "pallas"])
-@pytest.mark.parametrize("decode_impl", ["direct", "pallas"])
-@pytest.mark.parametrize("kv_cache_dtype", ["bfloat16", "int8"])
-@pytest.mark.parametrize("per_row", [False, True])
-def test_prefill_and_decode_match(attn_impl, decode_impl, kv_cache_dtype,
-                                  per_row):
+def _prompt_batch(cfg, prompt, rng):
+    """numpy inputs of a prefill: the prompt, and a VLM's patch
+    embeddings drawn from ``rng``."""
+    batch = {"tokens": prompt}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            0, 1, (prompt.shape[0], cfg.num_patches, cfg.d_model)
+        ).astype(np.float32)
+    return batch
+
+
+#: the reduced MoE and VLM beside the dense archs
+LM_ARCHS = DENSE_ARCHS + ["moonshot-v1-16b-a3b", "llava-next-34b"]
+
+#: (arch, attn_impl, decode_impl, kv_cache_dtype, per_row): every route
+#: of the prefill and decode for aiida-demo-110m, four for each other arch
+DECODE_ROUTES = [(a, d, k, r) for a in ("direct", "pallas")
+                 for d in ("direct", "pallas")
+                 for k in ("bfloat16", "int8") for r in (False, True)]
+DECODE_CASES = [(ARCH, *route) for route in DECODE_ROUTES] + [
+    (arch, *route) for arch in LM_ARCHS[1:] for route in (
+        ("direct", "direct", "bfloat16", False),
+        ("pallas", "pallas", "bfloat16", True),
+        ("pallas", "pallas", "int8", True),
+        ("direct", "pallas", "int8", False))]
+
+
+def _decode_id(case):
+    arch, attn_impl, decode_impl, kv_cache_dtype, per_row = case
+    route = f"{per_row}-{kv_cache_dtype}-{decode_impl}-{attn_impl}"
+    return route if arch == ARCH else f"{arch}-{route}"
+
+
+@pytest.mark.parametrize(
+    "arch,attn_impl,decode_impl,kv_cache_dtype,per_row", DECODE_CASES,
+    ids=[_decode_id(c) for c in DECODE_CASES])
+def test_prefill_and_decode_match(arch, attn_impl, decode_impl,
+                                  kv_cache_dtype, per_row):
     """lm_prefill logits and cache, then two lm_decode_step logits, with a
     scalar or a per-row position vector; kv_cache_dtype 'bfloat16' means a
-    cache in the activation dtype (float32 here)."""
+    cache in the activation dtype (float32 here). A VLM's prompt follows
+    its patches, so its decode positions start after both."""
     over = dict(attn_impl=attn_impl, decode_impl=decode_impl,
                 kv_cache_dtype=kv_cache_dtype)
-    (jcfg, jb, jp), (cfg, b, p) = _pair_models(**over)
+    (jcfg, jb, jp), (cfg, b, p) = _pair_models(arch, **over)
     rng = np.random.default_rng(3)
     n, max_len = 10, 32
     prompt = rng.integers(1, cfg.vocab_size, (2, n))
+    batch = _prompt_batch(cfg, prompt, rng)
+    n += cfg.num_patches
     j_logits, j_cache = jax.jit(jb.prefill_fn)(
-        jp, {"tokens": jnp.asarray(prompt)}, jb.init_cache(2, max_len))
+        jp, jax.tree.map(jnp.asarray, batch), jb.init_cache(2, max_len))
     cache = b.init_cache(2, max_len, "cpu")
-    logits, cache = b.prefill_fn(p, {"tokens": torch.from_numpy(prompt)},
-                                 cache)
+    logits, cache = b.prefill_fn(
+        p, {k: torch.from_numpy(v) for k, v in batch.items()}, cache)
     _close(logits, j_logits)
     for name in j_cache:
         # an int8 code may sit one step away where k/v fall on a rounding
@@ -217,20 +255,38 @@ def test_cache_write_clamps_past_the_end():
     assert cache["k"][:, 3].eq(3).all()
 
 
-@pytest.mark.parametrize("decode_impl", ["direct", "pallas"])
-def test_prefill_equals_stepwise_decode(decode_impl):
+STEPWISE_CASES = [(arch, d) for arch in LM_ARCHS
+                  for d in ("direct", "pallas")]
+
+
+@pytest.mark.parametrize(
+    "arch,decode_impl", STEPWISE_CASES,
+    ids=[d if a == ARCH else f"{a}-{d}" for a, d in STEPWISE_CASES])
+def test_prefill_equals_stepwise_decode(arch, decode_impl):
     """Prefilling N tokens lands in the same state as feeding them one
-    decode step at a time: identical next token and greedy continuation."""
-    cfg = reduced_config(ARCH).replace(dtype="float32",
+    decode step at a time: identical next token and greedy continuation.
+    A VLM's stepwise run prefills its patches and the first token. A MoE
+    layer drops a token past an expert's capacity, which a one-token step
+    never does: the MoE is held where the prefill drops none."""
+    cfg = reduced_config(arch).replace(dtype="float32",
                                        kv_cache_dtype="float32",
-                                       decode_impl=decode_impl)
+                                       decode_impl=decode_impl,
+                                       moe_capacity_factor=4.0)
     bundle = build(cfg)
     params = bundle.init_params(1, "cpu")
     prefill = make_prefill_step(bundle)
     decode = make_decode_step(bundle)
     n, extra, max_len = 8, 4, 32
-    prompt = torch.from_numpy(
-        np.random.default_rng(4).integers(1, cfg.vocab_size, (1, n)))
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(1, cfg.vocab_size, (1, n))
+    batch = {k: torch.from_numpy(v)
+             for k, v in _prompt_batch(cfg, prompt, rng).items()}
+    p0 = cfg.num_patches
+    if cfg.family == "moe":
+        from repro_torch.models.mlp import _capacity, _group_size
+
+        g = _group_size(cfg, n)
+        assert _capacity(cfg, g) >= g      # every expert holds its group
 
     def continue_greedy(tok, cache, pos):
         seq = [int(tok[0, 0])]
@@ -240,20 +296,20 @@ def test_prefill_equals_stepwise_decode(decode_impl):
             seq.append(int(tok[0, 0]))
         return seq
 
-    tok_a, cache_a = prefill(params, {"tokens": prompt},
+    tok_a, cache_a = prefill(params, batch,
                              bundle.init_cache(1, max_len, "cpu"))
-    seq_a = continue_greedy(tok_a, cache_a, n)
-    tok_b, cache_b = prefill(params, {"tokens": prompt[:, :1]},
+    seq_a = continue_greedy(tok_a, cache_a, p0 + n)
+    tok_b, cache_b = prefill(params, batch | {"tokens": batch["tokens"][:, :1]},
                              bundle.init_cache(1, max_len, "cpu"))
     for i in range(1, n):
-        tok_b, cache_b = decode(params, cache_b, prompt[:, i:i + 1],
-                                torch.tensor(i))
-    seq_b = continue_greedy(tok_b, cache_b, n)
+        tok_b, cache_b = decode(params, cache_b,
+                                batch["tokens"][:, i:i + 1],
+                                torch.tensor(p0 + i))
+    seq_b = continue_greedy(tok_b, cache_b, p0 + n)
     assert seq_a == seq_b
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "moonshot-v1-16b-a3b",
-                                  "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_families_of_later_slices_raise(arch):
     with pytest.raises(NotImplementedError, match="later slice"):
         build(reduced_config(arch))
