@@ -13,8 +13,10 @@ then:
    version (bf16 at 2e-2, f32 at 5e-5): kv_len 0, 1, Smax and across the
    tile and split edges, B * Hkv of 4, 16 and 64 (splits of 64 and 128
    positions), hd 32/64/128, G = 3/2/8, and the decode shapes of phases
-   18 and 19 (G = 1 and 7 at hd 128, caches of 1024 and 3072), each call
-   launched twice for the
+   18, 19 and 22 (G = 1 and 7 at hd 128, caches of 1024 and 3072;
+   whisper's 8 rows of G = 1 with 20 KV heads at hd 64, cache 448, at
+   each batch's first, profiled and last steps and the edges 5, 64, 65,
+   133, 256, 448), each call launched twice for the
    same output (the merge's tickets back at zero); requires ptxas to
    report no spills; times kernel (events and the profiler's device time
    per launch), plain version and SDPA at the serving shape;
@@ -25,10 +27,12 @@ then:
    prompts 96/250/511/700, causal and not, Skv > Sq with q_offset =
    Skv - Sq, Skv = 0, windows 1/64/127, softcap with a window, G = 1/3/4,
    strided q/k/v views, views at an odd element offset (copied
-   contiguous by the wrapper), the attention shapes of phases 18, 19 and
-   21 (hd 128: moonshot's prompts and its 8 x 1024 batch with G = 1,
-   llava's 3008 positions with G = 7 at B = 1 and 2), and the training
-   shape B = 8, S = 1024; out also
+   contiguous by the wrapper), the attention shapes of phases 18, 19,
+   21 and 22 (hd 128: moonshot's prompts and its 8 x 1024 batch with
+   G = 1, llava's 3008 positions with G = 7 at B = 1 and 2; hd 64 with 20
+   heads and G = 1: whisper's prompts of 4 and 132 tokens in 8 rows and
+   its 4 x 448 training batch), and the training shape B = 8, S = 1024;
+   out also
    within 1e-2 / 1e-4 of its norm and lse within 1e-4 absolute; requires
    ptxas to report no spills; times it at each serving shape and at the
    training shape, printing kernel, device and SDPA ms, kernel/SDPA and
@@ -46,7 +50,8 @@ then:
    1/63/64/65/127/128/129/250/1024, causal and not, Skv > Sq with
    q_offset, windows 1/64, softcap, G = 1/3/4, strided q/k/v/do views,
    keyless rows and phase 21's training batches (moonshot 8 x 1024 with
-   G = 1, llava 2 x 3008 with G = 7, hd 128) (f32 at 1e-4, bf16 at 2e-2,
+   G = 1, llava 2 x 3008 with G = 7, hd 128; whisper 4 x 448 with 20
+   heads of 64) (f32 at 1e-4, bf16 at 2e-2,
    and each output's error within 1e-4 / 1e-2 of its norm, or within 1e-4 of zero where the plain
    version's is zero to rounding); requires ptxas to report no spills;
    checks them again at the training shape (B = 8, S = 1024, bf16) and
@@ -197,12 +202,40 @@ then:
    tokens, llava one of 32 tokens after 256 patches, 8 new tokens;
    prints the smallest top-2 logit margin and the smallest gap between
    the k-th and (k+1)-th router probability of any token;
-21. one ``GPUTrainJob`` per family through a ``Runner``, full width, 2
-   layers (the card's memory: fp32 parameters, gradients and AdamW
-   moments), 3 steps (moonshot 8 x 1024 tokens, llava 2 x (2880 patches
-   + 128 tokens)): finished ok, finite losses, every flash forward,
-   recompute, dq and dk/dv launch on the tensor-core bodies, moonshot's
-   aux loss finite and positive; prints losses, aux, peak memory, wall.
+21. one ``GPUTrainJob`` per family through a ``Runner`` at full width:
+   moonshot (8 x 1024 tokens) and llava (2 x (2880 patches + 128
+   tokens)) at 2 layers (the card's memory: fp32 parameters, gradients
+   and AdamW moments) for 3 steps, whisper at full depth (32 + 32
+   layers, 1.54 B parameters; 4 x 448 tokens beside 1500 frames per row,
+   drawn as the reference's job recipe draws them) for 2 steps (each
+   69-92 s of host launches; 3 took the smoke past 900 s): finished
+   ok, finite
+   losses, every flash forward, recompute, dq and dk/dv launch on the
+   tensor-core bodies (64 / 32 / 32 per whisper step: its decoder's
+   self-attention), moonshot's aux loss finite and positive; prints
+   losses, aux, peak memory, wall;
+22. serves ``whisper-large-v3`` (audio, encoder-decoder) at full width
+   and depth (32 encoder and 32 decoder layers, 1.54 B parameters, bf16
+   weights drawn on the card) through ``make_prefill_step`` /
+   ``make_decode_step``: two batches of 8 rows of 1500 frame embeddings
+   (one 30 s window each), prompts of 4 tokens and then of 132 (128 of
+   the previous window's text before the 4 task tokens), 124 new tokens
+   each, cache 448 (the published ``max_target_positions``); checks 32
+   flash forwards per batch, all on the tensor-core body, and 32 decode
+   launches per decode step; the encoder and the cross-attention are
+   not causal and stay on the chunked path, as in the reference; prints
+   each prefill's wall, the prefill's launches and device time (profiled
+   at 1 + 1 and 2 + 2 layers, and scaled to the full depth by the
+   per-layer difference: a profile of the full prefill's ~6e5 kernels
+   takes the profiler minutes), the median decode step, a profiled decode step (device time, idle share,
+   launches), peak memory, and a decode step's bound (the decoder
+   weights a step reads, the cross K/V cache and the self cache up to
+   its length, over the memory rate);
+23. at full width, 4 encoder and 4 decoder layers, float32, 2 rows of
+   1500 frames and a 4-token prompt, 16 new tokens: greedy tokens on the
+   card (the flash and decode kernels) identical to the CPU's (plain
+   versions), from the same parameters (attention projections fan-in
+   scaled); prints the smallest top-2 logit margin.
 
 Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
 it), the ``nvidia-smi`` line, and as the
@@ -265,6 +298,14 @@ PARITY_X_BATCH, PARITY_X_PROMPT, PARITY_X_NEW, PARITY_X_LAYERS = \
 # phase 15: distinct prompts, calls of each, new tokens, prompts also
 # served on the CPU
 ENGINE_PROMPTS, ENGINE_REPEATS, ENGINE_NEW, ENGINE_CPU_PROMPTS = 64, 4, 16, 8
+AUDIO = "whisper-large-v3"
+# phase 22: rows per batch, the prompts of its two batches (the 4 task
+# tokens; 128 tokens of the previous window's text before them, as
+# long-form transcription feeds them), new tokens per batch (the first
+# from the prefill), the cache (whisper's published max_target_positions)
+AUDIO_BATCH, AUDIO_PROMPTS, AUDIO_NEW, AUDIO_MAX_LEN = 8, (4, 132), 124, 448
+# the decode step profiled in each batch: this many steps after its first
+AUDIO_PROFILED_STEP = AUDIO_NEW // 2
 
 
 class SmokeFailure(RuntimeError):
@@ -376,7 +417,15 @@ DECODE_CASES = (
     (1, 56, 8, 128, 3072, [3025]),
     (1, 56, 8, 128, 3072, [3039]),
     (1, 56, 8, 128, 3072, [3072]),
-)
+) + tuple(
+    # phase 22's whisper (G = 1, 20 KV heads, hd 64, cache 448): each
+    # batch's first, profiled and last decode steps (every row at one
+    # length), and the edges
+    (AUDIO_BATCH, 20, 20, 64, AUDIO_MAX_LEN, [n + 1 + step] * AUDIO_BATCH)
+    for n in AUDIO_PROMPTS
+    for step in (0, AUDIO_PROFILED_STEP, AUDIO_NEW - 2)
+) + ((AUDIO_BATCH, 20, 20, 64, AUDIO_MAX_LEN,
+      [5, 64, 65, 133, 256, 448, 0, 1]),)
 
 
 def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
@@ -504,6 +553,14 @@ FAMILY_ATTN_CASES = (
        dict(b=1, sq=3008, skv=3008, h=56, hkv=8, hd=128),
        dict(b=2, sq=3008, skv=3008, h=56, hkv=8, hd=128)])
 
+# the attention shapes of phases 21 and 22 (whisper's decoder: 20 heads
+# of 64, G = 1): the two prefills (8 rows of 4 and of 132 tokens) and the
+# training batch of 4 x 448; the forward and backward sweeps hold them
+AUDIO_ATTN_CASES = (
+    [dict(b=AUDIO_BATCH, sq=n, skv=n, h=20, hkv=20, hd=64)
+     for n in AUDIO_PROMPTS]
+    + [dict(b=4, sq=AUDIO_MAX_LEN, skv=AUDIO_MAX_LEN, h=20, hkv=20, hd=64)])
+
 # the forward's sweep: each case is (b, sq, skv, h, hkv, hd, options); a
 # "strided" case reads q, k and v as views of one fused (b, s, h + 2 hkv,
 # hd) projection, so q's rows are strided; an "odd" case reads views one
@@ -536,7 +593,7 @@ FLASH_CASES = (
     # the earlier sweep's cases
     + [dict(_C, sq=37, skv=37), dict(_C, sq=511, skv=511, softcap=30.0),
        dict(_C, sq=37, skv=42, q_offset=5)]
-    + FAMILY_ATTN_CASES)
+    + FAMILY_ATTN_CASES + AUDIO_ATTN_CASES)
 
 
 def flash_inputs(torch, gen, c: dict, dt):
@@ -774,8 +831,13 @@ def fan_in_scaled(cfg, params):
     layers until greedy tokens flip: on the CPU alone, the direct and
     kernel routes of the same package disagree on the first token. With
     fan-in-scaled projections identical greedy tokens test the port,
-    not that amplification."""
-    params["layers"]["attn"] = _scaled_attn(cfg, params["layers"]["attn"])
+    not that amplification. An LM's tree holds its attention under
+    ``layers/attn``; whisper's under ``enc_layers/attn``,
+    ``dec_layers/self_attn`` and ``dec_layers/cross_attn``."""
+    for stack, names in (("layers", ("attn",)), ("enc_layers", ("attn",)),
+                         ("dec_layers", ("self_attn", "cross_attn"))):
+        for name in names if stack in params else ():
+            params[stack][name] = _scaled_attn(cfg, params[stack][name])
     return params
 
 
@@ -1040,7 +1102,7 @@ BWD_CASES = (
     + [dict(_D, sq=40, skv=40, q_offset=-10),
        dict(_D, sq=100, skv=100, q_offset=-70, hd=128, window=16)]
     # the families' training batches (phase 21)
-    + FAMILY_ATTN_CASES[-3::2])
+    + FAMILY_ATTN_CASES[-3::2] + AUDIO_ATTN_CASES[-1:])
 
 
 def bwd_inputs(torch, gen, c: dict, dt):
@@ -3007,6 +3069,7 @@ VLM_PARITY_PATCHES, VLM_PARITY_TEXT = 256, 32
 # phase 21: one GPUTrainJob per family, 2 layers (the card's memory:
 # fp32 parameters, gradients and AdamW moments), 3 steps
 FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 2, 3
+AUDIO_TRAIN_STEPS = 2
 FAMILY_JOBS = {
     MOE: {"arch": MOE, "reduced": False, "steps": FAMILY_TRAIN_STEPS,
           "batch": 8, "seq": 1024,
@@ -3016,6 +3079,13 @@ FAMILY_JOBS = {
           "batch": 2, "seq": 128,
           "overrides": {"num_layers": FAMILY_TRAIN_LAYERS,
                         "attn_impl": "pallas"}},
+    # whisper at full depth: 1.54 B fp32 parameters, their gradients and
+    # AdamW's moments (24.6 GB) fit the card; 4 rows of 448 tokens beside
+    # 1500 frames each; 2 steps, each 69-92 s of host launches (the
+    # chunked loop's), to keep the smoke inside its time
+    AUDIO: {"arch": AUDIO, "reduced": False, "steps": AUDIO_TRAIN_STEPS,
+            "batch": 4, "seq": AUDIO_MAX_LEN,
+            "overrides": {"attn_impl": "pallas"}},
 }
 
 
@@ -3049,15 +3119,20 @@ def card_params(torch, cfg, seed: int):
 
 
 def decode_bound_ms(cfg, params, kv_rows: list[int],
-                    experts_touched: list[int] | None = None) -> dict:
+                    experts_touched: list[int] | None = None, *,
+                    prefill_only: tuple[str, ...] = (),
+                    extra_bytes: int = 0) -> dict:
     """The least time a decode step can take on this card: each weight the
     step needs read once, and each row's cache read up to its length, over
     the data sheet's memory rate. Of the embedding table the step needs
     the batch's rows (all of it when it is tied to the output head), of
     the projector nothing (only the prefill reads it), and of a MoE layer
     the experts its tokens were routed to (``experts_touched``, one count
-    per layer, from this run's router). ``dense_dispatch_ms`` is the time
-    of the bytes the port's dense dispatch reads: every expert."""
+    per layer, from this run's router). Leaves whose path starts with one
+    of ``prefill_only`` are not read either (whisper's encoder and its
+    cross-attention's K/V projections); ``extra_bytes`` are other cache
+    bytes every step reads (whisper's cross K/V). ``dense_dispatch_ms`` is
+    the time of the bytes the port's dense dispatch reads: every expert."""
     from repro_torch.models.common import tree_leaves
 
     def nbytes(p):
@@ -3067,7 +3142,8 @@ def decode_bound_ms(cfg, params, kv_rows: list[int],
     experts = {k for k in leaves if k.startswith("layers/moe/w_")}
     emb = leaves["embedding"]
     base = sum(nbytes(p) for k, p in leaves.items()
-               if k not in experts and k not in ("embedding", "mm_projector"))
+               if k not in experts and k not in ("embedding", "mm_projector")
+               and not k.startswith(prefill_only))
     base += nbytes(emb) if cfg.tie_embeddings else \
         len(kv_rows) * cfg.d_model * emb.element_size()
     every_expert = sum(nbytes(leaves[k]) for k in experts)
@@ -3080,6 +3156,7 @@ def decode_bound_ms(cfg, params, kv_rows: list[int],
     else:
         routed = 0
     kv = sum(kv_rows) * cfg.num_layers * 2 * cfg.kv_heads_eff * cfg.hd * 2
+    kv += extra_bytes
     return {"weight_bytes": base + routed, "routed_expert_bytes": routed,
             "every_expert_bytes": every_expert,
             "experts_touched": experts_touched, "kv_bytes": kv,
@@ -3405,10 +3482,12 @@ def family_parity_phase(torch, da_ops, fa_ops) -> dict:
 
 def family_train_phase(torch, fa_ops) -> dict:
     """One ``GPUTrainJob`` per family through a ``Runner`` at full width,
-    2 layers (the card's memory: fp32 parameters, gradients and AdamW
-    moments): finished ok, 3 finite losses, every flash launch (forward,
-    its remat recompute, dq and dk/dv) on the tensor-core bodies, and the
-    MoE's aux loss positive and finite at every layer call."""
+    the MoE and the VLM at 2 layers (the card's memory: fp32 parameters,
+    gradients and AdamW moments) for 3 steps, whisper at full depth for
+    2: finished ok, finite losses, every flash launch (forward, its remat recompute, dq
+    and dk/dv; whisper's decoder self-attention only, its encoder and
+    cross-attention being on the chunked path) on the tensor-core bodies,
+    and the MoE's aux loss positive and finite at every layer call."""
     import os
     import tempfile
 
@@ -3454,10 +3533,12 @@ def family_train_phase(torch, fa_ops) -> dict:
             check(proc.is_finished_ok, f"{arch} train job: {proc.exit_code}; "
                                        f"{job_reasons(runner)}")
             losses = outputs["metrics"].value["losses"]
-            check(len(losses) == FAMILY_TRAIN_STEPS
+            steps = config["steps"]
+            check(len(losses) == steps
                   and all(math.isfinite(x) for x in losses),
                   f"{arch} train losses {losses}")
-            steps, layers = FAMILY_TRAIN_STEPS, FAMILY_TRAIN_LAYERS
+            layers = config["overrides"].get("num_layers",
+                                             get_config(arch).num_layers)
             want = {"flash_attention_fwd": 2 * layers * steps,
                     "flash_attention_bwd_dq": layers * steps,
                     "flash_attention_bwd_dkv": layers * steps}
@@ -3474,10 +3555,12 @@ def family_train_phase(torch, fa_ops) -> dict:
                       f"{arch} aux losses {aux}")
             else:
                 check(not aux, f"{arch} ran a MoE layer")
+            cut = None if layers == get_config(arch).num_layers else (
+                f"depth {layers} of {get_config(arch).num_layers} layers "
+                "(the card's memory: fp32 parameters, gradients and AdamW "
+                "moments)")
             result[arch] = {
-                "layers": layers, "cut": f"depth {layers} of "
-                f"{get_config(arch).num_layers} layers (the card's memory: "
-                "fp32 parameters, gradients and AdamW moments)",
+                "layers": layers, "cut": cut,
                 "batch": config["batch"], "seq": config["seq"],
                 "losses": losses, "aux_loss": aux, "wall_s": wall,
                 "launches": launches, "tensor_core_launches": tc,
@@ -3493,6 +3576,259 @@ def family_train_phase(torch, fa_ops) -> dict:
             del outputs, proc, runner, store
     tmp.cleanup()
     print("family train: " + json.dumps(result))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 22 and 23: the audio family (whisper-large-v3) at full width
+# ---------------------------------------------------------------------------
+
+# phase 23: encoder and decoder layers, rows, prompt tokens, new tokens
+PARITY_AUDIO_LAYERS, PARITY_AUDIO_BATCH = 4, 2
+PARITY_AUDIO_PROMPT, PARITY_AUDIO_NEW = 4, 16
+#: leaves a whisper decode step does not read: the encoder, and the
+#: cross-attention's K/V projections (the prefill fills the cross cache)
+AUDIO_PREFILL_ONLY = ("enc_layers/", "enc_ln/", "dec_layers/cross_attn/wk",
+                      "dec_layers/cross_attn/wv", "dec_layers/cross_attn/bk",
+                      "dec_layers/cross_attn/bv")
+
+
+def audio_prefill_profile(torch, cfg, params, batch, wall_ms: float
+                          ) -> dict:
+    """The prefill's launches and device time at full depth, from the
+    profiler at 1 + 1 and 2 + 2 layers (the same width, frames, prompt
+    and parameters, the stacks' first layers): each encoder and decoder
+    layer runs the same code, so the full count is the 1 + 1 count plus
+    (layers - 1) times the difference. A profile of the full prefill
+    holds ~6e5 kernels and ~2e6 host events, whose processing takes the
+    profiler minutes; these windows hold 2-4% of them."""
+    from repro_torch.models.common import map_tree
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import make_prefill_step
+
+    got = {}
+    for k in (1, 2):
+        sub = cfg.replace(num_layers=k, encoder_layers=k)
+        bundle = build(sub)
+        p = dict(params, enc_layers=map_tree(lambda t: t[:k],
+                                             params["enc_layers"]),
+                 dec_layers=map_tree(lambda t: t[:k], params["dec_layers"]))
+        prefill = make_prefill_step(bundle)
+
+        def one():
+            c = bundle.init_cache(AUDIO_BATCH, AUDIO_MAX_LEN, "cuda")
+            int(prefill(p, batch, c)[0][0, 0])
+
+        got[k] = device_share(torch, one, 1, expect="flash_fwd")
+    layers = cfg.num_layers
+    check(cfg.encoder_layers == layers, "audio profile: the stacks differ "
+          f"in depth ({cfg.encoder_layers} and {layers})")
+
+    def full(key):
+        return got[1][key] + (layers - 1) * (got[2][key] - got[1][key])
+
+    kinds = set(got[1]["device_ms_by_kind"]) | set(got[2]["device_ms_by_kind"])
+    by_kind = {kind: got[1]["device_ms_by_kind"].get(kind, 0.0)
+               + (layers - 1) * (got[2]["device_ms_by_kind"].get(kind, 0.0)
+                                 - got[1]["device_ms_by_kind"].get(kind, 0.0))
+               for kind in kinds}
+    device = full("device_ms")
+    return {"launches_per_run": full("launches_per_run"), "device_ms": device,
+            "wall_ms": wall_ms, "idle_share": max(0.0, 1.0 - device / wall_ms),
+            "device_ms_by_kind": by_kind,
+            "windows": {f"{k}+{k}": {key: got[k][key] for key in (
+                "wall_ms", "device_ms", "launches_per_run",
+                "launches_by_kind", "device_ms_by_kind")} for k in got}}
+
+
+def audio_serve_phase(torch, da_ops, fa_ops) -> dict:
+    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, bf16 weights drawn on the card) through ``make_prefill_step``
+    / ``make_decode_step``: two batches of 8 rows, each row 1500 frame
+    embeddings (one 30 s window) and a prompt of 4 tokens, then of 132
+    (128 of the previous window's text before the 4), 124 new tokens each
+    into a cache of 448. The decoder's self-attention takes the flash
+    forward in the prefill and the decode kernel in every step; the
+    encoder and the cross-attention stay on the chunked path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    card = free_card(torch)
+    cfg = get_config(AUDIO).replace(param_dtype="bfloat16",
+                                    attn_impl="pallas", decode_impl="pallas")
+    params, n_params, n_bytes, init_s = card_params(torch, cfg, 22)
+    print(f"audio serve: {AUDIO} {n_params} parameters, {n_bytes} bytes "
+          f"bf16, drawn on the card in {init_s:.2f} s; card before: {card}")
+    bundle = build(cfg)
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    batches = []
+    for n in AUDIO_PROMPTS:
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (AUDIO_BATCH, n),
+                                         generator=gen, device="cuda")}
+        for name, (shape, dtype) in bundle.extra_inputs(AUDIO_BATCH).items():
+            batch[name] = torch.randn(shape, generator=gen, device="cuda",
+                                      dtype=dtype)
+        batches.append(batch)
+    # warm-up (library handles, allocator) outside the counted run
+    warm = bundle.init_cache(AUDIO_BATCH, AUDIO_MAX_LEN, "cuda")
+    tok, warm = prefill(params, batches[0], warm)
+    decode(params, warm, tok.long(),
+           torch.tensor(AUDIO_PROMPTS[0], device="cuda"))
+    del warm
+    torch.cuda.synchronize()
+
+    counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd)
+    zero_counters(counters)
+    prefill_ms, step_ms, tokens, caches = [], [], [], []
+    t0 = time.perf_counter()
+    for n, batch in zip(AUDIO_PROMPTS, batches):
+        cache = bundle.init_cache(AUDIO_BATCH, AUDIO_MAX_LEN, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, cache = prefill(params, batch, cache)
+        out = [tok.cpu()]
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        for i in range(AUDIO_NEW - 1):
+            t = time.perf_counter()
+            tok, cache = decode(params, cache, tok.long(),
+                                torch.tensor(n + i, device="cuda"))
+            out.append(tok.cpu())
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        tokens.append(torch.cat(out, dim=1))
+        caches.append((cache, tok))
+    wall = time.perf_counter() - t0
+    launches = {"decode_attention": da_ops.decode_attention.launches,
+                "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+    flash_tc = fa_ops.flash_attention_fwd.tensor_core_launches
+    layers, n_batches = cfg.num_layers, len(AUDIO_PROMPTS)
+    for toks in tokens:
+        check(toks.shape == (AUDIO_BATCH, AUDIO_NEW) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"audio tokens {toks.tolist()}")
+    check(launches["flash_attention_fwd"] == layers * n_batches
+          and flash_tc == launches["flash_attention_fwd"],
+          f"audio flash launches {launches['flash_attention_fwd']} "
+          f"(tensor-core {flash_tc}) != {layers} x {n_batches}")
+    check(launches["decode_attention"] == layers * n_batches * (AUDIO_NEW - 1),
+          f"audio decode launches {launches['decode_attention']} != "
+          f"{layers} x {n_batches} x {AUDIO_NEW - 1}")
+    step_ms.sort()
+    peak = torch.cuda.max_memory_allocated()
+
+    prof_prefill = audio_prefill_profile(torch, cfg, params, batches[0],
+                                         prefill_ms[0])
+    # a decode step of the second batch, mid-generation, under the profiler
+    cache, tok = caches[-1]
+    n = AUDIO_PROMPTS[-1]
+    pos = torch.tensor(n + AUDIO_PROFILED_STEP, device="cuda")
+    prof_decode = device_share(torch, lambda: decode(
+        params, cache, tok.long(), pos)[0].cpu(), FAMILY_PROFILED,
+        expect="decode_attention")
+    cross = 2 * cfg.num_layers * AUDIO_BATCH * cfg.num_frames \
+        * cfg.kv_heads_eff * cfg.hd * 2
+    bound = decode_bound_ms(cfg, params,
+                            [n + AUDIO_PROFILED_STEP + 1] * AUDIO_BATCH,
+                            prefill_only=AUDIO_PREFILL_ONLY,
+                            extra_bytes=cross)
+    bound["cross_cache_bytes"] = cross
+    result = {
+        "arch": AUDIO, "encoder_layers": cfg.encoder_layers,
+        "decoder_layers": layers, "cut": None,
+        "parameters": n_params, "param_bytes": n_bytes, "init_s": init_s,
+        "batch": AUDIO_BATCH, "frames": cfg.num_frames,
+        "prompts": list(AUDIO_PROMPTS), "new_tokens": AUDIO_NEW,
+        "max_len": AUDIO_MAX_LEN, "wall_s": wall,
+        "tokens_generated": n_batches * AUDIO_BATCH * AUDIO_NEW,
+        "tokens_per_s": n_batches * AUDIO_BATCH * AUDIO_NEW / wall,
+        "prefill_ms_by_prompt": dict(zip(map(str, AUDIO_PROMPTS),
+                                         prefill_ms)),
+        "decode_step_ms_median": step_ms[len(step_ms) // 2],
+        "decode_steps": len(step_ms), "decode_bound": bound,
+        "launches": launches, "flash_tensor_core_launches": flash_tc,
+        "peak_memory_bytes": peak, "card_before": card,
+        "profile_prefill": prof_prefill, "profile_decode_step": prof_decode,
+        "first_tokens": [t[:2, :8].tolist() for t in tokens],
+    }
+    print("audio serve: " + json.dumps(result))
+    print(f"audio serve: prefill {prefill_ms[0]:.2f} / {prefill_ms[1]:.2f} ms "
+          f"({prof_prefill['launches_per_run']:.0f} launches, device "
+          f"{prof_prefill['device_ms']:.2f} ms), decode step median "
+          f"{result['decode_step_ms_median']:.2f} ms (device "
+          f"{prof_decode['device_ms']:.3f} ms, idle "
+          f"{prof_decode['idle_share']:.3f}, "
+          f"{prof_decode['launches_per_run']:.0f} launches), bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['weight_bytes']} weight + "
+          f"{bound['kv_bytes']} cache bytes), peak {peak} bytes")
+    del caches, cache, params
+    return result
+
+
+def audio_parity_phase(torch, da_ops, fa_ops) -> dict:
+    """whisper at full width, 4 encoder and 4 decoder layers, float32: the
+    card's greedy tokens (the flash and decode kernels) identical to the
+    CPU's (plain versions), from the same parameters (drawn on the card,
+    copied to the host, attention projections fan-in scaled). Reports the
+    smallest top-2 logit margin."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import map_tree
+    from repro_torch.models.registry import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_card(torch)
+    cfg = get_config(AUDIO).replace(
+        num_layers=PARITY_AUDIO_LAYERS, encoder_layers=PARITY_AUDIO_LAYERS,
+        dtype="float32", kv_cache_dtype="float32", param_dtype="float32",
+        attn_impl="pallas", decode_impl="pallas")
+    bundle = build(cfg)
+    gen = torch.Generator().manual_seed(23)
+    b = PARITY_AUDIO_BATCH
+    batch = {"tokens": torch.randint(1, cfg.vocab_size,
+                                     (b, PARITY_AUDIO_PROMPT), generator=gen)}
+    for name, (shape, dtype) in bundle.extra_inputs(b).items():
+        batch[name] = torch.randn(shape, generator=gen, dtype=dtype)
+    params, _, _, _ = card_params(torch, cfg, 23)
+    params = fan_in_scaled(cfg, params)
+    max_len = PARITY_AUDIO_PROMPT + PARITY_AUDIO_NEW
+    runs, secs, launched = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else map_tree(lambda t: t.cpu(), params)
+        zero_counters((da_ops.decode_attention, fa_ops.flash_attention_fwd))
+        t = time.perf_counter()
+        runs[dev] = greedy_margins(torch, bundle, p, batch, PARITY_AUDIO_NEW,
+                                   max_len, dev)
+        secs[dev] = time.perf_counter() - t
+        launched[dev] = {
+            "decode_attention": da_ops.decode_attention.launches,
+            "flash_attention_fwd": fa_ops.flash_attention_fwd.launches}
+        del p
+    del params
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    if not torch.equal(card, cpu):
+        row, step = (card != cpu).nonzero()[0].tolist()
+        raise SmokeFailure(
+            f"audio f32 greedy tokens differ: card {card.tolist()} cpu "
+            f"{cpu.tolist()}; first at row {row} step {step}, where the "
+            f"CPU's top-2 logit margin is "
+            f"{float(runs['cpu'][1][row, step]):.3e}")
+    layers = cfg.num_layers
+    want = {"decode_attention": layers * (PARITY_AUDIO_NEW - 1),
+            "flash_attention_fwd": layers}
+    check(launched["cuda"] == want,
+          f"audio parity launches {launched['cuda']} != {want}")
+    check(launched["cpu"] == {k: 0 for k in want},
+          f"audio parity: the CPU run launched {launched['cpu']}")
+    margin = float(runs["cpu"][1].min())
+    result = {"encoder_layers": cfg.encoder_layers, "decoder_layers": layers,
+              "frames": cfg.num_frames, "tokens": card.tolist(),
+              "min_logit_margin": margin, "seconds": secs,
+              "launches": launched["cuda"]}
+    print(f"audio parity f32 ({layers} + {layers} layers, tokens "
+          f"{tuple(batch['tokens'].shape)}, {cfg.num_frames} frames): card "
+          f"and cpu tokens identical: {card.tolist()}; smallest top-2 margin "
+          f"{margin:.3e}")
     return result
 
 
@@ -3571,19 +3907,26 @@ def main() -> int:
     vlm = vlm_serve_phase(torch, da_ops, fa_ops)
     family_parity = family_parity_phase(torch, da_ops, fa_ops)
     family_train = family_train_phase(torch, fa_ops)
+    audio = audio_serve_phase(torch, da_ops, fa_ops)
+    audio_parity = audio_parity_phase(torch, da_ops, fa_ops)
 
     def trained_families(name):
-        return sum(family_train[a]["launches"][name] for a in FAMILY_JOBS)
+        return sum(family_train[a]["launches"][name] for a in (MOE, VLM))
+
+    def audio_train(name):
+        return family_train[AUDIO]["launches"][name]
 
     # launches on each main path (serving, training, hybrid and ssm
     # serving, the engine, the calcjob, the pretraining chain, MoE and
-    # VLM serving, the families' training), each counted from 0
+    # VLM serving, their training, whisper's serving and training), each
+    # counted from 0
     by_path = {
         "decode_attention": {
             "serve": served["decode_launches"],
             "engine": engine["decode_launches"],
             "moe_serve": moe["launches"]["decode_attention"],
-            "vlm_serve": vlm["launches"]["decode_attention"]},
+            "vlm_serve": vlm["launches"]["decode_attention"],
+            "audio_serve": audio["launches"]["decode_attention"]},
         "flash_attention_fwd": {
             "serve": served["flash_launches"],
             "train": trained["launches"]["flash_attention_fwd"],
@@ -3591,17 +3934,21 @@ def main() -> int:
             "pretrain": pretrain["flash_attention_fwd"],
             "moe_serve": moe["launches"]["flash_attention_fwd"],
             "vlm_serve": vlm["launches"]["flash_attention_fwd"],
-            "family_train": trained_families("flash_attention_fwd")},
+            "family_train": trained_families("flash_attention_fwd"),
+            "audio_serve": audio["launches"]["flash_attention_fwd"],
+            "audio_train": audio_train("flash_attention_fwd")},
         "flash_attention_bwd_dq": {
             "train": trained["launches"]["flash_attention_bwd_dq"],
             "calcjob": calcjob["flash_attention_bwd_dq"],
             "pretrain": pretrain["flash_attention_bwd_dq"],
-            "family_train": trained_families("flash_attention_bwd_dq")},
+            "family_train": trained_families("flash_attention_bwd_dq"),
+            "audio_train": audio_train("flash_attention_bwd_dq")},
         "flash_attention_bwd_dkv": {
             "train": trained["launches"]["flash_attention_bwd_dkv"],
             "calcjob": calcjob["flash_attention_bwd_dkv"],
             "pretrain": pretrain["flash_attention_bwd_dkv"],
-            "family_train": trained_families("flash_attention_bwd_dkv")},
+            "family_train": trained_families("flash_attention_bwd_dkv"),
+            "audio_train": audio_train("flash_attention_bwd_dkv")},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
         "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
@@ -3623,7 +3970,8 @@ def main() -> int:
          "ssm_parity": ssm_parity, "engine": engine,
          "workflow": workflow, "engine17": engine17, "moe_serve": moe,
          "vlm_serve": vlm, "family_parity": family_parity,
-         "family_train": family_train}, indent=1))
+         "family_train": family_train, "audio_serve": audio,
+         "audio_parity": audio_parity}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

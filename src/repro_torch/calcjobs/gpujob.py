@@ -67,10 +67,9 @@ def gpu_train_executable(input_files: dict[str, bytes]) -> dict[str, bytes]:
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in (("tokens", tokens[:, :-1]),
                               ("labels", tokens[:, 1:]))}
-        # a VLM's patches are zeros, as the reference's recipe feeds them
-        # (the audio family's frames wait for that family)
-        for name, (shape, dtype) in bundle.extra_inputs(b).items():
-            batch[name] = torch.zeros(shape, dtype=dtype, device=device)
+        # a VLM's zero patches, an audio model's frames drawn from data_rng
+        # after the tokens, as the reference's recipe makes them
+        batch.update(bundle.draw_extra_inputs(b, data_rng, device))
         state, metrics = step_fn(state, batch)
         losses.append(metrics["loss"])      # read once, after the last step
     losses = torch.stack(losses).tolist()

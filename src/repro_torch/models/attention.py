@@ -37,7 +37,10 @@ NEG_INF = -2.0e30
 # Parameter specification
 # ---------------------------------------------------------------------------
 
-def make_attn_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+def make_attn_specs(cfg: ModelConfig, *, cross: bool = False
+                    ) -> dict[str, ParamSpec]:
+    """The attention leaves. ``cross`` (whisper's cross-attention) keeps
+    the reference's signature and changes no leaf."""
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     specs: dict[str, ParamSpec] = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim")),
@@ -62,13 +65,15 @@ def make_attn_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
 # ---------------------------------------------------------------------------
 
 def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                 x: torch.Tensor):
-    """Project to q, k, v (B, S, heads, hd); apply qk-norm; tile kv heads
-    to kv_heads_eff."""
+                 x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """Project to q, k, v (B, S, heads, hd), k and v from ``kv_x`` when it
+    is given (cross-attention); apply qk-norm; tile kv heads to
+    kv_heads_eff."""
     dt = x.dtype
+    kv_in = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -197,12 +202,17 @@ _IMPLS = {
 
 def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, positions: torch.Tensor, *,
-                 causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Full (train/prefill) self-attention. x: (B, S, D)."""
-    q, k, v = _project_qkv(cfg, p, x)
-    if cfg.use_rope:
+                 causal: bool = True, window: int = 0,
+                 kv_x: torch.Tensor | None = None,
+                 kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Full (train/prefill) attention. x: (B, S, D). With ``kv_x`` (B, T,
+    D) it is cross-attention: keys and values come from ``kv_x`` at
+    ``kv_positions``, and no rotary embedding is applied."""
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+    if cfg.use_rope and kv_x is None:
         q, k = rope(q, k, positions, cfg.rope_theta)
-    out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, positions,
+    k_pos = positions if kv_positions is None else kv_positions
+    out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, k_pos,
                                 causal=causal, window=window)
     return _out_proj(p, out, x.dtype)
 

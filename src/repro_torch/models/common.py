@@ -429,6 +429,23 @@ def store_state(state: dict[str, torch.Tensor],
         state[name].copy_(t)
 
 
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings of ``positions`` (...,) in
+    fp32, (..., dim): ``[sin | cos]`` of ``position * exp(-log(10000) /
+    (dim // 2 - 1) * i)`` for ``i < dim // 2``."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        dim // 2, dtype=torch.float32, device=positions.device))
+    scaled = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device: torch.device | None = None) -> torch.Tensor:
+    """The sinusoids of positions 0 .. length - 1, (length, dim) in fp32."""
+    return sinusoid(torch.arange(length, device=device), dim)
+
+
 def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
          theta: float):
     """Rotary embeddings. q: (..., S, H, hd), positions: (..., S)."""

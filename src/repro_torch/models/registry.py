@@ -11,10 +11,12 @@ entry points the scheduler drives:
     init_params(generator, device)          -> parameter dict
     loss_fn(params, batch)                  -> (loss, metrics)
 
-The LM families (dense, MoE, VLM), the hybrid (recurrentgemma / Griffin)
-and the ssm family (xLSTM) are built here; the audio family comes with
-its slice. A VLM batch carries ``patches`` (B, num_patches, d_model)
-beside its tokens (``extra_inputs``, ``batch_shapes``).
+Every family of the reference is built here: the LM families (dense,
+MoE, VLM), the hybrid (recurrentgemma / Griffin), the ssm family (xLSTM)
+and the audio family (whisper's encoder-decoder). A VLM batch carries
+``patches`` (B, num_patches, d_model) beside its tokens, an audio batch
+``frames`` (B, num_frames, d_model) (``extra_inputs``, ``batch_shapes``;
+``draw_extra_inputs`` fills them as the training job's recipe does).
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from repro_torch.models import rglru, transformer, xlstm
+from repro_torch.models import encdec, rglru, transformer, xlstm
 from repro_torch.models.common import (ModelConfig, init_params,
                                        init_params_on_device, resolve_device)
 
@@ -62,18 +65,39 @@ class ModelBundle:
     def extra_inputs(self, batch_size: int
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """The family's inputs beside its tokens, name -> (shape, dtype): a
-        VLM's ``patches`` (B, num_patches, d_model); none for the others."""
+        VLM's ``patches`` (B, num_patches, d_model), an audio model's
+        ``frames`` (B, num_frames, d_model); none for the others."""
         cfg = self.cfg
         if cfg.family == "vlm":
             return {"patches": ((batch_size, cfg.num_patches, cfg.d_model),
                                 cfg.activation_dtype)}
+        if cfg.family == "audio":
+            return {"frames": ((batch_size, cfg.num_frames, cfg.d_model),
+                               cfg.activation_dtype)}
         return {}
+
+    def draw_extra_inputs(self, batch_size: int, rng: np.random.Generator,
+                          device: str | torch.device
+                          ) -> dict[str, torch.Tensor]:
+        """The :meth:`extra_inputs` of one training batch as the reference's
+        job recipe (``tpujob.py``) fills them, each step after its tokens:
+        a VLM's patches are zeros, an audio model's frames are standard
+        normal float32 draws from ``rng`` (the model casts them)."""
+        out = {}
+        for name, (shape, dtype) in self.extra_inputs(batch_size).items():
+            if name == "frames":
+                out[name] = torch.from_numpy(
+                    rng.normal(0, 1, shape).astype(np.float32)).to(device)
+            else:
+                out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        return out
 
     def batch_shapes(self, batch_size: int, seq_len: int
                      ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
         """A training or prefill batch's inputs, name -> (shape, dtype), as
         the reference's ``batch_struct`` gives them: a VLM's ``seq_len``
-        spans its patches and its text (at least 16 text tokens)."""
+        spans its patches and its text (at least 16 text tokens); an audio
+        batch's tokens are ``seq_len`` long beside its frames."""
         extra = self.extra_inputs(batch_size)
         s = seq_len
         if "patches" in extra:
@@ -85,7 +109,7 @@ class ModelBundle:
                    device: str | torch.device | None = None) -> Any:
         """The serving cache on ``device`` (the card when None): the
         stacked KV cache of an LM, the per-layer state list of the hybrid
-        and of the xLSTM."""
+        and of the xLSTM, whisper's self and cross caches."""
         return self.cache_fn(batch_size, max_len, resolve_device(device))
 
 
@@ -123,6 +147,15 @@ def build(cfg: ModelConfig) -> ModelBundle:
             cache_fn=lambda bsz, ml, dev: xlstm.init_xlstm_state(
                 cfg, bsz, ml, dev),
         )
-    raise NotImplementedError(
-        f"the {cfg.family!r} family waits for a later slice of the "
-        "PyTorch port")
+    if cfg.family == "audio":
+        return ModelBundle(
+            cfg=cfg,
+            specs=encdec.make_whisper_specs(cfg),
+            prefill_fn=lambda p, b, c: encdec.whisper_prefill(cfg, p, b, c),
+            decode_fn=lambda p, c, t, pos: encdec.whisper_decode_step(
+                cfg, p, c, t, pos),
+            loss_fn=lambda p, b: encdec.whisper_loss(cfg, p, b),
+            cache_fn=lambda bsz, ml, dev: encdec.init_whisper_cache(
+                cfg, bsz, ml, dev),
+        )
+    raise NotImplementedError(f"unknown family {cfg.family!r}")

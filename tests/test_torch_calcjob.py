@@ -615,7 +615,9 @@ def test_backoff_failure_counts_parity_with_reference():
 def _direct_losses(config: dict) -> list[float]:
     """The job's recipe written out: reduced config, the train step on the
     CPU, batches drawn from ``default_rng(seed)``; a VLM's patches are
-    zeros, as ``repro/calcjobs/tpujob.py`` makes them."""
+    zeros and an audio model's frames the generator's standard-normal
+    draws after each step's tokens, as ``repro/calcjobs/tpujob.py`` makes
+    them."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.registry import build
     from repro_torch.training.optim import OptimConfig
@@ -639,6 +641,9 @@ def _direct_losses(config: dict) -> list[float]:
                  "labels": torch.from_numpy(tokens[:, 1:].copy())}
         if cfg.family == "vlm":
             batch["patches"] = torch.zeros(b, cfg.num_patches, cfg.d_model)
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.normal(
+                0, 1, (b, cfg.num_frames, cfg.d_model)).astype(np.float32))
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
     return losses
@@ -651,11 +656,15 @@ def test_job_losses_equal_direct_loop_to_the_bit(store, runner):
     assert outputs["metrics"].value["losses"] == _direct_losses(config)
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "moonshot-v1-16b-a3b"])
+FAMILY_ARCHS = ["llava-next-34b", "moonshot-v1-16b-a3b", "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_job_losses_equal_the_recipe(store, runner, arch):
     """A VLM job feeds the model zero patches beside its tokens (the
-    reference's recipe), a MoE job trains with its aux loss: each finishes
-    ok with the losses of the recipe run directly, to the bit."""
+    reference's recipe), an audio job frames drawn after each step's
+    tokens, a MoE job trains with its aux loss: each finishes ok with the
+    losses of the recipe run directly, to the bit."""
     config = {**SMALL, "arch": arch, "steps": 2, "seed": 5}
     outputs, proc = runner.run(GPUTrainJob, {"config": Dict(config)})
     assert proc.is_finished_ok
@@ -664,15 +673,13 @@ def test_family_job_losses_equal_the_recipe(store, runner, arch):
     assert all(math.isfinite(x) for x in losses)
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "moonshot-v1-16b-a3b"])
-def test_family_job_losses_equal_the_reference_recipe(store, runner, arch,
-                                                      monkeypatch):
-    """The port's job against ``tpujob.py``'s recipe, run as the reference
-    runs it (its build, its zero patches, its train step), from the port
-    job's initial parameters bridged to the reference: the losses agree
-    at 1e-4 relative. In float32 (the ``overrides`` both recipes apply),
-    so that the bound tests the batch layout and the aux loss, not bf16
-    rounding."""
+def _job_and_reference_recipe_losses(runner, arch, monkeypatch):
+    """(the port's job's losses, ``tpujob.py``'s recipe's losses): the
+    recipe run as the reference runs it (its build, its zero patches or
+    drawn frames, its train step), from the port job's initial parameters
+    bridged to the reference. In float32 (the ``overrides`` both recipes
+    apply), so that a bound on them tests the batch layout and the aux
+    loss, not bf16 rounding."""
     import jax
     import jax.numpy as jnp
 
@@ -708,7 +715,35 @@ def test_family_job_losses_equal_the_reference_recipe(store, runner, arch,
     want = json.loads(tpu_train_executable(
         {"config.json": json.dumps(ref_config).encode()})["metrics.json"])
     assert len(losses) == len(want["losses"]) == 2
-    np.testing.assert_allclose(losses, want["losses"], rtol=1e-4)
+    return losses, want["losses"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_job_losses_equal_the_reference_recipe(store, runner, arch,
+                                                      monkeypatch):
+    """The port's job against ``tpujob.py``'s recipe from the same initial
+    parameters: the losses agree at 1e-4 relative."""
+    losses, want = _job_and_reference_recipe_losses(runner, arch, monkeypatch)
+    np.testing.assert_allclose(losses, want, rtol=1e-4)
+
+
+def test_audio_job_with_zero_frames_leaves_the_reference_recipe(
+        store, runner, monkeypatch):
+    """The mutation the test above must catch: an audio job fed frames of
+    zeros (a VLM's fill) instead of the recipe's draws gives losses more
+    than 1e-4 relative from the reference's recipe."""
+    from repro_torch.models.registry import ModelBundle
+
+    def zero_fill(self, batch_size, rng, device):
+        return {name: torch.zeros(shape, dtype=dtype, device=device)
+                for name, (shape, dtype)
+                in self.extra_inputs(batch_size).items()}
+
+    monkeypatch.setattr(ModelBundle, "draw_extra_inputs", zero_fill)
+    losses, want = _job_and_reference_recipe_losses(
+        runner, "whisper-large-v3", monkeypatch)
+    rel = np.abs(np.subtract(losses, want)) / np.abs(want)
+    assert rel.max() > 1e-4, (losses, want)
 
 
 def test_job_device_is_part_of_the_fingerprint(store, runner):

@@ -794,3 +794,105 @@ def test_gpu_train_job_on_the_card_launches_the_flash_kernels(cuda):
     assert metrics["steps"] == 2
     assert all(math.isfinite(x) for x in metrics["losses"])
     assert all(c.launches > n for c, n in zip(counters, before))
+
+
+def _whisper_on(cfg_over: dict, seed: int):
+    """The reduced whisper in float32 with ``cfg_over``, its parameters
+    from ``seed`` on the host with the attention projections fan-in
+    scaled, and a batch of 2 rows of 16 frames.
+
+    The reference's init takes a projection's fan-in from its shape[-2]
+    (the head count), which makes the softmax nearly an argmax and
+    amplifies float32 rounding: at that init the card's gradients and
+    the CPU's differ by more than 1e-3 of a leaf's norm, as the port's
+    CPU gradients differ from the reference's by up to 6e-4. Scaled,
+    those agree to 1e-6 (``tests/test_torch_encdec.py``)."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.registry import build
+
+    cfg = reduced_config("whisper-large-v3").replace(
+        dtype="float32", kv_cache_dtype="float32", **cfg_over)
+    bundle = build(cfg)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (2, 13)).astype(np.int64)
+    batch = {"frames": torch.from_numpy(rng.normal(0, 1, (
+                 2, cfg.num_frames, cfg.d_model)).astype(np.float32)),
+             "tokens": torch.from_numpy(tokens[:, :-1]),
+             "labels": torch.from_numpy(tokens[:, 1:])}
+    params = bundle.init_params(seed, "cpu")
+    for stack, names in (("enc_layers", ("attn",)),
+                         ("dec_layers", ("self_attn", "cross_attn"))):
+        for name in names:
+            a = params[stack][name]
+            for w in ("wq", "wk", "wv"):
+                a[w] = a[w] * (a[w].shape[-2] / cfg.d_model) ** 0.5
+            a["wo"] = a["wo"] * (a["wo"].shape[-2]
+                                 / (cfg.num_heads * cfg.hd)) ** 0.5
+    return cfg, bundle, params, batch
+
+
+def test_whisper_card_greedy_tokens_equal_the_cpus(cuda):
+    """The reduced whisper's float32 greedy tokens (a 4-token prompt, 7
+    new tokens) with the flash and decode kernels on the card equal the
+    plain versions' on the CPU, from the same parameters; the decode
+    kernel launches once per decoder layer and step."""
+    from repro_torch.models.common import map_tree
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    cfg, bundle, params, batch = _whisper_on(
+        {"attn_impl": "pallas", "decode_impl": "pallas"}, 8)
+    batch = {"frames": batch["frames"], "tokens": batch["tokens"][:, :4]}
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    runs = {}
+    before = da_ops.decode_attention.launches
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), params)
+        tok, cache = prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                             bundle.init_cache(2, 16, dev))
+        seq = [tok.cpu()]
+        for i in range(6):
+            tok, cache = decode(p, cache, tok.long(),
+                                torch.tensor(4 + i, device=dev))
+            seq.append(tok.cpu())
+        runs[str(dev)] = torch.cat(seq, dim=1)
+    assert da_ops.decode_attention.launches - before == 6 * cfg.num_layers
+    assert torch.equal(runs["cpu"], runs[str(cuda)])
+
+
+def test_whisper_card_loss_and_grads_equal_the_cpus(cuda):
+    """The reduced whisper's float32 loss (1e-4 relative) and every
+    gradient leaf (1e-3 of its norm) on the card, where the decoder's
+    self-attention runs the flash forward and both backward passes,
+    against the CPU's plain versions."""
+    import numpy as np
+
+    from repro_torch.models.common import map_tree, tree_leaves
+
+    cfg, bundle, params, batch = _whisper_on({"attn_impl": "pallas"}, 9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    out = {}
+    for dev in ("cpu", cuda):
+        before = [c.launches for c in counters]
+        live = map_tree(lambda t: t.detach().to(dev).requires_grad_(True),
+                        params)
+        loss, _ = bundle.loss_fn(live, {k: v.to(dev)
+                                        for k, v in batch.items()})
+        loss.backward()
+        out[str(dev)] = (loss.item(), {k: t.grad.cpu().double().numpy()
+                                       for k, t in tree_leaves(live)},
+                         [c.launches - n for c, n in zip(counters, before)])
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = out["cpu"], \
+        out[str(cuda)]
+    assert n_cpu == [0, 0, 0] and all(n >= cfg.num_layers for n in n_card)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    errs = {}
+    for key, want in g_cpu.items():
+        if key.endswith("/bk"):       # no gradient: rounding on both sides
+            assert np.abs(g_card[key]).max() < 1e-5, key
+            continue
+        errs[key] = np.linalg.norm(g_card[key] - want) / np.linalg.norm(want)
+    assert max(errs.values()) < 1e-3, errs

@@ -309,12 +309,6 @@ def test_prefill_equals_stepwise_decode(arch, decode_impl):
     assert seq_a == seq_b
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3"])
-def test_families_of_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build(reduced_config(arch))
-
-
 def test_routes_of_later_slices_raise(tmp_path):
     """The multi-device meshes wait for their slice; the launcher says so
     before it builds anything."""

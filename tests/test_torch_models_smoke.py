@@ -1,10 +1,11 @@
 """Twin of ``tests/test_models_smoke.py`` for the port's LM families
-(dense, MoE, VLM), on the CPU at reduced size: the forward pass, a train
+(dense, MoE, VLM) and the audio family (whisper), on the CPU at reduced
+size: the forward pass, a train
 step and the serving path (prefill + decode) of every LM arch, each held
 against the reference given the reference's parameters; the full
 configs' numbers and parameter trees, computed from the specs without
 allocating; the bf16 init route of the full-width runs, and the batch
-layout a VLM takes.
+layout a VLM and an audio model take.
 
 Parameters cross through numpy, batches are made with numpy from fixed
 seeds. float32 losses are held at 1e-4 relative and the grad norm at
@@ -37,12 +38,13 @@ from repro_torch.training import optim as O
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
 ARCHS = [a for a in ARCH_IDS if a != "aiida-demo-110m"
-         and get_config(a).family in LM_FAMILIES]
+         and get_config(a).family in (*LM_FAMILIES, "audio")]
 
 
 def _np_batch(bundle, b, s, seed):
     """A batch of ``bundle.batch_shapes``: integer inputs in the vocab,
-    float inputs (a VLM's patches) standard normal."""
+    float inputs (a VLM's patches, an audio model's frames) standard
+    normal."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, (shape, dtype) in bundle.batch_shapes(b, s).items():
@@ -187,7 +189,8 @@ def _spec_shapes(tree):
 #: parameters of the full configs served on the card, from the
 #: reference's specs
 FULL_PARAMS = {"moonshot-v1-16b-a3b": 28_057_995_264,
-               "llava-next-34b": 34_440_297_472}
+               "llava-next-34b": 34_440_297_472,
+               "whisper-large-v3": 1_535_718_400}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -211,13 +214,23 @@ def test_full_config_parameter_tree_matches_reference(arch):
         assert mine["layers/moe/router"] == (48, 2048, 64)
     if arch == "llava-next-34b":
         assert mine["mm_projector"] == (7168, 7168)
+    if arch == "whisper-large-v3":
+        assert mine["enc_layers/mlp/w1"] == (32, 1280, 5120)
+        assert mine["dec_layers/cross_attn/wk"] == (32, 1280, 20, 64)
 
 
 # ---------------------------------------------------------------------------
 # the init of full-width runs, and a VLM's batch
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "llava-next-34b"])
+#: per family served at full width, a norm leaf (all ones) and the
+#: largest normal leaf
+INIT_LEAVES = {"moonshot-v1-16b-a3b": ("ln_final", "layers/moe/w_gate"),
+               "llava-next-34b": ("ln_final", "mm_projector"),
+               "whisper-large-v3": ("enc_ln/w", "enc_layers/mlp/w1")}
+
+
+@pytest.mark.parametrize("arch", sorted(INIT_LEAVES))
 def test_init_on_device_follows_the_init_rules(arch):
     """The route the full-width runs take (there with a generator on the
     card): every leaf in the config's param dtype, drawn where the
@@ -234,9 +247,9 @@ def test_init_on_device_follows_the_init_rules(arch):
         assert a.dtype == torch.bfloat16, path
         assert torch.equal(a, b), path
     flat = dict(leaves)
-    assert torch.equal(flat["ln_final"], torch.ones(cfg.d_model,
-                                                    dtype=torch.bfloat16))
-    big = "layers/moe/w_gate" if cfg.family == "moe" else "mm_projector"
+    norm, big = INIT_LEAVES[arch]
+    assert torch.equal(flat[norm], torch.ones(cfg.d_model,
+                                              dtype=torch.bfloat16))
     w = flat[big].float()
     want = w.shape[-2] ** -0.5
     assert abs(float(w.std()) - want) < 0.05 * want

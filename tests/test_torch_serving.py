@@ -284,7 +284,7 @@ def test_port_imports_neither_jax_nor_repro():
     names = proc.stdout.split("NAMES")[1].split("\n")[0].split()
     for mod in ("training.data", "training.optim", "training.train_step",
                 "training.checkpoint", "launch.train", "models.xlstm",
-                "kernels.mlstm_chunk.ops", "kernels.mlstm_chunk.ref",
+                "models.encdec", "kernels.mlstm_chunk.ops", "kernels.mlstm_chunk.ref",
                 "observability.metrics", "observability.trace",
                 "observability.timeline", "chaos.faults",
                 "provenance.repository", "provenance.store",
