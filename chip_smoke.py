@@ -205,13 +205,13 @@ then:
 21. one ``GPUTrainJob`` per family through a ``Runner`` at full width:
    moonshot (8 x 1024 tokens) and llava (2 x (2880 patches + 128
    tokens)) at 2 layers (the card's memory: fp32 parameters, gradients
-   and AdamW moments) for 3 steps, whisper at full depth (32 + 32
-   layers, 1.54 B parameters; 4 x 448 tokens beside 1500 frames per row,
-   drawn as the reference's job recipe draws them) for 2 steps (each
-   69-92 s of host launches; 3 took the smoke past 900 s): finished
+   and AdamW moments) for 3 steps, whisper at 8 encoder and 8 decoder
+   layers of its 32 + 32 (the smoke's time: at full depth the job took
+   301.70 s for 2 steps) for 2 steps, 4 x 448 tokens beside 1500 frames
+   per row, drawn as the reference's job recipe draws them: finished
    ok, finite
    losses, every flash forward, recompute, dq and dk/dv launch on the
-   tensor-core bodies (64 / 32 / 32 per whisper step: its decoder's
+   tensor-core bodies (16 / 8 / 8 per whisper step: its decoder's
    self-attention), moonshot's aux loss finite and positive; prints
    losses, aux, peak memory, wall;
 22. serves ``whisper-large-v3`` (audio, encoder-decoder) at full width
@@ -235,10 +235,21 @@ then:
    1500 frames and a 4-token prompt, 16 new tokens: greedy tokens on the
    card (the flash and decode kernels) identical to the CPU's (plain
    versions), from the same parameters (attention projections fan-in
-   scaled); prints the smallest top-2 logit margin.
+   scaled); prints the smallest top-2 logit margin;
+24. serves ``aiida-demo-110m`` at full width and depth in bf16 through a
+   1 x 1 NCCL device mesh (one rank; ``make_rules(..., fsdp=False)``,
+   parameters and cache placed by ``distribute_tree``, the serving steps
+   under ``axis_rules``, the kernels on each rank's local shards) and
+   without one, in turns (plain, mesh, mesh, plain): 4 rows of 700
+   prompt tokens from seed 0, 64 new tokens, cache 1024; requires
+   identical tokens and equal decode (12 per step) and flash (12, all on
+   the tensor-core body) launches; prints the host ms per decode step
+   both ways beside the ``nvidia-smi`` line (DTensor's dispatch is the
+   mesh's own cost on a host-bound step) and a profiled decode step each
+   way (device time, idle share, launches).
 
-Prints a ``{"kernels": [...]}`` line (each kernel with the body that ran
-it), the ``nvidia-smi`` line, and as the
+Prints the smoke's wall, a ``{"kernels": [...]}`` line (each kernel with
+the body that ran it), the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -3069,7 +3080,7 @@ VLM_PARITY_PATCHES, VLM_PARITY_TEXT = 256, 32
 # phase 21: one GPUTrainJob per family, 2 layers (the card's memory:
 # fp32 parameters, gradients and AdamW moments), 3 steps
 FAMILY_TRAIN_LAYERS, FAMILY_TRAIN_STEPS = 2, 3
-AUDIO_TRAIN_STEPS = 2
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_LAYERS = 2, 8
 FAMILY_JOBS = {
     MOE: {"arch": MOE, "reduced": False, "steps": FAMILY_TRAIN_STEPS,
           "batch": 8, "seq": 1024,
@@ -3079,13 +3090,21 @@ FAMILY_JOBS = {
           "batch": 2, "seq": 128,
           "overrides": {"num_layers": FAMILY_TRAIN_LAYERS,
                         "attn_impl": "pallas"}},
-    # whisper at full depth: 1.54 B fp32 parameters, their gradients and
-    # AdamW's moments (24.6 GB) fit the card; 4 rows of 448 tokens beside
-    # 1500 frames each; 2 steps, each 69-92 s of host launches (the
-    # chunked loop's), to keep the smoke inside its time
+    # whisper at 8 + 8 of its 32 + 32 layers: at full depth each step was
+    # 69-92 s of host launches (the chunked loop's) and the job 301.70 s
+    # for 2 steps, the smoke's largest item; 4 rows of 448 tokens beside
+    # 1500 frames each
     AUDIO: {"arch": AUDIO, "reduced": False, "steps": AUDIO_TRAIN_STEPS,
             "batch": 4, "seq": AUDIO_MAX_LEN,
-            "overrides": {"attn_impl": "pallas"}},
+            "overrides": {"attn_impl": "pallas",
+                          "num_layers": AUDIO_TRAIN_LAYERS,
+                          "encoder_layers": AUDIO_TRAIN_LAYERS}},
+}
+#: why each job runs below its config's depth
+FAMILY_TRAIN_CUTS = {
+    MOE: "the card's memory: fp32 parameters, gradients and AdamW moments",
+    VLM: "the card's memory: fp32 parameters, gradients and AdamW moments",
+    AUDIO: "the smoke's time: the full-depth job took 301.70 s for 2 steps",
 }
 
 
@@ -3483,8 +3502,8 @@ def family_parity_phase(torch, da_ops, fa_ops) -> dict:
 def family_train_phase(torch, fa_ops) -> dict:
     """One ``GPUTrainJob`` per family through a ``Runner`` at full width,
     the MoE and the VLM at 2 layers (the card's memory: fp32 parameters,
-    gradients and AdamW moments) for 3 steps, whisper at full depth for
-    2: finished ok, finite losses, every flash launch (forward, its remat recompute, dq
+    gradients and AdamW moments) for 3 steps, whisper at 8 + 8 layers (the
+    smoke's time) for 2: finished ok, finite losses, every flash launch (forward, its remat recompute, dq
     and dk/dv; whisper's decoder self-attention only, its encoder and
     cross-attention being on the chunked path) on the tensor-core bodies,
     and the MoE's aux loss positive and finite at every layer call."""
@@ -3557,8 +3576,7 @@ def family_train_phase(torch, fa_ops) -> dict:
                 check(not aux, f"{arch} ran a MoE layer")
             cut = None if layers == get_config(arch).num_layers else (
                 f"depth {layers} of {get_config(arch).num_layers} layers "
-                "(the card's memory: fp32 parameters, gradients and AdamW "
-                "moments)")
+                f"({FAMILY_TRAIN_CUTS[arch]})")
             result[arch] = {
                 "layers": layers, "cut": cut,
                 "batch": config["batch"], "seq": config["seq"],
@@ -3832,6 +3850,155 @@ def audio_parity_phase(torch, da_ops, fa_ops) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the dense LM served through a device mesh
+# ---------------------------------------------------------------------------
+
+# rows, prompt tokens, new tokens (the first from the prefill), cache:
+# phase 4's longest prompt, its new-token count and its cache
+MESH_BATCH, MESH_PROMPT, MESH_NEW, MESH_MAX_LEN = 4, 700, 64, 1024
+
+
+def mesh_greedy(torch, bundle, params, cache, prompts, counters,
+                profile: bool) -> dict:
+    """A prefill of ``prompts`` and ``MESH_NEW - 1`` decode steps through
+    the serving steps, each step's tokens read on the host: the tokens,
+    the host ms of each decode step and each counter's launches; with
+    ``profile``, also a profiled decode step (device time, idle share)."""
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    zero_counters(counters)
+    tok, cache = prefill(params, {"tokens": prompts}, cache)
+    toks = [tok.cpu()]
+    pos = torch.full((prompts.shape[0],), prompts.shape[1],
+                     dtype=torch.int32, device="cuda")
+    step_ms = []
+    for _ in range(MESH_NEW - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, cache = decode(params, cache, tok, pos)
+        toks.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        pos = pos + 1
+    step_ms.sort()
+    out = {"tokens": torch.cat(toks, dim=1),
+           "step_ms_median": step_ms[len(step_ms) // 2],
+           "launches": {c.__name__: c.launches for c in counters},
+           "tensor_core_launches": {
+               c.__name__: c.tensor_core_launches for c in counters
+               if hasattr(c, "tensor_core_launches")}}
+    if profile:
+        # the last step again (it rewrites the same cache position)
+        out["profile"] = device_share(
+            torch, lambda: decode(params, cache, tok, pos - 1)[0].cpu(), 5,
+            expect="decode_attention")
+    return out
+
+
+def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
+    """Full-width, full-depth ``aiida-demo-110m`` in bf16 through a 1 x 1
+    NCCL mesh (``make_rules(..., fsdp=False)``; parameters and cache placed
+    by ``distribute_tree``, the steps under ``axis_rules``) against the
+    same run without rules: 4 rows of 700 prompt tokens from seed 0, 64
+    new tokens, cache 1024. Identical tokens, equal decode and flash
+    launches (every flash launch on the tensor-core body, every local
+    shard on the card); the host ms per decode step both ways, run in
+    turns (plain, mesh, mesh, plain)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import (get_config, make_serving_mesh,
+                                     setup_devices)
+    from repro_torch.configs.devices import RENDEZVOUS_ENV
+    from repro_torch.distributed.sharding import distribute_tree, make_rules
+    from repro_torch.models.common import (axis_rules, cast_for_compute,
+                                           tree_leaves)
+    from repro_torch.models.registry import build
+
+    cfg = get_config(ARCH).replace(attn_impl="pallas", decode_impl="pallas")
+    bundle = build(cfg)
+    params = cast_for_compute(
+        bundle.init_params(torch.Generator().manual_seed(0), "cuda"),
+        cfg.activation_dtype, torch.device("cuda"))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    ).to("cuda")
+    counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="mesh_", dir=ROOT / "build")
+    rank_env = {"RANK": "0", "WORLD_SIZE": "1",
+                RENDEZVOUS_ENV: os.path.join(tmp.name, "rendezvous")}
+    os.environ.update(rank_env)
+    try:
+        setup_devices("cuda", 1)
+        mesh = make_serving_mesh(data=1, model=1)
+        rules = make_rules(cfg, mesh, fsdp=False)
+        notes: list[str] = []
+        mesh_params = distribute_tree(params, bundle.param_axes(), rules,
+                                      mesh, notes)
+        check(all(t.to_local().is_cuda
+                  for _, t in tree_leaves(mesh_params)),
+              "a parameter shard is not on the card")
+
+        def plain(profile=False):
+            return mesh_greedy(torch, bundle, params, bundle.init_cache(
+                MESH_BATCH, MESH_MAX_LEN, "cuda"), prompts, counters,
+                profile)
+
+        def meshed(profile=False):
+            cache = distribute_tree(
+                bundle.init_cache(MESH_BATCH, MESH_MAX_LEN, "cuda"),
+                bundle.cache_axes(), rules, mesh)
+            with axis_rules(mesh, rules):
+                return mesh_greedy(torch, bundle, mesh_params, cache,
+                                   prompts, counters, profile)
+
+        plain()                       # warm-up: library handles, allocator
+        runs = [("plain", plain()), ("mesh", meshed()),
+                ("mesh", meshed(True)), ("plain", plain(True))]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in rank_env:
+            os.environ.pop(name, None)
+        tmp.cleanup()
+    layers = cfg.num_layers
+    want = {"decode_attention": layers * (MESH_NEW - 1),
+            "flash_attention_fwd": layers}
+    base = runs[0][1]["tokens"]
+    for kind, run in runs:
+        check(torch.equal(run["tokens"], base),
+              f"{kind} tokens differ from the first plain run's")
+        check(run["launches"] == want,
+              f"{kind} launches {run['launches']} != {want}")
+        check(run["tensor_core_launches"]["flash_attention_fwd"]
+              == layers, f"{kind} flash launches missed the tensor cores")
+    check(bool(((base >= 0) & (base < cfg.vocab_size)).all()),
+          "a generated token is out of vocab")
+    ms = {kind: [r["step_ms_median"] for k, r in runs if k == kind]
+          for kind in ("plain", "mesh")}
+    result = {
+        "rows": MESH_BATCH, "prompt": MESH_PROMPT, "new_tokens": MESH_NEW,
+        "max_len": MESH_MAX_LEN, "mesh": {"data": 1, "model": 1},
+        "placement_notes": notes, "tokens_identical": True,
+        "launches": want,
+        "decode_step_ms_median": ms,
+        "mesh_host_ms_per_step": (sum(ms["mesh"]) - sum(ms["plain"]))
+        / len(ms["mesh"]),
+        "profiled_decode_step": {k: r["profile"] for k, r in runs
+                                 if "profile" in r},
+        "nvidia_smi": smi}
+    print(f"mesh serve (runs plain, mesh, mesh, plain; {smi}): decode step "
+          f"ms {ms}")
+    print("mesh serve: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3857,7 +4024,7 @@ def main() -> int:
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    t = time.perf_counter()
+    t_start = t = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t:.1f}s")
     for name in libs:
@@ -3909,6 +4076,7 @@ def main() -> int:
     family_train = family_train_phase(torch, fa_ops)
     audio = audio_serve_phase(torch, da_ops, fa_ops)
     audio_parity = audio_parity_phase(torch, da_ops, fa_ops)
+    mesh = mesh_serve_phase(torch, da_ops, fa_ops, smi)
 
     def trained_families(name):
         return sum(family_train[a]["launches"][name] for a in (MOE, VLM))
@@ -3918,15 +4086,16 @@ def main() -> int:
 
     # launches on each main path (serving, training, hybrid and ssm
     # serving, the engine, the calcjob, the pretraining chain, MoE and
-    # VLM serving, their training, whisper's serving and training), each
-    # counted from 0
+    # VLM serving, their training, whisper's serving and training, the
+    # dense LM served through a mesh), each counted from 0
     by_path = {
         "decode_attention": {
             "serve": served["decode_launches"],
             "engine": engine["decode_launches"],
             "moe_serve": moe["launches"]["decode_attention"],
             "vlm_serve": vlm["launches"]["decode_attention"],
-            "audio_serve": audio["launches"]["decode_attention"]},
+            "audio_serve": audio["launches"]["decode_attention"],
+            "mesh_serve": mesh["launches"]["decode_attention"]},
         "flash_attention_fwd": {
             "serve": served["flash_launches"],
             "train": trained["launches"]["flash_attention_fwd"],
@@ -3936,7 +4105,8 @@ def main() -> int:
             "vlm_serve": vlm["launches"]["flash_attention_fwd"],
             "family_train": trained_families("flash_attention_fwd"),
             "audio_serve": audio["launches"]["flash_attention_fwd"],
-            "audio_train": audio_train("flash_attention_fwd")},
+            "audio_train": audio_train("flash_attention_fwd"),
+            "mesh_serve": mesh["launches"]["flash_attention_fwd"]},
         "flash_attention_bwd_dq": {
             "train": trained["launches"]["flash_attention_bwd_dq"],
             "calcjob": calcjob["flash_attention_bwd_dq"],
@@ -3971,10 +4141,12 @@ def main() -> int:
          "workflow": workflow, "engine17": engine17, "moe_serve": moe,
          "vlm_serve": vlm, "family_parity": family_parity,
          "family_train": family_train, "audio_serve": audio,
-         "audio_parity": audio_parity}, indent=1))
+         "audio_parity": audio_parity, "mesh_serve": mesh,
+         "smoke_wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in kernels]}))
     print(smi)

@@ -1,13 +1,15 @@
 """Assigned architecture configs, as data. ``get_config('<arch-id>')``
 accepts the public ids with dashes (e.g. ``deepseek-67b``).
 
-Counterpart of ``repro.configs``; the device and mesh helpers there wait
-for the port's multi-device slice."""
+Counterpart of ``repro.configs``, with the process-group and mesh helpers
+(:mod:`repro_torch.configs.devices`)."""
 
 from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.devices import (make_serving_mesh, setup_devices,
+                                         spawn_ranks)
 from repro_torch.models.common import ModelConfig
 
 ARCH_IDS = [

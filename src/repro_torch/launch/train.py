@@ -10,7 +10,8 @@ step -> checkpoints in the reference's format, with resume from the
 latest. As in the reference, a resume restores the train state and
 starts the data stream afresh from its seed. A NaN loss exits with code
 310, the engine's code for it. Meshes above one device wait for the
-port's multi-device slice.
+multi-device slice that shards training (sharded serving runs through
+:mod:`repro_torch.serving.serve` under a mesh).
 """
 
 from __future__ import annotations
@@ -56,8 +57,10 @@ def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     if args.data_mesh > 1 or args.model_mesh > 1:
         raise NotImplementedError(
-            "data/model meshes above one device wait for the port's "
-            "multi-device slice (ROADMAP queue 1, item 6)")
+            "training on a data/model mesh above one device waits for the "
+            "multi-device slice that shards training (ROADMAP queue 1, "
+            "item 2.1: optimizer-state axes, per-shard checkpoints, data "
+            "by rank)")
     device = torch.device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     bundle = build(cfg)

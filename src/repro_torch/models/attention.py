@@ -18,17 +18,33 @@ The KV cache is updated in place: :func:`attn_decode` and
 are given (the reference returns a new pytree) and return that dict. With
 ``window > 0`` the cache is a ring buffer: position ``pos`` lives in slot
 ``pos % window``.
+
+Under a mesh (:class:`~repro_torch.models.common.axis_rules`) the
+activations and the cache are DTensors placed by the reference's
+``shard`` sites (:func:`kv_cache_axes` for the cache). The kernels take
+plain tensors, so each runs on every rank's local shards
+(:func:`~repro_torch.models.common.on_local_shards`): under
+``attn_sharding="heads"`` a rank holds H/model query and Hkv/model KV
+heads, the group size unchanged (where model does not divide Hkv the KV
+heads stay whole on every rank, and the kernel reads only those its
+query heads map to: :func:`_kv_heads_read`); under ``"sequence"`` the kernel's
+inputs are first gathered along the sequence dim, as GSPMD does for an
+opaque custom call. A cache write lands on the rank that owns the
+position, in its local shard.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.common import ModelConfig, ParamSpec, rms_norm, rope
+from repro_torch.models.common import (ModelConfig, ParamSpec, as_dtensor,
+                                       is_dtensor, local_offsets,
+                                       on_local_shards, rms_norm, rope, shard)
 
 NEG_INF = -2.0e30
 
@@ -87,6 +103,24 @@ def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
         k = torch.repeat_interleave(k, cfg.kv_repeat, dim=2)
         v = torch.repeat_interleave(v, cfg.kv_repeat, dim=2)
     return q, k, v
+
+
+def _shard_qkv(cfg: ModelConfig, q, k, v):
+    if cfg.attn_sharding == "heads":
+        q = shard(q, "batch", None, "heads_sharded", None)
+        k = shard(k, "batch", None, "kv_heads_sharded", None)
+        v = shard(v, "batch", None, "kv_heads_sharded", None)
+    else:  # sequence/context parallel: shard q along seq, kv batch-only
+        q = shard(q, "batch", "seq_sharded", None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+    return q, k, v
+
+
+def _shard_out(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
+    if cfg.attn_sharding == "heads":
+        return shard(out, "batch", None, "heads_sharded", None)
+    return shard(out, "batch", "seq_sharded", None, None)
 
 
 def _out_proj(p: dict[str, torch.Tensor], out: torch.Tensor,
@@ -174,6 +208,30 @@ def _chunked_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _kv_heads_read(q: torch.Tensor, k: torch.Tensor, qdim: int
+                   ) -> torch.Tensor | None:
+    """The KV heads that this rank's query heads read, where the rules
+    split the query heads (dim ``qdim`` of ``q``) but not the KV heads
+    (dim 2 of ``k``); else None.
+
+    ``resolve_spec`` leaves the Hkv heads whole when model does not divide
+    them, while H/model query heads stay on each rank, so the local group
+    is no longer H/Hkv. Global query head i reads KV head i // (H/Hkv).
+    The local heads fall into blocks of gcd(H/model, H/Hkv), each inside
+    one KV group, and the kernel takes one KV head per block: the returned
+    indices, in order."""
+    if not (is_dtensor(q) and is_dtensor(k)):
+        return None
+    h, hkv = q.shape[qdim], k.shape[2]
+    hl = q.to_local().shape[qdim]
+    if hl == h or k.to_local().shape[2] != hkv:
+        return None
+    g = h // hkv
+    first = local_offsets(q)[qdim]
+    return torch.arange(first, first + hl, math.gcd(hl, g),
+                        device=k.device) // g
+
+
 def _kernel_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
                       window) -> torch.Tensor:
     """The flash-attention kernels (``attn_impl='pallas'``), differentiable
@@ -184,9 +242,23 @@ def _kernel_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
                                   window=window)
     # The reference passes q_pos[0], an array, which its wrapper turns into
     # offset 0; the sequences here always start at position 0.
-    return fa_ops.flash_attention(
-        q, k.contiguous(), v.contiguous(), causal=True, window=window,
-        scale=_scale(cfg, q.shape[-1]), softcap=cfg.attn_softcap, q_offset=0)
+    kv_heads = None
+    if cfg.attn_sharding == "heads":
+        q_axes = ("batch", None, "heads_sharded", None)
+        kv_axes = ("batch", None, "kv_heads_sharded", None)
+        kv_heads = _kv_heads_read(q, k, 2)
+    else:   # the whole sequence on every rank
+        q_axes = kv_axes = ("batch", None, None, None)
+
+    def flash(q, k, v):
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
+        return fa_ops.flash_attention(
+            q, k.contiguous(), v.contiguous(), causal=True, window=window,
+            scale=_scale(cfg, q.shape[-1]), softcap=cfg.attn_softcap,
+            q_offset=0)
+
+    return on_local_shards(flash, (q, k, v), (q_axes, kv_axes, kv_axes))
 
 
 _IMPLS = {
@@ -211,10 +283,11 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     q, k, v = _project_qkv(cfg, p, x, kv_x)
     if cfg.use_rope and kv_x is None:
         q, k = rope(q, k, positions, cfg.rope_theta)
+    q, k, v = _shard_qkv(cfg, q, k, v)
     k_pos = positions if kv_positions is None else kv_positions
     out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, k_pos,
                                 causal=causal, window=window)
-    return _out_proj(p, out, x.dtype)
+    return _out_proj(p, _shard_out(cfg, out), x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +329,39 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def kv_cache_axes(cfg: ModelConfig, *, layers: bool = True
+                  ) -> dict[str, tuple]:
+    """Logical axes of the cache (leading 'layers' when stacked)."""
+    lead = ("layers",) if layers else ()
+    if cfg.attn_sharding == "heads":
+        ax = lead + ("kv_batch", None, "kv_heads_sharded", None)
+    else:
+        ax = lead + ("kv_batch", "kv_seq_sharded", None, None)
+    out = {"k": ax, "v": ax}
+    if cfg.kv_cache_dtype == "int8":
+        out["k_scale"] = ax[:-1] + (None,)
+        out["v_scale"] = ax[:-1] + (None,)
+    return out
+
+
+def _write_local(buf: torch.Tensor, u: torch.Tensor, write) -> None:
+    """``write(buf, u, row0, pos0)`` on the tensors this rank holds: for a
+    DTensor ``buf`` (B, Smax, ...), its local shard, whose first row and
+    position are ``row0`` and ``pos0`` of the whole, and ``u`` (B, n, ...)
+    placed like it but whole along the position dim; else ``buf`` and
+    ``u`` themselves at 0, 0."""
+    if not is_dtensor(buf):
+        write(buf, u.to(buf.dtype), 0, 0)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    pl = tuple(Replicate() if p == Shard(1) else p for p in buf.placements)
+    u_local = as_dtensor(u, mesh).redistribute(mesh, pl).to_local()
+    row0, pos0 = local_offsets(buf)[:2]
+    write(buf.to_local(), u_local.to(buf.dtype), row0, pos0)
+
+
 def _cache_write(cache: dict[str, torch.Tensor], k: torch.Tensor,
                  v: torch.Tensor, pos: torch.Tensor, quantized: bool) -> None:
     """Write one new (B, 1, Hkv, hd) k/v at position ``pos`` in place.
@@ -272,14 +378,33 @@ def _cache_write(cache: dict[str, torch.Tensor], k: torch.Tensor,
         upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         upd = {"k": k, "v": v}
-    if idx.dim() == 1:
-        rows = torch.arange(idx.shape[0], device=idx.device)
-        for name, u in upd.items():
-            cache[name][rows, idx] = u[:, 0].to(cache[name].dtype)
-    else:
-        for name, u in upd.items():
-            cache[name].index_copy_(1, idx.reshape(1),
-                                    u.to(cache[name].dtype))
+    # one row index for every tensor of the cache (a shard's rows are the
+    # first b of them)
+    rows = (torch.arange(k.shape[0], device=idx.device) if idx.dim() == 1
+            else None)
+
+    def write(buf, u, row0, pos0):
+        b, n = buf.shape[0], buf.shape[1]
+        i, r = idx, rows
+        if b != k.shape[0] and idx.dim() == 1:       # a shard of the rows
+            i, r = idx[row0:row0 + b], rows[:b]
+        if pos0 == 0 and n == smax:
+            if i.dim() == 1:
+                buf[r, i] = u[:, 0]
+            else:
+                buf.index_copy_(1, i.reshape(1), u)
+            return
+        # a shard of the positions: the rank that holds position i writes
+        # it; the others write back what their clamped slot held
+        if r is None:
+            r = torch.arange(b, device=i.device)
+        local = (i - pos0).clamp(0, n - 1).expand(b)
+        keep = ((i >= pos0) & (i < pos0 + n)).expand(b)
+        keep = keep.reshape(b, *([1] * (u.dim() - 2)))
+        buf[r, local] = torch.where(keep, u[:, 0], buf[r, local])
+
+    for name, u in upd.items():
+        _write_local(cache[name], u, write)
 
 
 def _cache_read(cfg: ModelConfig, cache: dict[str, torch.Tensor]):
@@ -316,6 +441,15 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     write_pos = pos % window if window > 0 else pos
     _cache_write(cache, k, v, write_pos, cfg.kv_cache_dtype == "int8")
     ck, cv = _cache_read(cfg, cache)
+    # decode activations follow the cache's batch sharding (kv_batch)
+    if cfg.attn_sharding == "heads":
+        ck = shard(ck, "kv_batch", None, "kv_heads_sharded", None)
+        cv = shard(cv, "kv_batch", None, "kv_heads_sharded", None)
+        q = shard(q, "kv_batch", None, "heads_sharded", None)
+    else:
+        ck = shard(ck, "kv_batch", "kv_seq_sharded", None, None)
+        cv = shard(cv, "kv_batch", "kv_seq_sharded", None, None)
+        q = shard(q, "kv_batch", None, None, None)
     max_len = ck.shape[1]
     hkv, h, hd = ck.shape[2], q.shape[2], q.shape[-1]
     g = h // hkv
@@ -326,9 +460,25 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     # below.
     if cfg.decode_impl == "pallas" and window == 0 and not cfg.attn_softcap:
         kv_len = (pos if per_row else pos.expand(b)) + 1
-        out = da_ops.decode_attention(q[:, 0], ck, cv, kv_len.int(),
-                                      scale=float(scale))
-        return _out_proj(p, out[:, None], x.dtype), cache
+
+        kv_heads = None
+        if cfg.attn_sharding == "heads":
+            q_axes = ("kv_batch", "heads_sharded", None)
+            kv_axes = ("kv_batch", None, "kv_heads_sharded", None)
+            kv_heads = _kv_heads_read(q, ck, 2)
+        else:   # every cache position on every rank
+            q_axes = ("kv_batch", None, None)
+            kv_axes = ("kv_batch", None, None, None)
+
+        def decode(q0, k, v, lens):
+            if kv_heads is not None:
+                k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
+            return da_ops.decode_attention(q0, k, v, lens, scale=float(scale))
+
+        out = on_local_shards(decode, (q[:, 0], ck, cv, kv_len.int()),
+                              (q_axes, kv_axes, kv_axes, ("kv_batch",)))
+        out = shard(out[:, None], "kv_batch", None, "heads_sharded", None)
+        return _out_proj(p, out, x.dtype), cache
 
     slots = torch.arange(max_len, device=x.device)
     if window > 0:
@@ -351,6 +501,7 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
         logits = logits + bias[None, None, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, cv).reshape(b, 1, h, hd)
+    out = shard(out, "kv_batch", None, "heads_sharded", None)
     return _out_proj(p, out, x.dtype), cache
 
 
@@ -364,6 +515,7 @@ def prefill_into_cache(cfg: ModelConfig, p: dict[str, torch.Tensor],
     q, k, v = _project_qkv(cfg, p, x)
     if cfg.use_rope:
         q, k = rope(q, k, positions, cfg.rope_theta)
+    q, k, v = _shard_qkv(cfg, q, k, v)
     s = x.shape[1]
     kc, vc, n = k, v, s
     if window > 0:
@@ -381,8 +533,14 @@ def prefill_into_cache(cfg: ModelConfig, p: dict[str, torch.Tensor],
         upd = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
     else:
         upd = {"k": kc, "v": vc}
+
+    def write(buf, u, row0, pos0):
+        lo, hi = max(pos0, 0), min(pos0 + buf.shape[1], n)
+        if lo < hi:
+            buf[:, lo - pos0:hi - pos0] = u[:, lo:hi]
+
     for name, u in upd.items():
-        cache[name][:, :n] = u
+        _write_local(cache[name], u, write)
     out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, positions,
                                 causal=True, window=window)
-    return _out_proj(p, out, x.dtype), cache
+    return _out_proj(p, _shard_out(cfg, out), x.dtype), cache

@@ -12,20 +12,30 @@ port leaf for leaf (see :mod:`repro_torch.models.convert`).
 * Entry points take an explicit ``device``. ``None`` means the card:
   :func:`resolve_device` raises when there is none rather than carrying on
   on the CPU.
-* The logical-axis sharding hooks wait for the multi-device slice.
+* Logical sharding: every parameter, cache and activation names its dims
+  with *logical* axes (``ParamSpec.axes``, the ``*_axes`` trees, the
+  ``shard(x, *axes)`` sites). Under :class:`axis_rules` they resolve to
+  mesh axes through :mod:`repro_torch.distributed.sharding`, tensors are
+  ``DTensor``s and :func:`shard` redistributes them; without rules
+  :func:`shard` is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Mapping
+import sys
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.distributed.sharding import (mesh_sizes, placements,
+                                              resolve_spec)
 
 # ---------------------------------------------------------------------------
 # Devices
@@ -218,6 +228,24 @@ def tree_leaves(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
     return out
 
 
+class ShapeDtype(NamedTuple):
+    """A leaf's shape and dtype, no storage (the reference's
+    ``ShapeDtypeStruct``)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def spec_shapes(spec_tree: SpecTree, dtype: torch.dtype) -> Any:
+    """:class:`ShapeDtype` tree for a spec tree."""
+    return map_tree(lambda s: ShapeDtype(s.shape, dtype), spec_tree)
+
+
+def spec_axes(spec_tree: SpecTree) -> Any:
+    """The logical axes of every leaf of a spec tree."""
+    return map_tree(lambda s: s.axes, spec_tree)
+
+
 def _draw_tree(spec_tree: SpecTree,
                draw: Callable[[ParamSpec], torch.Tensor]) -> ParamTree:
     """``spec_tree`` with every spec replaced by ``draw(spec)``, the leaves
@@ -361,6 +389,155 @@ def layer_slice(tree: Any, i: int) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# Logical sharding constraints
+# ---------------------------------------------------------------------------
+
+# DTensor's modules are imported where rules are installed or a DTensor
+# is met, not with this module: they take a second to import, which every
+# process that loads a model (a daemon worker, the CLI) would pay.
+
+class _AxisRulesState:
+    """Process-global logical -> mesh axis rules; :func:`shard` is the
+    identity while none are installed. Installed rules also turn on
+    DTensor's implicit replication, so a plain tensor that every rank
+    holds whole (positions, masks, rotary tables) mixes with the sharded
+    ones."""
+
+    def __init__(self) -> None:
+        self.rules: dict[str, Any] | None = None
+        self.mesh = None
+        self._replication: contextlib.AbstractContextManager | None = None
+
+    def install(self, mesh, rules) -> None:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        self.clear()
+        self.mesh = mesh
+        self.rules = dict(rules)
+        self._replication = implicit_replication()
+        self._replication.__enter__()
+
+    def clear(self) -> None:
+        if self._replication is not None:
+            self._replication.__exit__(None, None, None)
+        self.mesh = None
+        self.rules = None
+        self._replication = None
+
+
+_AXIS_RULES = _AxisRulesState()
+
+
+def install_axis_rules(mesh, rules) -> None:
+    _AXIS_RULES.install(mesh, rules)
+
+
+def clear_axis_rules() -> None:
+    _AXIS_RULES.clear()
+
+
+class axis_rules:
+    """Context manager installing logical axis rules for :func:`shard`."""
+
+    def __init__(self, mesh, rules):
+        self.mesh, self.rules = mesh, rules
+
+    def __enter__(self):
+        install_axis_rules(self.mesh, self.rules)
+        return self
+
+    def __exit__(self, *exc):
+        clear_axis_rules()
+        return False
+
+
+def logical_to_spec(axes: Sequence[str | None]) -> tuple:
+    """The mesh axes (a ``PartitionSpec``-like tuple, one entry per dim)
+    that the active rules give the logical ``axes``."""
+    rules = _AXIS_RULES.rules or {}
+    return tuple(rules.get(ax) if ax is not None else None for ax in axes)
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (imports nothing: a DTensor exists only
+    once its module is loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def as_dtensor(x: torch.Tensor, mesh):
+    """``x`` as a DTensor on ``mesh``; a plain tensor is one that every
+    rank holds whole (replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def local_offsets(t) -> list[int]:
+    """The index, in the whole tensor, of the first element of this rank's
+    shard of ``t`` along each dim (the shards are even: see
+    :func:`shard`)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    offs = [0] * t.ndim
+    for dim in range(t.ndim):
+        size = t.shape[dim]
+        for m, p in enumerate(t.placements):     # nested in mesh order
+            if isinstance(p, Shard) and p.dim == dim:
+                size //= mesh.size(m)
+                offs[dim] += coord[m] * size
+    return offs
+
+
+def _placements_of(x: torch.Tensor, axes: Sequence[str | None]) -> tuple:
+    st = _AXIS_RULES
+    spec = resolve_spec(x.shape, axes, st.rules, mesh_sizes(st.mesh))
+    return placements(spec, st.mesh)
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """Apply a logical sharding constraint; identity when no rules are
+    active. Under rules ``x`` is redistributed to the placements its
+    logical axes resolve to (a dim its mesh axes do not divide stays
+    replicated, as :func:`~repro_torch.distributed.sharding.resolve_spec`
+    notes)."""
+    st = _AXIS_RULES
+    if st.rules is None or st.mesh is None:
+        return x
+    return as_dtensor(x, st.mesh).redistribute(st.mesh,
+                                                _placements_of(x, axes))
+
+
+def on_local_shards(fn: Callable[..., torch.Tensor], args: Sequence[Any],
+                    axes: Sequence[Sequence[str | None] | None]
+                    ) -> torch.Tensor:
+    """``fn(*args)`` for a function that takes plain tensors only (a
+    kernel's wrapper hands ``data_ptr()``s to its library). Without rules,
+    ``fn(*args)``. Under rules each tensor ``args[i]`` is first placed by
+    its logical axes ``axes[i]`` (``None`` for a non-tensor argument),
+    ``fn`` runs on every rank's local shards, and its output is a DTensor
+    placed like ``args[0]``."""
+    st = _AXIS_RULES
+    if st.rules is None or st.mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = st.mesh
+    args = [a if ax is None else as_dtensor(a, mesh)
+            for a, ax in zip(args, axes)]
+    ins = tuple(None if ax is None else _placements_of(a, ax)
+                for a, ax in zip(args, axes))
+    # a list: local_map reads a tuple as one placement per output
+    return local_map(fn, out_placements=list(ins[0]), in_placements=ins,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
 
@@ -466,11 +643,52 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     return rot(q), rot(k)
 
 
+# The activations of ``jax.nn``. In a half dtype each op rounds to the
+# input's dtype and each constant is rounded to it first, as XLA computes
+# them; a fused torch activation (``F.silu``, ``torch.sigmoid``,
+# ``F.gelu``) rounds once at the end, which moves a bf16 result by one ulp
+# in a third to two fifths of the elements. In float32 there is no such
+# rounding to mirror: the fused sigmoid, SiLU and tanh-GELU are one launch
+# each and agree with XLA's to 1e-6. (The fused exact GELU does not, by
+# 1.1e-6 near zero, so it stays op by op.)
+_FULL = (torch.float32, torch.float64)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``."""
+    if x.dtype in _FULL:
+        return torch.sigmoid(x)
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    if x.dtype in _FULL:
+        return F.silu(x)
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (``approximate=True``): ``x * ((1 + tanh(sqrt(2
+    / pi) * (x + 0.044715 * x**3))) * 0.5)``."""
+    if x.dtype in _FULL:
+        return F.gelu(x, approximate="tanh")
+    inner = x + mul_scalar(x ** 3, 0.044715)
+    t = torch.tanh(mul_scalar(inner, math.sqrt(2.0 / math.pi)))
+    return x * mul_scalar(1.0 + t, 0.5)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=False)``: ``(x * 0.5) * erfc(-x *
+    sqrt(1 / 2))``."""
+    return mul_scalar(x, 0.5) * torch.erfc(mul_scalar(-x, math.sqrt(0.5)))
+
+
 _ACTS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "silu": F.silu,
+    "silu": silu,
     # the reference's "gelu" is the tanh approximation
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    "gelu": gelu_tanh,
+    "gelu_exact": gelu_exact,
 }
 
 

@@ -5,7 +5,7 @@ reference's stub: a batch carries precomputed frame embeddings ``frames``
 (B, num_frames, d_model) as the encoder's input. Otherwise the backbone is
 whisper's: LayerNorm with bias, plain GELU MLPs (not gated; the tanh form,
 the reference's ``jax.nn.gelu`` default, whatever ``cfg.mlp_act`` says,
-op by op as JAX computes it: :func:`gelu_tanh`), MHA with kv == heads, a tied decoder embedding, and sinusoidal
+op by op as JAX computes it: :func:`~repro_torch.models.common.gelu_tanh`), MHA with kv == heads, a tied decoder embedding, and sinusoidal
 positions for both stacks (the reference's choice over whisper's learned
 decoder positions).
 
@@ -15,13 +15,13 @@ remat policy. The encoder's self-attention and the decoder's
 cross-attention are not causal, so under ``attn_impl="pallas"`` they stay
 on the chunked path, as in the reference; the decoder's causal
 self-attention takes the flash kernels, and a decode step's the decode
-kernel. The caches are updated in place. ``whisper_cache_axes`` (the
-logical sharding axes of the cache) waits for the multi-device slice.
+kernel. The caches are updated in place; :func:`whisper_cache_axes`
+gives their logical sharding axes (the ``shard()`` sites wait for the
+family's sharded slice).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
@@ -30,10 +30,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
+    gelu_tanh,
     layer_norm,
     layer_slice,
     maybe_remat,
-    mul_scalar,
     sinusoid,
     sinusoidal_positions,
     softmax_cross_entropy,
@@ -98,17 +98,6 @@ def make_whisper_specs(cfg: ModelConfig) -> dict[str, Any]:
 # ---------------------------------------------------------------------------
 # Helpers
 # ---------------------------------------------------------------------------
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu(x)`` (``approximate=True``) op for op: ``x * 0.5 *
-    (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x**3)))`` with each constant
-    rounded to ``x``'s dtype and each op rounded to it, as JAX computes
-    it. ``F.gelu(x, approximate="tanh")`` rounds once at the end, which
-    moves a bf16 result by one ulp in ~45% of the elements."""
-    inner = x + mul_scalar(x ** 3, 0.044715)
-    t = torch.tanh(mul_scalar(inner, math.sqrt(2.0 / math.pi)))
-    return x * mul_scalar(1.0 + t, 0.5)
-
 
 def _mlp(cfg: ModelConfig, p: dict[str, torch.Tensor],
          x: torch.Tensor) -> torch.Tensor:
@@ -246,6 +235,12 @@ def _cross_kv(cfg: ModelConfig, p: dict[str, torch.Tensor],
         ck = torch.repeat_interleave(ck, cfg.kv_repeat, dim=2)
         cv = torch.repeat_interleave(cv, cfg.kv_repeat, dim=2)
     return ck, cv
+
+
+def whisper_cache_axes(cfg: ModelConfig) -> dict:
+    ca = ("layers", "kv_batch", "kv_seq_sharded", None, None)
+    return {"self": attn.kv_cache_axes(cfg, layers=True),
+            "cross_k": ca, "cross_v": ca}
 
 
 def whisper_prefill(cfg: ModelConfig, params: dict[str, Any],

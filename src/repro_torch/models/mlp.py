@@ -12,7 +12,12 @@ GShard/Switch grouped dispatch:
 
 Every expert runs over its whole capacity buffer, as in the reference.
 ``moe_sharding`` names the reference's two sharding strategies; on one
-device both are the same arithmetic.
+device both are the same arithmetic. Under a mesh:
+
+* ``expert`` (EP): the expert dim of the weights and of the capacity
+  buffers takes the model axis (moonshot: 64 experts);
+* ``ffn`` (TP-in-expert): experts replicated, each expert's d_ff sharded
+  (grok: 8 experts do not divide a 16-way axis, but d_ff=32768 does).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import math
 
 import torch
 
-from repro_torch.models.common import ModelConfig, ParamSpec, act_fn
+from repro_torch.models.common import ModelConfig, ParamSpec, act_fn, shard
 
 
 # ---------------------------------------------------------------------------
@@ -43,7 +48,8 @@ def mlp_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     act = act_fn(cfg.mlp_act)
     g = x @ p["w_gate"].to(dt)
     u = x @ p["w_up"].to(dt)
-    return (act(g) * u) @ p["w_down"].to(dt)
+    h = shard(act(g) * u, "batch", None, "ffn_sharded")
+    return h @ p["w_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +112,7 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     n_groups = tokens // g
     cap = _capacity(cfg, g)
 
-    xt = x.reshape(n_groups, g, d)
+    xt = shard(x.reshape(n_groups, g, d), "moe_groups", None, None)
     # fp32 router (no TF32: a near-tie must stay a tie on every device)
     router_logits = torch.einsum("gtd,de->gte", xt.float(),
                                  p["router"].float())
@@ -140,10 +146,16 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                            cap_slot)
 
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), xt)
+    expert_in = shard(expert_in, "expert_sharded", "moe_groups", None, None)
     act = act_fn(cfg.mlp_act)
     hg = torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"].to(dt))
     hu = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"].to(dt))
-    expert_out = torch.einsum("egcf,efd->egcd", act(hg) * hu,
-                              p["w_down"].to(dt))
+    h = shard(act(hg) * hu, "expert_sharded", "moe_groups", None,
+              "moe_ffn_act")
+    # no constraint on expert_out: under TP-in-expert it holds per-shard
+    # partial sums, reduced on the (G, g, D) token tensor below instead of
+    # the fat (E, G, C, D) capacity tensor
+    expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"].to(dt))
     out = torch.einsum("gtec,egcd->gtd", combine.to(dt), expert_out)
+    out = shard(out, "moe_groups", None, None)
     return out.reshape(b, s, d), aux_loss.float()

@@ -10,6 +10,7 @@ entry points the scheduler drives:
                                                per-layer dicts)
     init_params(generator, device)          -> parameter dict
     loss_fn(params, batch)                  -> (loss, metrics)
+    cache_axes()                            -> logical axes of the cache
 
 Every family of the reference is built here: the LM families (dense,
 MoE, VLM), the hybrid (recurrentgemma / Griffin), the ssm family (xLSTM)
@@ -29,7 +30,8 @@ import torch
 
 from repro_torch.models import encdec, rglru, transformer, xlstm
 from repro_torch.models.common import (ModelConfig, init_params,
-                                       init_params_on_device, resolve_device)
+                                       init_params_on_device, resolve_device,
+                                       spec_axes, spec_shapes)
 
 LM_FAMILIES = ("dense", "moe", "vlm")
 
@@ -42,6 +44,24 @@ class ModelBundle:
     decode_fn: Callable
     loss_fn: Callable
     cache_fn: Callable         # (batch_size, max_len, device) -> cache
+    cache_axes: Callable       # () -> logical axes of the cache
+
+    def param_shapes(self) -> Any:
+        return spec_shapes(self.specs, self.cfg.weight_dtype)
+
+    def param_axes(self) -> Any:
+        return spec_axes(self.specs)
+
+    def batch_axes(self, kind: str = "train") -> dict[str, tuple]:
+        """Logical axes of a batch of the given kind (train | prefill |
+        decode): a decode batch is its tokens only."""
+        if kind == "decode":
+            return {"tokens": ("batch", None)}
+        out: dict[str, tuple] = {"tokens": ("batch", None),
+                                 "labels": ("batch", None)}
+        for name in self.extra_inputs(1):
+            out[name] = ("batch", None, None)
+        return out
 
     def init_params(self, generator: torch.Generator | int,
                     device: str | torch.device | None = None) -> Any:
@@ -124,6 +144,7 @@ def build(cfg: ModelConfig) -> ModelBundle:
             loss_fn=lambda p, b: transformer.lm_loss(cfg, p, b),
             cache_fn=lambda bsz, ml, dev: transformer.init_lm_cache(
                 cfg, bsz, ml, dev),
+            cache_axes=lambda: transformer.lm_cache_axes(cfg),
         )
     if cfg.family == "hybrid":
         return ModelBundle(
@@ -135,6 +156,7 @@ def build(cfg: ModelConfig) -> ModelBundle:
             loss_fn=lambda p, b: rglru.griffin_loss(cfg, p, b),
             cache_fn=lambda bsz, ml, dev: rglru.init_griffin_state(
                 cfg, bsz, ml, dev),
+            cache_axes=lambda: rglru.griffin_state_axes(cfg),
         )
     if cfg.family == "ssm":
         return ModelBundle(
@@ -146,6 +168,7 @@ def build(cfg: ModelConfig) -> ModelBundle:
             loss_fn=lambda p, b: xlstm.xlstm_loss(cfg, p, b),
             cache_fn=lambda bsz, ml, dev: xlstm.init_xlstm_state(
                 cfg, bsz, ml, dev),
+            cache_axes=lambda: xlstm.xlstm_state_axes(cfg),
         )
     if cfg.family == "audio":
         return ModelBundle(
@@ -157,5 +180,6 @@ def build(cfg: ModelConfig) -> ModelBundle:
             loss_fn=lambda p, b: encdec.whisper_loss(cfg, p, b),
             cache_fn=lambda bsz, ml, dev: encdec.init_whisper_cache(
                 cfg, bsz, ml, dev),
+            cache_axes=lambda: encdec.whisper_cache_axes(cfg),
         )
     raise NotImplementedError(f"unknown family {cfg.family!r}")

@@ -13,8 +13,9 @@ reference's blocked plain scan.
 Serving state (:func:`init_griffin_state`) is a list with one dict per
 layer: ``{"h", "conv"}`` for a recurrent layer, a ring-buffer KV cache of
 ``min(local_window, max_len)`` slots for an attention layer. Prefill and
-decode write it in place and return it. The sharding axes of the state
-(``griffin_state_axes``) wait for the multi-device slice.
+decode write it in place and return it; :func:`griffin_state_axes` gives
+its logical sharding axes (its ``shard()`` sites wait for the family's
+sharded slice).
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     causal_conv,
+    gelu_tanh,
     maybe_remat,
     mul_scalar,
     rms_norm,
+    sigmoid,
     softmax_cross_entropy,
     store_state,
 )
@@ -117,8 +120,8 @@ def rglru_gates(p: dict[str, torch.Tensor], xr: torch.Tensor
     ia = torch.einsum("...bk,bko->...bo", xb, p["w_i"].float())
     ra = ra.reshape(xr.shape) + p["b_a"].float()
     ia = ia.reshape(xr.shape) + p["b_i"].float()
-    r = torch.sigmoid(ra)
-    i = torch.sigmoid(ia)
+    r = sigmoid(ra)
+    i = sigmoid(ia)
     log_a = -RG_LRU_C * r * F.softplus(p["lam"].float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -188,7 +191,7 @@ def rglru_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     """Full-sequence recurrent block. Returns (out, new_state)."""
     dt = x.dtype
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    y = F.gelu(h @ p["w_y"].to(dt), approximate="tanh")   # jax.nn.gelu
+    y = gelu_tanh(h @ p["w_y"].to(dt))
     xr = h @ p["w_x"].to(dt)
     conv_state = state["conv"] if state is not None else None
     xr, new_conv = _causal_conv(p, xr, conv_state)
@@ -293,6 +296,17 @@ def init_griffin_state(cfg: ModelConfig, batch: int, max_len: int,
             w = min(cfg.local_window or max_len, max_len)
             states.append(attn.init_kv_cache(cfg, batch, w, device))
     return states
+
+
+def griffin_state_axes(cfg: ModelConfig) -> list[dict]:
+    axes: list[dict] = []
+    for kind in layer_kinds(cfg):
+        if kind == "rglru":
+            axes.append({"h": ("batch", "rnn_sharded"),
+                         "conv": ("batch", None, "rnn_sharded")})
+        else:
+            axes.append(attn.kv_cache_axes(cfg, layers=False))
+    return axes
 
 
 def griffin_prefill(cfg: ModelConfig, params: dict[str, Any],

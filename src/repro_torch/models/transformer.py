@@ -24,6 +24,7 @@ from repro_torch.models.common import (
     maybe_remat,
     mul_scalar,
     rms_norm,
+    shard,
     softmax_cross_entropy,
     stack_specs,
 )
@@ -79,7 +80,7 @@ def lm_logits(cfg: ModelConfig, params: dict[str, Any],
         w = params["embedding"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
-    logits = x @ w
+    logits = shard(x @ w, "batch", "act_seq", "vocab_sharded")
     if cfg.logits_scaling != 1.0:
         logits = logits / cfg.logits_scaling
     return logits
@@ -111,7 +112,8 @@ def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
     x = x + mul_scalar(attn.attn_forward(cfg, lp["attn"], h, positions,
                                          causal=True),
                        cfg.residual_multiplier)
-    return _mlp_residual(cfg, lp, x)
+    x, aux = _mlp_residual(cfg, lp, x)
+    return shard(x, "batch", "act_seq", None), aux
 
 
 def _stack_forward(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
@@ -157,7 +159,8 @@ def _embed_and_stack(cfg: ModelConfig, params: dict[str, Any],
     """Embeddings (the VLM's patches first) through every layer; returns
     the text positions' hidden states and the aux loss."""
     x = embed_tokens(cfg, params, batch["tokens"])
-    x = _maybe_prepend_patches(cfg, params, x, batch)
+    x = shard(_maybe_prepend_patches(cfg, params, x, batch),
+              "batch", "act_seq", None)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _stack_forward(cfg, params, x, positions)
     if cfg.family == "vlm":
@@ -228,6 +231,10 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int,
                               layers=cfg.num_layers)
 
 
+def lm_cache_axes(cfg: ModelConfig) -> dict[str, Any]:
+    return attn.kv_cache_axes(cfg, layers=True)
+
+
 def lm_prefill(cfg: ModelConfig, params: dict[str, Any],
                batch: dict[str, torch.Tensor], cache: dict[str, Any]
                ) -> tuple[torch.Tensor, dict[str, Any]]:
@@ -237,7 +244,8 @@ def lm_prefill(cfg: ModelConfig, params: dict[str, Any],
 
     Returns (last-position logits (B, 1, Vp), cache)."""
     x = embed_tokens(cfg, params, batch["tokens"])
-    x = _maybe_prepend_patches(cfg, params, x, batch)
+    x = shard(_maybe_prepend_patches(cfg, params, x, batch),
+              "batch", "act_seq", None)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
@@ -246,6 +254,7 @@ def lm_prefill(cfg: ModelConfig, params: dict[str, Any],
                                        layer_slice(cache, i))
         x, _ = _mlp_residual(cfg, lp,
                              x + mul_scalar(a, cfg.residual_multiplier))
+        x = shard(x, "batch", "act_seq", None)
     return lm_logits(cfg, params, x[:, -1:]), cache
 
 
@@ -254,7 +263,7 @@ def lm_decode_step(cfg: ModelConfig, params: dict[str, Any],
                    pos: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:
     """One decode step. tokens: (B, 1); pos: scalar or (B,) positions.
     Writes the new k/v into ``cache`` in place."""
-    x = embed_tokens(cfg, params, tokens)
+    x = shard(embed_tokens(cfg, params, tokens), "batch", None, None)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
         hn = rms_norm(x, lp["ln_attn"], cfg.norm_eps)

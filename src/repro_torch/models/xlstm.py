@@ -16,8 +16,8 @@ The stack is unrolled over a **list** of per-layer parameter dicts
 Serving state (:func:`init_xlstm_state`) is a list with one dict per
 layer: ``{"C", "n", "m", "conv"}`` for an mLSTM layer, ``{"c", "n", "m",
 "h", "conv"}`` for an sLSTM layer. Prefill and decode write it in place
-and return it. The sharding axes of the state (``xlstm_state_axes``) wait
-for the multi-device slice.
+and return it; :func:`xlstm_state_axes` gives its logical sharding axes
+(its ``shard()`` sites wait for the family's sharded slice).
 """
 
 from __future__ import annotations
@@ -34,8 +34,11 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     causal_conv,
+    gelu_tanh,
     layer_norm,
     maybe_remat,
+    sigmoid,
+    silu,
     softmax_cross_entropy,
     store_state,
 )
@@ -170,7 +173,7 @@ def _mlstm_qkv_gates(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     di = up.shape[-1] // 2
     xm, z = up[..., :di], up[..., di:]
     xc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], xm, conv_state)
-    xc = F.silu(xc)
+    xc = silu(xc)
     nh = cfg.num_heads
     hd = di // nh
     xch = xc.reshape(*xc.shape[:-1], nh, hd)
@@ -211,7 +214,7 @@ def mlstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                                         chunk=cfg.mlstm_chunk)
     hflat = hs.transpose(1, 2).reshape(bsz, s, di)
     hflat = _group_norm(hflat, p["gn_scale"], nh, cfg.norm_eps)
-    out = hflat * F.silu(z)
+    out = hflat * silu(z)
     out = out @ p["w_down"].to(dt)
     return out, {"C": C, "n": n, "m": m, "conv": new_conv}
 
@@ -238,7 +241,7 @@ def slstm_cell_scan(p: dict[str, Any], xi, xf, xz, xo,
         li = xi[:, t] + ri
         lf = F.logsigmoid(xf[:, t] + rf)          # log sigmoid forget
         z = torch.tanh(xz[:, t] + rz)
-        o = torch.sigmoid(xo[:, t] + ro)
+        o = sigmoid(xo[:, t] + ro)
         m_new = torch.maximum(lf + m, li)
         fp = torch.exp(lf + m - m_new)
         ip = torch.exp(li - m_new)
@@ -259,7 +262,7 @@ def slstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     h = layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
     conv_state = state["conv"] if state is not None else None
     hc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], h, conv_state)
-    hc = F.silu(hc)
+    hc = silu(hc)
     hh = h.reshape(bsz, s, nh, hd)
     hch = hc.reshape(bsz, s, nh, hd)
 
@@ -281,7 +284,7 @@ def slstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     # post up-projection (PF = 4/3), gated GeLU (jax.nn.gelu: tanh form)
     u1 = hs @ p["w_up1"].to(dt)
     u2 = hs @ p["w_up2"].to(dt)
-    out = F.gelu(u1, approximate="tanh") * u2
+    out = gelu_tanh(u1) * u2
     out = out @ p["w_down"].to(dt)
     return out, dict(new_cell, conv=new_conv)
 
@@ -373,6 +376,21 @@ def _serve_stack(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
         store_state(st, ns)
         x = x + out
     return x
+
+
+def xlstm_state_axes(cfg: ModelConfig) -> list[dict]:
+    axes = []
+    for i in range(cfg.num_layers):
+        if i in slstm_positions(cfg):
+            axes.append({"c": ("batch", None), "n": ("batch", None),
+                         "m": ("batch", None), "h": ("batch", None),
+                         "conv": ("batch", None, None)})
+        else:
+            axes.append({"C": ("batch", None, "xlstm_hd_sharded", None),
+                         "n": ("batch", None, "xlstm_hd_sharded"),
+                         "m": ("batch", None),
+                         "conv": ("batch", None, "xlstm_inner_sharded")})
+    return axes
 
 
 def xlstm_prefill(cfg: ModelConfig, params: dict[str, Any],

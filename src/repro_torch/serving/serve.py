@@ -29,27 +29,44 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.models.common import cast_for_compute, resolve_device
+from repro_torch.models.common import (cast_for_compute, is_dtensor,
+                                       resolve_device, shard)
 from repro_torch.models.registry import LM_FAMILIES, ModelBundle
 from repro_torch.observability.metrics import get_registry
 
 
+def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """(B, 1) int32 argmax of the last position's logits over the real
+    vocabulary. Under a mesh the logits are a DTensor and the tokens come
+    back whole on every rank."""
+    last = shard(logits[:, -1, :cfg.vocab_size], "batch", None)
+    next_tok = torch.argmax(last, dim=-1)
+    if is_dtensor(next_tok):
+        next_tok = next_tok.full_tensor()
+    return next_tok.to(torch.int32)[:, None]
+
+
 def make_prefill_step(bundle: ModelBundle) -> Callable:
+    """The prefill step ``(params, batch, cache) -> (tokens, cache)``. Run
+    it under :class:`~repro_torch.models.common.axis_rules` with the
+    parameters and cache placed by
+    :func:`~repro_torch.distributed.sharding.distribute_tree` to serve on
+    a mesh."""
     @torch.no_grad()
     def prefill_step(params, batch, cache):
         logits, cache = bundle.prefill_fn(params, batch, cache)
-        next_tok = torch.argmax(logits[:, -1, :bundle.cfg.vocab_size], dim=-1)
-        return next_tok.to(torch.int32)[:, None], cache
+        return _greedy(bundle.cfg, logits), cache
 
     return prefill_step
 
 
 def make_decode_step(bundle: ModelBundle) -> Callable:
+    """The decode step ``(params, cache, tokens, pos) -> (tokens, cache)``,
+    on one device or, as :func:`make_prefill_step`, on a mesh."""
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, cache = bundle.decode_fn(params, cache, tokens, pos)
-        next_tok = torch.argmax(logits[:, -1, :bundle.cfg.vocab_size], dim=-1)
-        return next_tok.to(torch.int32)[:, None], cache
+        return _greedy(bundle.cfg, logits), cache
 
     return serve_step
 
