@@ -246,7 +246,23 @@ then:
    the tensor-core body) launches; prints the host ms per decode step
    both ways beside the ``nvidia-smi`` line (DTensor's dispatch is the
    mesh's own cost on a host-bound step) and a profiled decode step each
-   way (device time, idle share, launches).
+   way (device time, idle share, launches);
+25. trains ``aiida-demo-110m`` at full width and depth with phase 7's
+   recipe (bf16 activations, fp32 parameters, AdamW, remat
+   ``nothing_saveable``, 8 x 1024; the launcher's schedule for 4 steps)
+   through the launcher's per-rank body (``launch.train.train_rank``) in
+   a one-rank NCCL group on a 1 x 1 mesh (state placed by
+   ``train_state_axes``, DTensor through forward, backward and
+   optimizer, the flash forward and both backward kernels under
+   ``local_map`` on each rank's local shards), a sharded checkpoint at
+   step 2, and the same loop without a mesh (``launch.train.run``), in
+   turns (plain, mesh, mesh, plain); requires losses and grad_norm within
+   1e-4 relative (bit equality printed), 24 / 12 / 12 flash launches per
+   step both ways, all on the tensor cores, every local shard on the
+   card, the step-2 checkpoint restored without a mesh leaf for leaf
+   bit-equal to the mesh's state, and one more step from each of the two
+   states with losses within 1e-4; prints the host ms per step both
+   ways, peak memory and the phase's wall.
 
 Prints the smoke's wall, a ``{"kernels": [...]}`` line (each kernel with
 the body that ran it), the ``nvidia-smi`` line, and as the
@@ -3999,6 +4015,204 @@ def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the dense LM trained through a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS, MESH_CKPT_STEP = 4, 2
+
+
+def mesh_train_run(torch, launch, args, cfg, counters, mesh: bool,
+                   keep_step: int | None = None) -> dict:
+    """One run of the launcher's loop (``train_rank`` on the 1 x 1 mesh, or
+    ``run`` without one) with every counter from 0: each step's loss,
+    grad_norm, launches and tensor-core launches by counter, its host ms
+    (from the previous step's end to its own, synchronised: the batch's
+    draw and copy, the step, the metrics' read), the peak memory, whether
+    every local shard of the state is on the card, and with
+    ``keep_step`` that step's state."""
+    out = {"loss": [], "grad_norm": [], "launches": [], "tensor_core": [],
+           "step_ms": []}
+    prev = {"t": 0.0, "n": [(0, 0)] * len(counters)}
+
+    def on_step(step, state, metrics):
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["step_ms"].append((now - prev["t"]) * 1e3)
+        n = [(c.launches, c.tensor_core_launches) for c in counters]
+        out["launches"].append([a - b for (a, _), (b, _) in
+                                zip(n, prev["n"])])
+        out["tensor_core"].append([a - b for (_, a), (_, b) in
+                                   zip(n, prev["n"])])
+        if step == 1:
+            from repro_torch.models.common import is_dtensor, tree_leaves
+
+            out["on_card"] = all(
+                (t.to_local() if is_dtensor(t) else t).is_cuda
+                for _, t in tree_leaves(state))
+        if step == keep_step:
+            out["kept"] = state
+        prev["t"], prev["n"] = time.perf_counter(), n
+
+    zero_counters(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prev["t"] = time.perf_counter()
+    code = (launch.train_rank(args, cfg=cfg, on_step=on_step) if mesh
+            else launch.run(args, cfg=cfg, on_step=on_step))
+    check(code == 0, f"the launcher's loop exited with code {code}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["step_ms_median"] = sorted(out["step_ms"][1:])[
+        (len(out["step_ms"]) - 1) // 2]        # step 1 builds the caches
+    return out
+
+
+def mesh_train_phase(torch, fa_ops, smi: str) -> dict:
+    """Full-width, full-depth ``aiida-demo-110m`` trained through a 1 x 1
+    NCCL mesh by the launcher's per-rank body, against the same loop
+    without a mesh (module docstring, item 25)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, setup_devices
+    from repro_torch.configs.devices import RENDEZVOUS_ENV
+    from repro_torch.distributed.sharding import (make_rules, shard_batch,
+                                                  tree_placements)
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import axis_rules, tree_leaves
+    from repro_torch.models.registry import build
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.train_step import (make_train_step,
+                                                 train_state_axes,
+                                                 train_state_shapes)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH).replace(attn_impl="pallas")
+    bundle = build(cfg)
+    counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
+                fa_ops.flash_attention_bwd_dkv)
+    per_step = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers]
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="mesh_train_",
+                                      dir=ROOT / "build")
+    ckpt_dir = os.path.join(tmp.name, "ckpt")
+    argv = ["--arch", ARCH, "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "2",
+            "--device", "cuda"]
+    args = launch.parse_args(argv)
+    ckpt_args = launch.parse_args([*argv, "--ckpt-dir", ckpt_dir,
+                                   "--ckpt-every", str(MESH_CKPT_STEP)])
+    rank_env = {"RANK": "0", "WORLD_SIZE": "1",
+                RENDEZVOUS_ENV: os.path.join(tmp.name, "rendezvous")}
+    os.environ.update(rank_env)
+    try:
+        setup_devices("cuda", 1)
+        runs = [("plain", mesh_train_run(torch, launch, args, cfg, counters,
+                                         False)),
+                ("mesh", mesh_train_run(torch, launch, ckpt_args, cfg,
+                                        counters, True, MESH_CKPT_STEP)),
+                ("mesh", mesh_train_run(torch, launch, args, cfg, counters,
+                                        True)),
+                ("plain", mesh_train_run(torch, launch, args, cfg, counters,
+                                         False))]
+        main_run = runs[1][1]
+        kept = main_run.pop("kept")
+        # the step-2 checkpoint, written by the sharded save, restored
+        # without a mesh
+        restored = ckpt.restore_checkpoint(
+            ckpt_dir, step=MESH_CKPT_STEP,
+            target=train_state_shapes(bundle, launch.train_config(args)),
+            device="cuda")
+        kept_leaves = dict(tree_leaves(kept))
+        unequal = [k for k, t in tree_leaves(restored)
+                   if not torch.equal(t, kept_leaves[k].to_local())]
+        check(not unequal, f"restored leaves differ from the mesh's state "
+                           f"at step {MESH_CKPT_STEP}: {unequal}")
+        # one more step from each state on step 3's batch
+        tcfg = launch.train_config(args)
+        batch = [b for _, b in zip(range(MESH_CKPT_STEP + 1), TokenStream(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       batch_size=TRAIN_BATCH, seed=args.seed)))][-1]
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+        _, m_plain = make_train_step(bundle, tcfg)(restored, batch)
+        mesh = kept["step"].device_mesh
+        rules = make_rules(cfg, mesh, fsdp=False)
+        pl = tree_placements(train_state_shapes(bundle, tcfg),
+                             train_state_axes(bundle, tcfg), rules, mesh)
+        with axis_rules(mesh, rules):
+            _, m_mesh = make_train_step(bundle, tcfg, pl)(
+                kept, shard_batch(batch, bundle.batch_axes(), rules, mesh))
+        one_more = {"plain_from_restored": [float(m_plain["loss"]),
+                                            float(m_plain["grad_norm"])],
+                    "mesh_from_kept": [float(m_mesh["loss"]),
+                                       float(m_mesh["grad_norm"])]}
+        del kept, restored
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in rank_env:
+            os.environ.pop(name, None)
+        tmp.cleanup()
+
+    base = runs[0][1]
+    for kind, run in runs:
+        check(all(math.isfinite(x) for x in run["loss"]),
+              f"{kind}: non-finite loss {run['loss']}")
+        check(len(run["loss"]) == MESH_TRAIN_STEPS, f"{kind}: steps")
+        check(all(n == per_step for n in run["launches"]),
+              f"{kind}: flash launches per step (fwd, dq, dkv) "
+              f"{run['launches']} != {per_step}")
+        check(all(n == per_step for n in run["tensor_core"]),
+              f"{kind}: tensor-core launches per step {run['tensor_core']}")
+        check(run["on_card"], f"{kind}: a state shard is not on the card")
+        for what in ("loss", "grad_norm"):
+            for got, want in zip(run[what], base[what]):
+                check(abs(got - want) <= 1e-4 * abs(want),
+                      f"{kind} {what} {run[what]} vs plain {base[what]}")
+    (l_p, n_p), (l_m, n_m) = (one_more["plain_from_restored"],
+                              one_more["mesh_from_kept"])
+    check(abs(l_p - l_m) <= 1e-4 * abs(l_m) and
+          abs(n_p - n_m) <= 1e-4 * abs(n_m),
+          f"one more step: restored {one_more['plain_from_restored']} vs "
+          f"mesh {one_more['mesh_from_kept']}")
+    ms = {kind: [r["step_ms_median"] for k, r in runs if k == kind]
+          for kind in ("plain", "mesh")}
+    result = {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": MESH_TRAIN_STEPS,
+        "mesh": {"data": 1, "model": 1}, "checkpoint_step": MESH_CKPT_STEP,
+        "losses": {f"{k}{i}": r["loss"] for i, (k, r) in enumerate(runs)},
+        "grad_norms": {f"{k}{i}": r["grad_norm"]
+                       for i, (k, r) in enumerate(runs)},
+        "losses_bit_equal": all(r["loss"] == base["loss"] for _, r in runs),
+        "grad_norms_bit_equal": all(r["grad_norm"] == base["grad_norm"]
+                                    for _, r in runs),
+        "launches_per_step_fwd_dq_dkv": per_step,
+        "launches": dict(zip(("flash_attention_fwd",
+                              "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"),
+                             map(sum, zip(*main_run["launches"])))),
+        "restored_bit_equal": True, "one_more_step": one_more,
+        "one_more_bit_equal": l_p == l_m,
+        "step_ms": {f"{k}{i}": r["step_ms"] for i, (k, r) in enumerate(runs)},
+        "step_ms_median": ms,
+        "mesh_host_ms_per_step": (sum(ms["mesh"]) - sum(ms["plain"]))
+        / len(ms["mesh"]),
+        "peak_memory_bytes": {f"{k}{i}": r["peak_memory_bytes"]
+                              for i, (k, r) in enumerate(runs)},
+        "phase_wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    print(f"mesh train (runs plain, mesh, mesh, plain; {smi}): step ms "
+          f"{ms}, losses bit-equal {result['losses_bit_equal']}, phase "
+          f"{result['phase_wall_s']:.1f} s")
+    print("mesh train: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -4077,6 +4291,7 @@ def main() -> int:
     audio = audio_serve_phase(torch, da_ops, fa_ops)
     audio_parity = audio_parity_phase(torch, da_ops, fa_ops)
     mesh = mesh_serve_phase(torch, da_ops, fa_ops, smi)
+    mesh_train = mesh_train_phase(torch, fa_ops, smi)
 
     def trained_families(name):
         return sum(family_train[a]["launches"][name] for a in (MOE, VLM))
@@ -4087,7 +4302,7 @@ def main() -> int:
     # launches on each main path (serving, training, hybrid and ssm
     # serving, the engine, the calcjob, the pretraining chain, MoE and
     # VLM serving, their training, whisper's serving and training, the
-    # dense LM served through a mesh), each counted from 0
+    # dense LM served and trained through a mesh), each counted from 0
     by_path = {
         "decode_attention": {
             "serve": served["decode_launches"],
@@ -4106,19 +4321,22 @@ def main() -> int:
             "family_train": trained_families("flash_attention_fwd"),
             "audio_serve": audio["launches"]["flash_attention_fwd"],
             "audio_train": audio_train("flash_attention_fwd"),
-            "mesh_serve": mesh["launches"]["flash_attention_fwd"]},
+            "mesh_serve": mesh["launches"]["flash_attention_fwd"],
+            "mesh_train": mesh_train["launches"]["flash_attention_fwd"]},
         "flash_attention_bwd_dq": {
             "train": trained["launches"]["flash_attention_bwd_dq"],
             "calcjob": calcjob["flash_attention_bwd_dq"],
             "pretrain": pretrain["flash_attention_bwd_dq"],
             "family_train": trained_families("flash_attention_bwd_dq"),
-            "audio_train": audio_train("flash_attention_bwd_dq")},
+            "audio_train": audio_train("flash_attention_bwd_dq"),
+            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dq"]},
         "flash_attention_bwd_dkv": {
             "train": trained["launches"]["flash_attention_bwd_dkv"],
             "calcjob": calcjob["flash_attention_bwd_dkv"],
             "pretrain": pretrain["flash_attention_bwd_dkv"],
             "family_train": trained_families("flash_attention_bwd_dkv"),
-            "audio_train": audio_train("flash_attention_bwd_dkv")},
+            "audio_train": audio_train("flash_attention_bwd_dkv"),
+            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dkv"]},
         "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
         "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
     }
@@ -4142,6 +4360,7 @@ def main() -> int:
          "vlm_serve": vlm, "family_parity": family_parity,
          "family_train": family_train, "audio_serve": audio,
          "audio_parity": audio_parity, "mesh_serve": mesh,
+         "mesh_train": mesh_train,
          "smoke_wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -8,8 +8,9 @@ calls :func:`setup_devices` before it builds a mesh:
     setup_devices(platform="cpu", n_devices=2)
 
 which joins the process group named by ``RANK`` and ``WORLD_SIZE`` through
-a file rendezvous (``REPRO_RENDEZVOUS_FILE``: no TCP port is chosen), on
-NCCL for ``"cuda"`` and gloo for ``"cpu"``. The call is idempotent for the
+a file rendezvous (``REPRO_RENDEZVOUS_FILE``: no TCP port is chosen) or,
+without one, through ``MASTER_ADDR`` and ``MASTER_PORT`` as ``torchrun``
+sets them, on NCCL for ``"cuda"`` and gloo for ``"cpu"``. The call is idempotent for the
 same world and fails loudly when the world is not ``n_devices`` ranks.
 :func:`spawn_ranks` starts ``n`` local ranks that do so.
 """
@@ -29,8 +30,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 RENDEZVOUS_ENV = "REPRO_RENDEZVOUS_FILE"
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-#: seconds :func:`spawn_ranks` waits for each rank's result and exit
+#: seconds :func:`spawn_ranks` waits, by default, for the ranks' results,
+#: and for each rank's exit after its result
 RANK_TIMEOUT_S = 240.0
+#: seconds the other ranks get to report once one rank has failed
+FAILURE_GRACE_S = 10.0
 
 
 def setup_devices(platform: str = "cuda", n_devices: int | None = None
@@ -66,9 +70,14 @@ def setup_devices(platform: str = "cuda", n_devices: int | None = None
                 f"over {world}")
         return devices
     path = os.environ.get(RENDEZVOUS_ENV)
-    if not path:
-        raise RuntimeError(f"{RENDEZVOUS_ENV} names no rendezvous file")
-    dist.init_process_group(_BACKENDS[platform], init_method=f"file://{path}",
+    if path:
+        init_method = f"file://{path}"
+    elif "MASTER_ADDR" in os.environ:
+        init_method = "env://"
+    else:
+        raise RuntimeError(f"neither {RENDEZVOUS_ENV} nor MASTER_ADDR names "
+                           f"a rendezvous")
+    dist.init_process_group(_BACKENDS[platform], init_method=init_method,
                             world_size=world, rank=rank)
     return devices
 
@@ -103,13 +112,15 @@ def _rank_main(rank: int, n: int, platform: str, path: str, fn: Callable,
 
 
 def spawn_ranks(fn: Callable, n: int, platform: str = "cpu",
-                args: Sequence[Any] = (), *, rendezvous_dir: str | None = None
-                ) -> list[Any]:
+                args: Sequence[Any] = (), *, rendezvous_dir: str | None = None,
+                timeout: float | None = RANK_TIMEOUT_S) -> list[Any]:
     """Run ``fn(rank, *args)`` in ``n`` spawned local ranks, each joined to
     one process group by :func:`setup_devices`, and return their results
     by rank. ``fn`` must be importable by name (a module-level function);
-    its result must pickle. A rank that raises, or gives no result within
-    :data:`RANK_TIMEOUT_S`, fails the call."""
+    its result must pickle. The call fails when a rank raises or exits
+    without a result, or, unless ``timeout`` is None, when the ranks have
+    not all returned within ``timeout`` seconds (a training launcher
+    passes None: its ranks return when training ends)."""
     ctx = mp.get_context("spawn")
     results = ctx.SimpleQueue()
     with tempfile.TemporaryDirectory(dir=rendezvous_dir) as tmp:
@@ -121,17 +132,7 @@ def spawn_ranks(fn: Callable, n: int, platform: str = "cpu",
         for p in procs:
             p.start()
         try:
-            out: dict[int, Any] = {}
-            failures = []
-            # drain before join: a rank blocks on a full pipe until read
-            for _ in range(n):
-                rank, ok, value = _get(results, procs)
-                if ok:
-                    out[rank] = value
-                else:
-                    failures.append(f"rank {rank}:\n{value}")
-            if failures:
-                raise RuntimeError("\n".join(failures))
+            out = _collect(results, procs, timeout)
             for p in procs:
                 p.join(RANK_TIMEOUT_S)
             return [out[r] for r in range(n)]
@@ -142,16 +143,44 @@ def spawn_ranks(fn: Callable, n: int, platform: str = "cpu",
                 p.join()
 
 
-def _get(results, procs):
-    """The next rank's result; fails when every rank has exited without
-    one or :data:`RANK_TIMEOUT_S` seconds pass."""
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-    while time.monotonic() < deadline:
+def _collect(results, procs, timeout: float | None) -> dict[int, Any]:
+    """Every rank's result by rank. Raises once every rank has reported
+    and one failed, when a rank has exited without a result, or at the
+    deadline; after a failure the others get :data:`FAILURE_GRACE_S` to
+    report theirs (a rank blocked in a collective with the failed one
+    never does)."""
+    start = time.monotonic()
+    deadline = None if timeout is None else start + timeout
+    out: dict[int, Any] = {}
+    failures: dict[int, str] = {}
+    # drain before join: a rank blocks on a full pipe until read
+    while len(out) + len(failures) < len(procs):
         if not results.empty():
-            return results.get()
-        if all(not p.is_alive() for p in procs) and results.empty():
-            codes = [p.exitcode for p in procs]
-            raise RuntimeError(f"ranks exited with codes {codes} and no "
-                               f"result")
+            rank, ok, value = results.get()
+            if ok:
+                out[rank] = value
+            else:
+                failures[rank] = value
+                grace = time.monotonic() + FAILURE_GRACE_S
+                deadline = grace if deadline is None else min(deadline,
+                                                              grace)
+            continue
+        lost = [r for r, p in enumerate(procs)
+                if not p.is_alive() and r not in out and r not in failures]
+        # a rank writes its result before it exits: read the pipe again
+        if lost and results.empty():
+            for r in lost:
+                failures[r] = (f"exited with code {procs[r].exitcode} and "
+                               f"no result")
+            break
+        if deadline is not None and time.monotonic() > deadline:
+            if not failures:
+                waiting = [r for r in range(len(procs)) if r not in out]
+                raise TimeoutError(f"ranks {waiting} gave no result within "
+                                   f"{timeout} s")
+            break
         time.sleep(0.01)
-    raise TimeoutError(f"no rank result within {RANK_TIMEOUT_S} s")
+    if failures:
+        raise RuntimeError("\n".join(f"rank {r}:\n{v}" for r, v in
+                                     sorted(failures.items())))
+    return out

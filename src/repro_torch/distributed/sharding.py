@@ -17,9 +17,14 @@ that dim (recorded in ``notes``). A spec is a tuple with one entry per
 tensor dim (the reference's ``PartitionSpec``): ``None``, a mesh axis
 name, or a tuple of names. :func:`placements` turns it into DTensor
 placements on a :class:`~torch.distributed.device_mesh.DeviceMesh` (one
-rank per mesh position), and :func:`distribute_tree` places a whole tree.
-DTensor's module is imported by the functions that place tensors, so the
-rules load without it.
+rank per mesh position), and :func:`distribute_tree` places a whole tree
+for serving. For training, :func:`tree_placements` gives a state's
+placements from its shapes and axes (the reference's
+``tree_named_shardings``), :func:`place_tree` places a tree every rank
+holds whole by slicing out each rank's shard (no collective), and
+:func:`shard_batch` makes each rank's own batch rows one batch sharded
+over the data axes. DTensor's module is imported by the functions that
+place tensors, so the rules load without it.
 """
 
 from __future__ import annotations
@@ -247,3 +252,101 @@ def distribute_tree(tree: Any, axes_tree: Any,
         return distribute_tensor(t, mesh, placements(spec, mesh))
 
     return _map2(leaf, tree, axes_tree)
+
+
+def tree_placements(shapes_tree: Any, axes_tree: Any,
+                    rules: Mapping[str, AxisRule], mesh,
+                    notes: list[str] | None = None) -> Any:
+    """DTensor placements of every leaf, from parallel (shapes, logical
+    axes) trees: the reference's ``tree_named_shardings``. A placements
+    leaf is a tuple with one placement per mesh dim."""
+    specs = tree_partition_specs(shapes_tree, axes_tree, rules, mesh, notes)
+    return _map2(lambda spec, _, path: placements(spec, mesh), specs,
+                 axes_tree)
+
+
+def local_slices(shape: Sequence[int], pls: Sequence, mesh) -> tuple:
+    """The slice of each dim of a tensor of ``shape`` that this rank holds
+    under placements ``pls`` (even shards, nested in mesh order, as
+    :func:`resolve_spec` guarantees and DTensor lays them out)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    out = []
+    for dim, n in enumerate(shape):
+        size, off = n, 0
+        for m, p in enumerate(pls):
+            if isinstance(p, Shard) and p.dim == dim:
+                size //= mesh.size(m)
+                off += coord[m] * size
+        out.append(slice(off, off + size))
+    return tuple(out)
+
+
+def place_local(full, pls: Sequence, mesh, device=None):
+    """A tensor that every rank holds whole as a DTensor placed by
+    ``pls``: each rank keeps its own slice (moved to ``device`` when
+    given), no collective."""
+    from torch.distributed.tensor import DTensor
+
+    local = full[local_slices(full.shape, pls, mesh)]
+    if device is not None:
+        local = local.to(device)
+    return DTensor.from_local(local.contiguous(), mesh, pls, run_check=False)
+
+
+def place_tree(tree: Any, placements_tree: Any, mesh) -> Any:
+    """:func:`place_local` at every leaf of ``tree`` (nested dicts and
+    lists of tensors) with the placements at the same path."""
+    if isinstance(tree, Mapping):
+        return {k: place_tree(tree[k], placements_tree[k], mesh)
+                for k in tree}
+    if isinstance(tree, list):
+        return [place_tree(t, p, mesh) for t, p in zip(tree, placements_tree)]
+    return place_local(tree, placements_tree, mesh)
+
+
+def conform_tree(tree: Any, placements_tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` redistributed to the placements at
+    the same path where its own differ (the reference's ``out_shardings``
+    of a jitted step)."""
+    if isinstance(tree, Mapping):
+        return {k: conform_tree(tree[k], placements_tree[k]) for k in tree}
+    if isinstance(tree, list):
+        return [conform_tree(t, p) for t, p in zip(tree, placements_tree)]
+    if tuple(tree.placements) == tuple(placements_tree):
+        return tree
+    return tree.redistribute(tree.device_mesh, placements_tree)
+
+
+def batch_coordinate(mesh, rules: Mapping[str, AxisRule]) -> tuple[int, int]:
+    """(this rank's index among the data groups, their number): its
+    coordinate on the mesh axes that ``rules["batch"]`` names, raveled in
+    the rule's order, and the product of their sizes. Ranks that differ
+    only on the other axes (``model``) form one data group and read the
+    same rows; the reference's ``host_id`` and ``num_hosts``."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_sizes(mesh)
+    index, count = 0, 1
+    for a in _axes_to_names(rules.get("batch")):
+        index = index * sizes[a] + coord[a]
+        count *= sizes[a]
+    return index, count
+
+
+def shard_batch(batch: Mapping[str, Any], axes: Mapping[str, Sequence],
+                rules: Mapping[str, AxisRule], mesh) -> dict[str, Any]:
+    """A batch whose rows are this rank's data group's share as DTensors
+    sharded over the data axes by their logical ``axes`` (``batch`` on
+    dim 0): the global batch is the data groups' rows concatenated in
+    mesh order, and no rank sends a row to another."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_sizes(mesh)
+    _, groups = batch_coordinate(mesh, rules)
+    out = {}
+    for name, local in batch.items():
+        shape = (local.shape[0] * groups, *local.shape[1:])
+        pls = placements(resolve_spec(shape, axes[name], rules, sizes), mesh)
+        out[name] = DTensor.from_local(local, mesh, pls, run_check=False)
+    return out

@@ -23,7 +23,8 @@ Under a mesh (:class:`~repro_torch.models.common.axis_rules`) the
 activations and the cache are DTensors placed by the reference's
 ``shard`` sites (:func:`kv_cache_axes` for the cache). The kernels take
 plain tensors, so each runs on every rank's local shards
-(:func:`~repro_torch.models.common.on_local_shards`): under
+(:func:`~repro_torch.models.common.on_local_shards`), as does every
+route of the full attention (:func:`_attention`): under
 ``attn_sharding="heads"`` a rank holds H/model query and Hkv/model KV
 heads, the group size unchanged (where model does not divide Hkv the KV
 heads stay whole on every rank, and the kernel reads only those its
@@ -118,9 +119,11 @@ def _shard_qkv(cfg: ModelConfig, q, k, v):
 
 
 def _shard_out(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
-    if cfg.attn_sharding == "heads":
-        return shard(out, "batch", None, "heads_sharded", None)
-    return shard(out, "batch", "seq_sharded", None, None)
+    """The attention output before its projection: head-sharded under
+    ``"heads"``; under ``"sequence"`` whole along the sequence (the
+    reference shards it there), since DTensor (torch 2.11) cannot flatten
+    a sharded sequence with the batch for the projection's product."""
+    return shard(out, "batch", None, "heads_sharded", None)
 
 
 def _out_proj(p: dict[str, torch.Tensor], out: torch.Tensor,
@@ -242,23 +245,10 @@ def _kernel_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
                                   window=window)
     # The reference passes q_pos[0], an array, which its wrapper turns into
     # offset 0; the sequences here always start at position 0.
-    kv_heads = None
-    if cfg.attn_sharding == "heads":
-        q_axes = ("batch", None, "heads_sharded", None)
-        kv_axes = ("batch", None, "kv_heads_sharded", None)
-        kv_heads = _kv_heads_read(q, k, 2)
-    else:   # the whole sequence on every rank
-        q_axes = kv_axes = ("batch", None, None, None)
-
-    def flash(q, k, v):
-        if kv_heads is not None:
-            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
-        return fa_ops.flash_attention(
-            q, k.contiguous(), v.contiguous(), causal=True, window=window,
-            scale=_scale(cfg, q.shape[-1]), softcap=cfg.attn_softcap,
-            q_offset=0)
-
-    return on_local_shards(flash, (q, k, v), (q_axes, kv_axes, kv_axes))
+    return fa_ops.flash_attention(
+        q, k.contiguous(), v.contiguous(), causal=True, window=window,
+        scale=_scale(cfg, q.shape[-1]), softcap=cfg.attn_softcap,
+        q_offset=0)
 
 
 _IMPLS = {
@@ -266,6 +256,33 @@ _IMPLS = {
     "chunked": _chunked_attention,
     "pallas": _kernel_attention,
 }
+
+
+def _attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, *, causal,
+               window) -> torch.Tensor:
+    """``cfg.attn_impl``'s attention, under a mesh on each rank's local
+    shards (:func:`~repro_torch.models.common.on_local_shards`): the
+    kernels take ``data_ptr()``s, and DTensor's rules for the grouped
+    einsums' reshapes differ across torch versions (2.11 refuses to
+    flatten a sharded head dim with the batch). Under
+    ``attn_sharding="heads"`` a rank takes its H/model query heads and the
+    KV heads they read (:func:`_kv_heads_read`); under ``"sequence"`` the
+    whole sequence, gathered first."""
+    kv_heads = None
+    if cfg.attn_sharding == "heads":
+        q_axes = ("batch", None, "heads_sharded", None)
+        kv_axes = ("batch", None, "kv_heads_sharded", None)
+        kv_heads = _kv_heads_read(q, k, 2)
+    else:   # the whole sequence on every rank
+        q_axes = kv_axes = ("batch", None, None, None)
+    impl = _IMPLS[cfg.attn_impl]
+
+    def local(q, k, v):
+        if kv_heads is not None:
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
+        return impl(cfg, q, k, v, q_pos, k_pos, causal=causal, window=window)
+
+    return on_local_shards(local, (q, k, v), (q_axes, kv_axes, kv_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +302,8 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
         q, k = rope(q, k, positions, cfg.rope_theta)
     q, k, v = _shard_qkv(cfg, q, k, v)
     k_pos = positions if kv_positions is None else kv_positions
-    out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, k_pos,
-                                causal=causal, window=window)
+    out = _attention(cfg, q, k, v, positions, k_pos, causal=causal,
+                     window=window)
     return _out_proj(p, _shard_out(cfg, out), x.dtype)
 
 
@@ -450,10 +467,22 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
         ck = shard(ck, "kv_batch", "kv_seq_sharded", None, None)
         cv = shard(cv, "kv_batch", "kv_seq_sharded", None, None)
         q = shard(q, "kv_batch", None, None, None)
-    max_len = ck.shape[1]
-    hkv, h, hd = ck.shape[2], q.shape[2], q.shape[-1]
-    g = h // hkv
+    max_len, hd = ck.shape[1], q.shape[-1]
     scale = _scale(cfg, hd)
+    # both routes run on each rank's local shards: its heads and the KV
+    # heads they read, or under "sequence" every cache position
+    kv_heads = None
+    if cfg.attn_sharding == "heads":
+        q_axes = ("kv_batch", None, "heads_sharded", None)
+        kv_axes = ("kv_batch", None, "kv_heads_sharded", None)
+        kv_heads = _kv_heads_read(q, ck, 2)
+    else:
+        q_axes = kv_axes = ("kv_batch", None, None, None)
+
+    def heads_read(k, v):
+        if kv_heads is None:
+            return k, v
+        return k.index_select(2, kv_heads), v.index_select(2, kv_heads)
 
     # Decode-kernel path: the ragged per-row lengths go straight to the
     # kernel. Ring buffers and soft-capping stay on the masked-einsum path
@@ -461,23 +490,14 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     if cfg.decode_impl == "pallas" and window == 0 and not cfg.attn_softcap:
         kv_len = (pos if per_row else pos.expand(b)) + 1
 
-        kv_heads = None
-        if cfg.attn_sharding == "heads":
-            q_axes = ("kv_batch", "heads_sharded", None)
-            kv_axes = ("kv_batch", None, "kv_heads_sharded", None)
-            kv_heads = _kv_heads_read(q, ck, 2)
-        else:   # every cache position on every rank
-            q_axes = ("kv_batch", None, None)
-            kv_axes = ("kv_batch", None, None, None)
+        def decode(q, k, v, lens):
+            k, v = heads_read(k, v)
+            return da_ops.decode_attention(q[:, 0], k, v, lens,
+                                           scale=float(scale))[:, None]
 
-        def decode(q0, k, v, lens):
-            if kv_heads is not None:
-                k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
-            return da_ops.decode_attention(q0, k, v, lens, scale=float(scale))
-
-        out = on_local_shards(decode, (q[:, 0], ck, cv, kv_len.int()),
+        out = on_local_shards(decode, (q, ck, cv, kv_len.int()),
                               (q_axes, kv_axes, kv_axes, ("kv_batch",)))
-        out = shard(out[:, None], "kv_batch", None, "heads_sharded", None)
+        out = shard(out, "kv_batch", None, "heads_sharded", None)
         return _out_proj(p, out, x.dtype), cache
 
     slots = torch.arange(max_len, device=x.device)
@@ -491,16 +511,25 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
         valid = slots[None, :] <= pos[:, None]               # (B, Smax)
     else:
         valid = slots <= pos
-    qg = q.reshape(b, 1, hkv, g, hd)
-    logits = torch.einsum("bskgh,btkh->bkgst", qg, ck).float() * scale
-    logits = _softcap(logits, cfg.attn_softcap)
     bias = torch.where(valid, 0.0, NEG_INF).float()
-    if per_row:
-        logits = logits + bias[:, None, None, None, :]
-    else:
-        logits = logits + bias[None, None, None, None, :]
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, cv).reshape(b, 1, h, hd)
+
+    def masked(q, k, v, bias):
+        k, v = heads_read(k, v)
+        rows, h, hkv = q.shape[0], q.shape[2], k.shape[2]
+        qg = q.reshape(rows, 1, hkv, h // hkv, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float() * scale
+        logits = _softcap(logits, cfg.attn_softcap)
+        if per_row:
+            logits = logits + bias[:, None, None, None, :]
+        else:
+            logits = logits + bias[None, None, None, None, :]
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(
+            rows, 1, h, hd)
+
+    out = on_local_shards(masked, (q, ck, cv, bias),
+                          (q_axes, kv_axes, kv_axes,
+                           ("kv_batch", None) if per_row else (None,)))
     out = shard(out, "kv_batch", None, "heads_sharded", None)
     return _out_proj(p, out, x.dtype), cache
 
@@ -541,6 +570,6 @@ def prefill_into_cache(cfg: ModelConfig, p: dict[str, torch.Tensor],
 
     for name, u in upd.items():
         _write_local(cache[name], u, write)
-    out = _IMPLS[cfg.attn_impl](cfg, q, k, v, positions, positions,
-                                causal=True, window=window)
+    out = _attention(cfg, q, k, v, positions, positions, causal=True,
+                     window=window)
     return _out_proj(p, _shard_out(cfg, out), x.dtype), cache

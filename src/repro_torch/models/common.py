@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import (mesh_sizes, placements,
-                                              resolve_spec)
+from repro_torch.distributed.sharding import (local_slices, mesh_sizes,
+                                              placements, resolve_spec)
 
 # ---------------------------------------------------------------------------
 # Devices
@@ -476,22 +476,18 @@ def as_dtensor(x: torch.Tensor, mesh):
                               run_check=False)
 
 
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a plain tensor that this rank holds whole (a DTensor is
+    gathered; a plain tensor is returned as it is)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def local_offsets(t) -> list[int]:
     """The index, in the whole tensor, of the first element of this rank's
     shard of ``t`` along each dim (the shards are even: see
     :func:`shard`)."""
-    from torch.distributed.tensor import Shard
-
-    mesh = t.device_mesh
-    coord = mesh.get_coordinate()
-    offs = [0] * t.ndim
-    for dim in range(t.ndim):
-        size = t.shape[dim]
-        for m, p in enumerate(t.placements):     # nested in mesh order
-            if isinstance(p, Shard) and p.dim == dim:
-                size //= mesh.size(m)
-                offs[dim] += coord[m] * size
-    return offs
+    return [s.start for s in local_slices(t.shape, t.placements,
+                                          t.device_mesh)]
 
 
 def _placements_of(x: torch.Tensor, axes: Sequence[str | None]) -> tuple:
@@ -521,10 +517,15 @@ def on_local_shards(fn: Callable[..., torch.Tensor], args: Sequence[Any],
     ``fn(*args)``. Under rules each tensor ``args[i]`` is first placed by
     its logical axes ``axes[i]`` (``None`` for a non-tensor argument),
     ``fn`` runs on every rank's local shards, and its output is a DTensor
-    placed like ``args[0]``."""
+    placed like ``args[0]``. The gradient of an input that is replicated
+    on a mesh dim where the output is sharded is a partial sum there: each
+    rank's output shard contributes its own part (the KV heads that
+    several ranks' query heads read, an embedding table that every data
+    group's rows index)."""
     st = _AXIS_RULES
     if st.rules is None or st.mesh is None:
         return fn(*args)
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = st.mesh
@@ -532,9 +533,14 @@ def on_local_shards(fn: Callable[..., torch.Tensor], args: Sequence[Any],
             for a, ax in zip(args, axes)]
     ins = tuple(None if ax is None else _placements_of(a, ax)
                 for a, ax in zip(args, axes))
+    out = ins[0]
+    grads = tuple(None if pl is None else tuple(
+        Partial() if isinstance(p, Replicate) and isinstance(o, Shard)
+        else p for p, o in zip(pl, out)) for pl in ins)
     # a list: local_map reads a tuple as one placement per output
-    return local_map(fn, out_placements=list(ins[0]), in_placements=ins,
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+    return local_map(fn, out_placements=list(out), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -760,8 +766,11 @@ def softmax_cross_entropy(
     vocab_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over masked tokens; padded vocab entries are neutralised.
-    Returns (loss, denom = max(sum(mask), 1)), both fp32."""
-    logits = logits.float()
+    Returns (loss, denom = max(sum(mask), 1)), both fp32. Under a mesh the
+    vocab dim is gathered first, as the serving steps gather it for their
+    argmax: DTensor's gather of the gold logit over a sharded vocab leaves
+    a partial value it cannot reduce."""
+    logits = shard(logits.float(), "batch", "act_seq", None)
     vp = logits.shape[-1]
     if vp != vocab_size:
         pad_bias = torch.where(

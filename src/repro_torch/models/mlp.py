@@ -152,10 +152,15 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     hu = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"].to(dt))
     h = shard(act(hg) * hu, "expert_sharded", "moe_groups", None,
               "moe_ffn_act")
-    # no constraint on expert_out: under TP-in-expert it holds per-shard
+    # under TP-in-expert no constraint on expert_out: it holds per-shard
     # partial sums, reduced on the (G, g, D) token tensor below instead of
-    # the fat (E, G, C, D) capacity tensor
+    # the fat (E, G, C, D) capacity tensor. Under expert parallelism every
+    # expert's output is gathered on every rank first: DTensor (torch
+    # 2.11) cannot reshape the capacity tensor for the combine while its
+    # expert dim is sharded.
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"].to(dt))
+    if cfg.moe_sharding == "expert":
+        expert_out = shard(expert_out, "expert", "moe_groups", None, None)
     out = torch.einsum("gtec,egcd->gtd", combine.to(dt), expert_out)
     out = shard(out, "moe_groups", None, None)
     return out.reshape(b, s, d), aux_loss.float()

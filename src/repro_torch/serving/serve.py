@@ -29,8 +29,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.models.common import (cast_for_compute, is_dtensor,
-                                       resolve_device, shard)
+from repro_torch.models.common import (cast_for_compute, resolve_device,
+                                       shard, whole)
 from repro_torch.models.registry import LM_FAMILIES, ModelBundle
 from repro_torch.observability.metrics import get_registry
 
@@ -40,10 +40,7 @@ def _greedy(cfg, logits: torch.Tensor) -> torch.Tensor:
     vocabulary. Under a mesh the logits are a DTensor and the tokens come
     back whole on every rank."""
     last = shard(logits[:, -1, :cfg.vocab_size], "batch", None)
-    next_tok = torch.argmax(last, dim=-1)
-    if is_dtensor(next_tok):
-        next_tok = next_tok.full_tensor()
-    return next_tok.to(torch.int32)[:, None]
+    return whole(torch.argmax(last, dim=-1)).to(torch.int32)[:, None]
 
 
 def make_prefill_step(bundle: ModelBundle) -> Callable:

@@ -5,6 +5,12 @@ Counterpart of ``repro.training.optim``, formula for formula, with every
 update in fp32 (the bias corrections ``b1**t`` and ``b2**t`` too) and the
 result cast back to each leaf's dtype. Nothing is updated in place: each
 update returns new parameter and state trees.
+
+Under a mesh the leaves are DTensors and the state is placed like the
+parameters (:func:`opt_state_axes`). A norm reduces each leaf's sum of
+squares to a replicated scalar before it sums the leaves, so it is one
+device's norm on every rank, and the scalars of an update (learning
+rate, bias corrections, clip scale) are replicated DTensors beside them.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models.common import map_tree, tree_leaves
+from repro_torch.models.common import is_dtensor, map_tree, tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +39,9 @@ class OptimConfig:
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """The fp32 scalar ``x`` placed like the scalar ``like`` (replicated
+    when ``like`` is a DTensor)."""
+    return torch.full_like(like, x, dtype=torch.float32)
 
 
 def lr_schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
@@ -48,10 +56,21 @@ def lr_schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """sum(x ** 2) in fp32. Of a sharded DTensor the sum is a partial
+    value on each rank; it is reduced here to a replicated scalar."""
+    s = x.float().square().sum()
+    if is_dtensor(s):
+        from torch.distributed.tensor import Replicate
+
+        s = s.redistribute(s.device_mesh, [Replicate()] * s.device_mesh.ndim)
+    return s
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, leaves summed in
     sorted-key order as JAX flattens a dict."""
-    sq = [x.float().square().sum() for _, x in tree_leaves(tree)]
+    sq = [_sum_sq(x) for _, x in tree_leaves(tree)]
     return torch.sqrt(torch.stack(sq).sum())
 
 
@@ -162,3 +181,18 @@ def opt_update(cfg: OptimConfig, grads, opt_state, params, step):
     if cfg.name == "adamw":
         return adamw_update(cfg, grads, opt_state, params, step)
     return adafactor_update(cfg, grads, opt_state, params, step)
+
+
+def opt_state_axes(cfg: OptimConfig, param_axes: Any) -> dict[str, Any]:
+    """Logical axes of the optimizer state: AdamW's moments mirror the
+    parameters; Adafactor's factored ``vr`` drops the last dim and ``vc``
+    the second-to-last, and a rank-1 leaf's ``v`` keeps its axes."""
+    if cfg.name == "adamw":
+        return {"mu": param_axes, "nu": param_axes}
+
+    def fac_axes(ax: tuple) -> dict[str, tuple]:
+        if len(ax) >= 2:
+            return {"vr": tuple(ax[:-1]), "vc": tuple(ax[:-2] + ax[-1:])}
+        return {"v": tuple(ax)}
+
+    return {"fac": map_tree(fac_axes, param_axes)}

@@ -69,7 +69,7 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
     from repro_torch.distributed.sharding import distribute_tree, make_rules
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models.common import axis_rules
+    from repro_torch.models.common import axis_rules, is_dtensor
     from repro_torch.models.registry import build
 
     mesh = make_serving_mesh(data=data, model=model)
@@ -82,6 +82,20 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
         return plain_decode(q, k, v, lens, **kw)
 
     da_ops.decode_attention_ref = recording_decode
+    # the masked decode route (soft-capped attention) under the mesh: its
+    # logits (B, Hkv, G, 1, Smax), as a DTensor or as this rank's plain
+    # shard
+    from repro_torch.models import attention
+
+    plain_softcap, capped = attention._softcap, []
+
+    def recording_softcap(logits, cap):
+        if on_mesh[0]:
+            capped.append((not is_dtensor(logits), tuple(logits.shape)))
+        return plain_softcap(logits, cap)
+
+    on_mesh = [False]
+    attention._softcap = recording_softcap
     out = {}
     for case in archs:
         # "arch" or "arch:H/Hkv", the reduced config with H query and Hkv
@@ -106,6 +120,8 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
         sc = distribute_tree(bundle.init_cache(2, 32, "cpu"),
                              bundle.cache_axes(), rules, mesh, notes)
         seen.clear()
+        capped.clear()
+        on_mesh[0] = True
         with axis_rules(mesh, rules):
             sharded = _serve(bundle, sp, sc, prompt, sharded_logits)
             # a cache of 12 = 8 + 4 positions: under sequence sharding the
@@ -114,6 +130,7 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
                 bundle.init_cache(2, 12, "cpu"), bundle.cache_axes(), rules,
                 mesh), prompt, [], scalar_pos=scalar).tolist()
                 for scalar in (False, True)}
+        on_mesh[0] = False
         attn = sp["layers"]["attn"]
         out[case] = {
             "single": single.tolist(), "sharded": sharded.tolist(),
@@ -123,6 +140,7 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
                                   zip(single_logits, sharded_logits)),
             "max_logit": max(float(a.abs().max()) for a in single_logits),
             "decode_inputs": sorted(set(seen)),
+            "masked_decode_logits": sorted(set(capped)),
             "wq_local": list(attn["wq"].to_local().shape),
             "wo_local": list(attn["wo"].to_local().shape),
             "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,

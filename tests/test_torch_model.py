@@ -309,14 +309,29 @@ def test_prefill_equals_stepwise_decode(arch, decode_impl):
     assert seq_a == seq_b
 
 
-def test_routes_of_later_slices_raise(tmp_path):
-    """The multi-device meshes wait for their slice; the launcher says so
-    before it builds anything."""
-    from repro_torch.launch.train import main
+def test_launcher_trains_on_a_2x2_mesh_and_resumes_on_one_device(
+        tmp_path, capfd):
+    """Four gloo ranks (FSDP over data, heads over model) train, print from
+    rank 0 only and write each leaf's four shards once; one process
+    without a mesh resumes from them."""
+    import json
 
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        main(["--arch", ARCH, "--reduced", "--device", "cpu",
-              "--data-mesh", "2", "--ckpt-dir", str(tmp_path)])
+    from repro_torch.launch.train import main
+    from repro_torch.training import checkpoint
+
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "1",
+            "--seq", "16", "--log-every", "1", "--ckpt-dir", str(tmp_path)]
+    main([*argv, "--steps", "2", "--data-mesh", "2", "--model-mesh", "2"])
+    out = capfd.readouterr().out
+    assert out.count("step 1/2") == 1 and out.count("step 2/2") == 1
+    with open(tmp_path / "step_2" / "manifest.json") as fh:
+        leaves = json.load(fh)["leaves"]
+    wq = [s["index"] for s in leaves["params/layers/attn/wq"]["shards"]]
+    assert len(wq) == len({json.dumps(i) for i in wq}) == 4
+    main([*argv, "--steps", "3"])
+    out = capfd.readouterr().out
+    assert "resumed from step 2" in out and out.count("step 3/3") == 1
+    assert checkpoint.latest_step(str(tmp_path)) == 3
 
 
 # ---------------------------------------------------------------------------

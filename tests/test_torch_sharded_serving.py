@@ -97,6 +97,19 @@ def test_sequence_sharded_decode_sees_the_whole_cache(meshes):
         assert all(q[1] == r["heads"] for q, _ in r["decode_inputs"]), r
 
 
+def test_masked_decode_runs_on_local_shards(meshes):
+    """1x2, grok's soft-capped attention takes the masked decode route:
+    it runs on each rank's plain shard, H/2 query heads and the Hkv/2 KV
+    heads they read, at every decode step of each cache."""
+    for found in meshes[(1, 2)]:
+        r = found["grok-1-314b"]
+        logits = r["masked_decode_logits"]
+        assert {shape[-1] for _, shape in logits} == {32, 12}, r
+        for plain, (_, hkv, g, _, _) in logits:
+            assert plain and (hkv, hkv * g) == (r["kv_heads"] // 2,
+                                                 r["heads"] // 2), r
+
+
 @pytest.mark.parametrize("mesh,arch,q_heads,kv_heads", [
     ((1, 4), "aiida-demo-110m", 1, 1),        # 4/2 heads: one KV head each
     ((1, 2), "aiida-demo-110m:12/3", 6, 3),   # 6 query heads read KV 0,0,1

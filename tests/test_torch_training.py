@@ -625,6 +625,35 @@ def test_launcher_nan_loss_exits_310(tmp_path):
     assert exc.value.code == 310
 
 
-def test_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        launch_train.main([*LAUNCH, "--data-mesh", "2"])
+def test_launcher_trains_on_a_mesh_and_resumes_on_another(tmp_path, capfd,
+                                                          monkeypatch):
+    """``--data-mesh 2`` spawns two gloo ranks (FSDP) that train, print from
+    rank 0 only and save sharded checkpoints; ``--model-mesh 2`` resumes
+    from them on two ranks that split the heads, with a NaN learning
+    rate: rank 0 reads step 4's NaN loss and every rank exits 310. The
+    launcher waits for its ranks with no deadline: a caller's default one
+    is cut to half a second here, which both runs outlive."""
+    spawn = launch_train.spawn_ranks
+
+    def short_default_deadline(*args, **kw):
+        kw.setdefault("timeout", 0.5)
+        return spawn(*args, **kw)
+
+    monkeypatch.setattr(launch_train, "spawn_ranks", short_default_deadline)
+    launch_train.main([*LAUNCH, "--steps", "2", "--data-mesh", "2",
+                       "--ckpt-dir", str(tmp_path)])
+    out = capfd.readouterr().out
+    assert out.count("step 2/2") == 1 and "final checkpoint" in out
+    with open(tmp_path / "step_2" / "manifest.json") as fh:
+        emb = json.load(fh)["leaves"]["params/embedding"]
+    assert [s["index"] for s in emb["shards"]] == [[None, [0, 64]],
+                                                   [None, [64, 128]]]
+    with pytest.raises(SystemExit) as exc:
+        launch_train.main([*LAUNCH, "--steps", "4", "--model-mesh", "2",
+                           "--lr", "nan", "--ckpt-dir", str(tmp_path)])
+    assert exc.value.code == 310
+    out = capfd.readouterr().out
+    assert out.count("resumed from step 2") == 1
+    assert out.count("step 3/4") == 1
+    assert "step 1/4" not in out and "step 4/4" not in out
+    assert ckpt.latest_step(str(tmp_path)) == 2
