@@ -208,11 +208,19 @@ then:
    and AdamW moments) for 3 steps, whisper at 8 encoder and 8 decoder
    layers of its 32 + 32 (the smoke's time: at full depth the job took
    301.70 s for 2 steps) for 2 steps, 4 x 448 tokens beside 1500 frames
-   per row, drawn as the reference's job recipe draws them: finished
-   ok, finite
+   per row, drawn as the reference's job recipe draws them,
+   ``recurrentgemma-2b`` at 18 of its 26 layers (the card's memory: a
+   step holds the old and new fp32 parameters and AdamW moments beside
+   the gradients, ~75 GB at full depth) with its scan on the kernel, 2 x
+   1024 tokens, and ``xlstm-350m`` at full depth on the plain chunkwise
+   mLSTM (the kernel has no backward), 8 x 128 tokens, each for 3 steps:
+   finished ok, finite
    losses, every flash forward, recompute, dq and dk/dv launch on the
    tensor-core bodies (16 / 8 / 8 per whisper step: its decoder's
-   self-attention), moonshot's aux loss finite and positive; prints
+   self-attention; none for the hybrid, whose attention is the chunked
+   route, and the xLSTM), the hybrid's scan launched 3 times per
+   recurrent layer and step (forward, remat recompute, the backward's
+   reversed scan), moonshot's aux loss finite and positive; prints
    losses, aux, peak memory, wall;
 22. serves ``whisper-large-v3`` (audio, encoder-decoder) at full width
    and depth (32 encoder and 32 decoder layers, 1.54 B parameters, bf16
@@ -246,7 +254,15 @@ then:
    the tensor-core body) launches; prints the host ms per decode step
    both ways beside the ``nvidia-smi`` line (DTensor's dispatch is the
    mesh's own cost on a host-bound step) and a profiled decode step each
-   way (device time, idle share, launches);
+   way (device time, idle share, launches); then, the same way,
+   ``recurrentgemma-2b`` (4 rows of 256 tokens) and ``xlstm-350m`` (4
+   rows of 128: each sLSTM layer's prefill is a per-step loop) at full
+   width and depth and ``whisper-large-v3`` at full width and 4 + 4 of
+   its 32 + 32 layers (the smoke's time; 4 rows of 1500 frames and 4
+   tokens), bf16 weights drawn on the card, 16 new tokens each at one
+   scalar position: identical tokens, equal scan (18 per prefill),
+   mLSTM (21 per prefill), flash (4 per prefill) and decode (4 per
+   step) launches both ways, the host ms per decode step both ways;
 25. trains ``aiida-demo-110m`` at full width and depth with phase 7's
    recipe (bf16 activations, fp32 parameters, AdamW, remat
    ``nothing_saveable``, 8 x 1024; the launcher's schedule for 4 steps)
@@ -262,7 +278,15 @@ then:
    card, the step-2 checkpoint restored without a mesh leaf for leaf
    bit-equal to the mesh's state, and one more step from each of the two
    states with losses within 1e-4; prints the host ms per step both
-   ways, peak memory and the phase's wall.
+   ways, peak memory and the phase's wall; then ``recurrentgemma-2b`` at
+   full width and 3 of its 26 layers (the smoke's time: each run draws
+   its fp32 state on the host) with its scan on the kernel, 4 steps of 2
+   x 1024 tokens, plain then mesh (two runs for the smoke's time: each
+   draws its state on the host): losses and grad_norm within 1e-4
+   relative, 6 scan launches per step both ways, the step-2 list-of-
+   layers checkpoint restored without a mesh bit-equal; prints step 2's
+   host ms both ways (step 3 of the mesh's run holds the checkpoint's
+   host copy).
 
 Prints the smoke's wall, a ``{"kernels": [...]}`` line (each kernel with
 the body that ran it), the ``nvidia-smi`` line, and as the
@@ -272,6 +296,7 @@ without that line. Full results also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -3116,11 +3141,30 @@ FAMILY_JOBS = {
                           "num_layers": AUDIO_TRAIN_LAYERS,
                           "encoder_layers": AUDIO_TRAIN_LAYERS}},
 }
+# the hybrid at 18 of its 26 layers (six (recurrent, recurrent, local
+# attention) units), its scan on the kernel, 2 rows of 1024 tokens; the
+# xLSTM at full depth on the plain chunkwise mLSTM (the kernel has no
+# backward), 8 rows of 128 tokens (each sLSTM layer's per-step loop runs
+# forward, recomputed and backward: 256 tokens took 30.91 s for 3 steps)
+HYBRID_TRAIN_LAYERS = 18
+FAMILY_JOBS[HYBRID] = {"arch": HYBRID, "reduced": False,
+                       "steps": FAMILY_TRAIN_STEPS, "batch": 2, "seq": 1024,
+                       "overrides": {"num_layers": HYBRID_TRAIN_LAYERS,
+                                     "use_pallas": True}}
+FAMILY_JOBS[XLSTM] = {"arch": XLSTM, "reduced": False,
+                      "steps": FAMILY_TRAIN_STEPS, "batch": 8, "seq": 128,
+                      "overrides": {}}
 #: why each job runs below its config's depth
 FAMILY_TRAIN_CUTS = {
     MOE: "the card's memory: fp32 parameters, gradients and AdamW moments",
     VLM: "the card's memory: fp32 parameters, gradients and AdamW moments",
     AUDIO: "the smoke's time: the full-depth job took 301.70 s for 2 steps",
+    # 2.675 B parameters: a step holds the old and the new parameters and
+    # AdamW moments beside the gradients, 28 bytes a parameter, ~75 GB of
+    # the card's 80 at full depth; 18 layers are 2.05 B, ~57 GB
+    HYBRID: "the card's memory: a step's old and new fp32 parameters and "
+            "AdamW moments beside its gradients, 28 bytes a parameter, "
+            "~75 GB at full depth",
 }
 
 
@@ -3515,14 +3559,20 @@ def family_parity_phase(torch, da_ops, fa_ops) -> dict:
     return result
 
 
-def family_train_phase(torch, fa_ops) -> dict:
+def family_train_phase(torch, fa_ops, rg_ops) -> dict:
     """One ``GPUTrainJob`` per family through a ``Runner`` at full width,
     the MoE and the VLM at 2 layers (the card's memory: fp32 parameters,
     gradients and AdamW moments) for 3 steps, whisper at 8 + 8 layers (the
-    smoke's time) for 2: finished ok, finite losses, every flash launch (forward, its remat recompute, dq
+    smoke's time) for 2, the hybrid at 18 of 26 layers (the card's
+    memory) and the xLSTM at full depth for 3: finished ok, finite
+    losses, every flash launch (forward, its remat recompute, dq
     and dk/dv; whisper's decoder self-attention only, its encoder and
     cross-attention being on the chunked path) on the tensor-core bodies,
-    and the MoE's aux loss positive and finite at every layer call."""
+    none for the hybrid (its published attention is the chunked route:
+    head_dim 256) and the xLSTM, the hybrid's scan launched three times
+    per recurrent layer and step (forward, its remat recompute, the
+    backward's reversed scan), and the MoE's aux loss positive and finite
+    at every layer call."""
     import os
     import tempfile
 
@@ -3533,6 +3583,8 @@ def family_train_phase(torch, fa_ops) -> dict:
     from repro_torch.engine.runner import Runner, set_default_runner
     from repro_torch.models import mlp as mlp_mod
     from repro_torch.provenance.store import configure_store
+
+    from repro_torch.models.rglru import layer_kinds
 
     counters = (fa_ops.flash_attention_fwd, fa_ops.flash_attention_bwd_dq,
                 fa_ops.flash_attention_bwd_dkv)
@@ -3553,7 +3605,7 @@ def family_train_phase(torch, fa_ops) -> dict:
             store = configure_store(os.path.join(tmp.name, f"{arch}.db"))
             runner = Runner(store=store)
             set_default_runner(runner)
-            zero_counters(counters)
+            zero_counters((*counters, rg_ops.rglru_scan))
             aux_seen.clear()
             mlp_mod.moe_forward = watched_moe
             try:
@@ -3572,15 +3624,23 @@ def family_train_phase(torch, fa_ops) -> dict:
             check(len(losses) == steps
                   and all(math.isfinite(x) for x in losses),
                   f"{arch} train losses {losses}")
-            layers = config["overrides"].get("num_layers",
-                                             get_config(arch).num_layers)
-            want = {"flash_attention_fwd": 2 * layers * steps,
-                    "flash_attention_bwd_dq": layers * steps,
-                    "flash_attention_bwd_dkv": layers * steps}
+            cfg = get_config(arch).replace(**config["overrides"])
+            layers = cfg.num_layers
+            flash = 0 if arch in (HYBRID, XLSTM) else layers * steps
+            want = {"flash_attention_fwd": 2 * flash,
+                    "flash_attention_bwd_dq": flash,
+                    "flash_attention_bwd_dkv": flash}
             check(launches == want, f"{arch} train launches {launches} != "
                                     f"{want}")
+            scans = rg_ops.rglru_scan.launches
+            rglru_layers = (sum(k == "rglru" for k in layer_kinds(cfg))
+                            if arch == HYBRID else 0)
+            check(scans == 3 * rglru_layers * steps,
+                  f"{arch} train scan launches {scans} != 3 x "
+                  f"{rglru_layers} recurrent layers x {steps} steps")
             check(tc == list(launches.values()),
                   f"{arch} train tensor-core launches {tc} of {launches}")
+            launches["rglru_scan"] = scans
             # each MoE layer's forward, then its recompute in the backward
             # (which stops once it has what the backward needs)
             aux = [float(a) for a in aux_seen]
@@ -3598,6 +3658,7 @@ def family_train_phase(torch, fa_ops) -> dict:
                 "batch": config["batch"], "seq": config["seq"],
                 "losses": losses, "aux_loss": aux, "wall_s": wall,
                 "launches": launches, "tensor_core_launches": tc,
+                "scan_launches_per_step": scans // steps,
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                 "card_before": card}
             print(f"family train {arch}: losses {losses}, wall {wall:.3f} s, "
@@ -3870,6 +3931,36 @@ def audio_parity_phase(torch, da_ops, fa_ops) -> dict:
 # phase 24: the dense LM served through a device mesh
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def one_rank_group(prefix: str):
+    """A one-rank NCCL process group, the 1 x 1 mesh's, whose rendezvous
+    file lies in a temporary directory under ``build/`` (yielded); the
+    group is destroyed, its environment removed and the directory deleted
+    on the way out."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import setup_devices
+    from repro_torch.configs.devices import RENDEZVOUS_ENV
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix=prefix, dir=ROOT / "build")
+    rank_env = {"RANK": "0", "WORLD_SIZE": "1",
+                RENDEZVOUS_ENV: os.path.join(tmp.name, "rendezvous")}
+    os.environ.update(rank_env)
+    try:
+        setup_devices("cuda", 1)
+        yield tmp.name
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in rank_env:
+            os.environ.pop(name, None)
+        tmp.cleanup()
+
+
 # rows, prompt tokens, new tokens (the first from the prefill), cache:
 # phase 4's longest prompt, its new-token count and its cache
 MESH_BATCH, MESH_PROMPT, MESH_NEW, MESH_MAX_LEN = 4, 700, 64, 1024
@@ -3921,15 +4012,9 @@ def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
     launches (every flash launch on the tensor-core body, every local
     shard on the card); the host ms per decode step both ways, run in
     turns (plain, mesh, mesh, plain)."""
-    import os
-    import tempfile
-
     import numpy as np
-    import torch.distributed as dist
 
-    from repro_torch.configs import (get_config, make_serving_mesh,
-                                     setup_devices)
-    from repro_torch.configs.devices import RENDEZVOUS_ENV
+    from repro_torch.configs import get_config, make_serving_mesh
     from repro_torch.distributed.sharding import distribute_tree, make_rules
     from repro_torch.models.common import (axis_rules, cast_for_compute,
                                            tree_leaves)
@@ -3945,13 +4030,7 @@ def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
     ).to("cuda")
     counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd)
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.TemporaryDirectory(prefix="mesh_", dir=ROOT / "build")
-    rank_env = {"RANK": "0", "WORLD_SIZE": "1",
-                RENDEZVOUS_ENV: os.path.join(tmp.name, "rendezvous")}
-    os.environ.update(rank_env)
-    try:
-        setup_devices("cuda", 1)
+    with one_rank_group("mesh_"):
         mesh = make_serving_mesh(data=1, model=1)
         rules = make_rules(cfg, mesh, fsdp=False)
         notes: list[str] = []
@@ -3977,12 +4056,6 @@ def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
         plain()                       # warm-up: library handles, allocator
         runs = [("plain", plain()), ("mesh", meshed()),
                 ("mesh", meshed(True)), ("plain", plain(True))]
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for name in rank_env:
-            os.environ.pop(name, None)
-        tmp.cleanup()
     layers = cfg.num_layers
     want = {"decode_attention": layers * (MESH_NEW - 1),
             "flash_attention_fwd": layers}
@@ -4015,6 +4088,183 @@ def mesh_serve_phase(torch, da_ops, fa_ops, smi: str) -> dict:
     return result
 
 
+# the hybrid, the xLSTM and whisper through the same 1 x 1 mesh: rows,
+# prompt tokens, new tokens (the first from the prefill), cache, and the
+# decoder and encoder depth where it is cut; the xLSTM's prompt is short
+# (each sLSTM layer's prefill is a per-step loop), whisper is cut to 4 + 4
+# of its 32 + 32 layers for the smoke's time (each 1500-frame prefill runs
+# the encoder's chunked loop: 375 passes a layer)
+MESH_FAMILIES = {
+    HYBRID: {"rows": 4, "prompt": 256, "new": 16, "max_len": 512},
+    XLSTM: {"rows": 4, "prompt": 128, "new": 16, "max_len": 256},
+    AUDIO: {"rows": 4, "prompt": 4, "new": 16, "max_len": AUDIO_MAX_LEN,
+            "layers": 4},
+}
+MESH_FAMILY_CUT = ("the smoke's time: each 1500-frame prefill runs the "
+                   "encoder's chunked loop, 375 passes a layer")
+
+
+def family_mesh_greedy(torch, bundle, params, cache, batch, new, counters
+                       ) -> dict:
+    """A prefill of ``batch`` and ``new - 1`` decode steps at one scalar
+    position for every row, each step's tokens read on the host: the
+    tokens, the prefill's host ms, each decode step's, and each counter's
+    launches in the prefill and in the decode steps."""
+    from repro_torch.serving.serve import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    zero_counters(counters)
+    n = batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tok, cache = prefill(params, batch, cache)
+    toks = [tok.cpu()]
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    mid = {c.__name__: c.launches for c in counters}
+    step_ms = []
+    for i in range(new - 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tok, cache = decode(params, cache, tok.long(),
+                            torch.tensor(n + i, device="cuda"))
+        toks.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    step_ms.sort()
+    return {"tokens": torch.cat(toks, dim=1), "prefill_ms": prefill_ms,
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "prefill_launches": mid,
+            "decode_launches": {c.__name__: c.launches - mid[c.__name__]
+                                for c in counters}}
+
+
+def family_mesh_serve_phase(torch, da_ops, fa_ops, rg_ops, ml_ops,
+                            smi: str) -> dict:
+    """``recurrentgemma-2b`` and ``xlstm-350m`` at full width and depth
+    and ``whisper-large-v3`` at full width and 4 + 4 layers, bf16 weights
+    drawn on the card, each served through a 1 x 1 NCCL mesh
+    (``make_rules(..., fsdp=False)``, parameters and cache placed by
+    ``distribute_tree``, the steps under ``axis_rules``) and without one,
+    in turns (plain, mesh, mesh, plain, after a plain warm-up):
+    identical tokens, equal launches of every kernel in the prefill and
+    in the decode steps both ways, each > 0 where the family's path runs
+    the kernel (the hybrid's scan once per recurrent layer and prefill,
+    the xLSTM's mLSTM kernel once per mLSTM layer and prefill, whisper's
+    flash forward once per decoder layer and prefill and its decode
+    kernel once per layer and step), and the host ms per decode step both
+    ways."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, make_serving_mesh
+    from repro_torch.distributed.sharding import distribute_tree, make_rules
+    from repro_torch.models.common import axis_rules, tree_leaves
+    from repro_torch.models.registry import build
+    from repro_torch.models.rglru import layer_kinds
+    from repro_torch.models.xlstm import slstm_positions
+
+    t_phase = time.perf_counter()
+    counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd,
+                rg_ops.rglru_scan, ml_ops.mlstm_chunk)
+    result = {}
+    with one_rank_group("mesh_fam_"):
+        mesh = make_serving_mesh(data=1, model=1)
+        for seed, (arch, plan) in enumerate(MESH_FAMILIES.items(), 24):
+            card = free_card(torch)
+            cfg = get_config(arch).replace(param_dtype="bfloat16",
+                                           use_pallas=True)
+            if arch == AUDIO:
+                cfg = cfg.replace(attn_impl="pallas", decode_impl="pallas",
+                                  num_layers=plan["layers"],
+                                  encoder_layers=plan["layers"])
+            bundle = build(cfg)
+            params, n_params, _, _ = card_params(torch, cfg, seed)
+            rules = make_rules(cfg, mesh, fsdp=False)
+            notes: list[str] = []
+            mesh_params = distribute_tree(params, bundle.param_axes(), rules,
+                                          mesh, notes)
+            check(all(t.to_local().is_cuda
+                      for _, t in tree_leaves(mesh_params)),
+                  f"{arch}: a parameter shard is not on the card")
+            rows = plan["rows"]
+            batch = {"tokens": torch.from_numpy(
+                np.random.default_rng(seed).integers(
+                    1, cfg.vocab_size, (rows, plan["prompt"])).astype(
+                        np.int32)).to("cuda")}
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            for name, (shape, dtype) in bundle.extra_inputs(rows).items():
+                batch[name] = torch.randn(shape, generator=gen,
+                                          device="cuda", dtype=dtype)
+
+            def plain():
+                return family_mesh_greedy(
+                    torch, bundle, params, bundle.init_cache(
+                        rows, plan["max_len"], "cuda"), batch, plan["new"],
+                    counters)
+
+            def meshed():
+                cache = distribute_tree(
+                    bundle.init_cache(rows, plan["max_len"], "cuda"),
+                    bundle.cache_axes(), rules, mesh)
+                with axis_rules(mesh, rules):
+                    return family_mesh_greedy(torch, bundle, mesh_params,
+                                              cache, batch, plan["new"],
+                                              counters)
+
+            plain()                   # warm-up: library handles, allocator
+            runs = [("plain", plain()), ("mesh", meshed()),
+                    ("mesh", meshed()), ("plain", plain())]
+            layers = cfg.num_layers
+            steps = plan["new"] - 1
+            want_prefill = {"decode_attention": 0, "flash_attention_fwd": 0,
+                            "rglru_scan": 0, "mlstm_chunk": 0}
+            want_decode = dict(want_prefill)
+            if arch == HYBRID:
+                want_prefill["rglru_scan"] = sum(
+                    k == "rglru" for k in layer_kinds(cfg))
+            elif arch == XLSTM:
+                want_prefill["mlstm_chunk"] = (layers
+                                               - len(slstm_positions(cfg)))
+            else:
+                want_prefill["flash_attention_fwd"] = layers
+                want_decode["decode_attention"] = layers * steps
+            base = runs[0][1]["tokens"]
+            for kind, run in runs:
+                check(torch.equal(run["tokens"], base),
+                      f"{arch} {kind} tokens differ from the first plain "
+                      "run's")
+                check(run["prefill_launches"] == want_prefill
+                      and run["decode_launches"] == want_decode,
+                      f"{arch} {kind} launches {run['prefill_launches']} / "
+                      f"{run['decode_launches']} != {want_prefill} / "
+                      f"{want_decode}")
+            check(bool(((base >= 0) & (base < cfg.vocab_size)).all()),
+                  f"{arch}: a generated token is out of vocab")
+            ms = {kind: [r["step_ms_median"] for k, r in runs if k == kind]
+                  for kind in ("plain", "mesh")}
+            result[arch] = {
+                "layers": layers, "parameters": n_params,
+                "cut": (f"{plan['layers']} + {plan['layers']} of 32 + 32 "
+                        f"layers ({MESH_FAMILY_CUT})" if "layers" in plan
+                        else None),
+                "rows": rows, "prompt": plan["prompt"], "new_tokens":
+                plan["new"], "max_len": plan["max_len"],
+                "placement_notes": notes, "tokens_identical": True,
+                "prefill_launches": want_prefill,
+                "decode_launches": want_decode,
+                "prefill_ms": {f"{k}{i}": r["prefill_ms"]
+                               for i, (k, r) in enumerate(runs)},
+                "decode_step_ms_median": ms,
+                "mesh_host_ms_per_step": (sum(ms["mesh"]) - sum(ms["plain"]))
+                / len(ms["mesh"]), "card_before": card}
+            print(f"mesh serve {arch} (runs plain, mesh, mesh, plain; {smi}):"
+                  f" decode step ms {ms}, prefill launches {want_prefill}, "
+                  f"decode launches {want_decode}, tokens identical")
+            del params, mesh_params, runs
+    result["phase_wall_s"] = time.perf_counter() - t_phase
+    result["nvidia_smi"] = smi
+    print("mesh serve families: " + json.dumps(result))
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phase 25: the dense LM trained through a device mesh
 # ---------------------------------------------------------------------------
@@ -4041,7 +4291,8 @@ def mesh_train_run(torch, launch, args, cfg, counters, mesh: bool,
         torch.cuda.synchronize()
         now = time.perf_counter()
         out["step_ms"].append((now - prev["t"]) * 1e3)
-        n = [(c.launches, c.tensor_core_launches) for c in counters]
+        n = [(c.launches, getattr(c, "tensor_core_launches", 0))
+             for c in counters]
         out["launches"].append([a - b for (a, _), (b, _) in
                                 zip(n, prev["n"])])
         out["tensor_core"].append([a - b for (_, a), (_, b) in
@@ -4074,12 +4325,8 @@ def mesh_train_phase(torch, fa_ops, smi: str) -> dict:
     NCCL mesh by the launcher's per-rank body, against the same loop
     without a mesh (module docstring, item 25)."""
     import os
-    import tempfile
 
-    import torch.distributed as dist
-
-    from repro_torch.configs import get_config, setup_devices
-    from repro_torch.configs.devices import RENDEZVOUS_ENV
+    from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import (make_rules, shard_batch,
                                                   tree_placements)
     from repro_torch.launch import train as launch
@@ -4098,21 +4345,14 @@ def mesh_train_phase(torch, fa_ops, smi: str) -> dict:
                 fa_ops.flash_attention_bwd_dkv)
     per_step = [2 * cfg.num_layers, cfg.num_layers, cfg.num_layers]
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.TemporaryDirectory(prefix="mesh_train_",
-                                      dir=ROOT / "build")
-    ckpt_dir = os.path.join(tmp.name, "ckpt")
     argv = ["--arch", ARCH, "--steps", str(MESH_TRAIN_STEPS), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "2",
             "--device", "cuda"]
     args = launch.parse_args(argv)
-    ckpt_args = launch.parse_args([*argv, "--ckpt-dir", ckpt_dir,
-                                   "--ckpt-every", str(MESH_CKPT_STEP)])
-    rank_env = {"RANK": "0", "WORLD_SIZE": "1",
-                RENDEZVOUS_ENV: os.path.join(tmp.name, "rendezvous")}
-    os.environ.update(rank_env)
-    try:
-        setup_devices("cuda", 1)
+    with one_rank_group("mesh_train_") as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt_args = launch.parse_args([*argv, "--ckpt-dir", ckpt_dir,
+                                       "--ckpt-every", str(MESH_CKPT_STEP)])
         runs = [("plain", mesh_train_run(torch, launch, args, cfg, counters,
                                          False)),
                 ("mesh", mesh_train_run(torch, launch, ckpt_args, cfg,
@@ -4153,12 +4393,6 @@ def mesh_train_phase(torch, fa_ops, smi: str) -> dict:
                     "mesh_from_kept": [float(m_mesh["loss"]),
                                        float(m_mesh["grad_norm"])]}
         del kept, restored
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for name in rank_env:
-            os.environ.pop(name, None)
-        tmp.cleanup()
 
     base = runs[0][1]
     for kind, run in runs:
@@ -4210,6 +4444,121 @@ def mesh_train_phase(torch, fa_ops, smi: str) -> dict:
           f"{ms}, losses bit-equal {result['losses_bit_equal']}, phase "
           f"{result['phase_wall_s']:.1f} s")
     print("mesh train: " + json.dumps(result))
+    return result
+
+
+# the hybrid through the launcher on the same mesh: its layers (one
+# (recurrent, recurrent, local attention) unit: the 0.66 B-parameter
+# embedding dominates the state either way, and each of the two runs
+# draws its fp32 state on the host), rows and tokens per step
+MESH_TRAIN_HYBRID_LAYERS, MESH_TRAIN_HYBRID_BATCH = 3, 2
+MESH_TRAIN_HYBRID_SEQ = 1024
+
+
+def hybrid_mesh_train_phase(torch, rg_ops, smi: str) -> dict:
+    """``recurrentgemma-2b`` at full width and 3 of its 26 layers (its
+    scan on the kernel) trained by the launcher's per-rank body
+    (``launch.train.train_rank``) on a 1 x 1 NCCL mesh, a per-rank
+    checkpoint at step 2, against ``launch.train.run`` without a mesh
+    (plain, then mesh), 4 steps of 2 x 1024 tokens: losses
+    and grad_norm within 1e-4 relative (bit equality printed), the scan
+    launched 3 times per recurrent layer and step both ways (forward, its
+    remat recompute, the backward's reversed scan), and the step-2
+    checkpoint of the list-of-layers state restored without a mesh leaf
+    for leaf bit-equal to the mesh's state."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.registry import build
+    from repro_torch.models.rglru import layer_kinds
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_step import train_state_shapes
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = get_config(HYBRID).replace(num_layers=MESH_TRAIN_HYBRID_LAYERS,
+                                     use_pallas=True)
+    bundle = build(cfg)
+    counters = (rg_ops.rglru_scan,)
+    per_step = [3 * sum(k == "rglru" for k in layer_kinds(cfg))]
+    argv = ["--arch", HYBRID, "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(MESH_TRAIN_HYBRID_BATCH), "--seq", str(MESH_TRAIN_HYBRID_SEQ),
+            "--log-every", "2", "--device", "cuda"]
+    args = launch.parse_args(argv)
+    with one_rank_group("mesh_hyb_") as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        ckpt_args = launch.parse_args([*argv, "--ckpt-dir", ckpt_dir,
+                                       "--ckpt-every", str(MESH_CKPT_STEP)])
+        # two runs, not phase 25's four turns: each draws its state on the
+        # host and the mesh's writes two 10.6 GB checkpoints (step 2 and
+        # the last), ~20 s a run
+        runs = [("plain", mesh_train_run(torch, launch, args, cfg, counters,
+                                         False)),
+                ("mesh", mesh_train_run(torch, launch, ckpt_args, cfg,
+                                        counters, True, MESH_CKPT_STEP))]
+        kept = runs[1][1].pop("kept")
+        restored = ckpt.restore_checkpoint(
+            ckpt_dir, step=MESH_CKPT_STEP,
+            target=train_state_shapes(bundle, launch.train_config(args)),
+            device="cuda")
+        check(isinstance(restored["params"]["layers"], list),
+              "the restored hybrid state has no list of layers")
+        kept_leaves = dict(tree_leaves(kept))
+        unequal = [k for k, t in tree_leaves(restored)
+                   if not torch.equal(t, kept_leaves[k].to_local())]
+        check(not unequal, f"restored hybrid leaves differ from the mesh's "
+                           f"state at step {MESH_CKPT_STEP}: {unequal}")
+        n_leaves = len(kept_leaves)
+        del kept, restored
+    base = runs[0][1]
+    for kind, run in runs:
+        check(len(run["loss"]) == MESH_TRAIN_STEPS
+              and all(math.isfinite(x) for x in run["loss"]),
+              f"hybrid {kind}: losses {run['loss']}")
+        check(all(n == per_step for n in run["launches"]),
+              f"hybrid {kind}: scan launches per step {run['launches']} != "
+              f"{per_step}")
+        check(run["on_card"], f"hybrid {kind}: a state shard is not on the "
+                              "card")
+        for what in ("loss", "grad_norm"):
+            for got, want in zip(run[what], base[what]):
+                check(abs(got - want) <= 1e-4 * abs(want),
+                      f"hybrid {kind} {what} {run[what]} vs plain "
+                      f"{base[what]}")
+    # step 2's host ms: step 1 builds the caches, and the mesh run's step
+    # 3 holds the step-2 checkpoint's host copy (its writer thread runs on
+    # beside step 4)
+    ms = {kind: r["step_ms"][1] for kind, r in runs}
+    result = {
+        "layers": cfg.num_layers,
+        "cut": (f"depth {cfg.num_layers} of {get_config(HYBRID).num_layers} "
+                "layers (the smoke's time: each run draws its fp32 state on "
+                "the host; the card's memory holds the mesh's kept state and "
+                "the restored one beside a step)"),
+        "batch": MESH_TRAIN_HYBRID_BATCH, "seq": MESH_TRAIN_HYBRID_SEQ,
+        "steps": MESH_TRAIN_STEPS, "mesh": {"data": 1, "model": 1},
+        "checkpoint_step": MESH_CKPT_STEP, "restored_leaves": n_leaves,
+        "losses": {f"{k}{i}": r["loss"] for i, (k, r) in enumerate(runs)},
+        "grad_norms": {f"{k}{i}": r["grad_norm"]
+                       for i, (k, r) in enumerate(runs)},
+        "losses_bit_equal": all(r["loss"] == base["loss"] for _, r in runs),
+        "grad_norms_bit_equal": all(r["grad_norm"] == base["grad_norm"]
+                                    for _, r in runs),
+        "scan_launches_per_step": per_step[0],
+        "launches": {"rglru_scan": sum(n[0] for n in runs[1][1]["launches"])},
+        "restored_bit_equal": True,
+        "step_ms": {f"{k}{i}": r["step_ms"] for i, (k, r) in enumerate(runs)},
+        "step2_ms": ms, "mesh_host_ms_per_step": ms["mesh"] - ms["plain"],
+        "peak_memory_bytes": {f"{k}{i}": r["peak_memory_bytes"]
+                              for i, (k, r) in enumerate(runs)},
+        "phase_wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    print(f"mesh train hybrid (runs plain, mesh; {smi}): step 2 host "
+          f"ms {ms}, {per_step[0]} scan launches per step, losses bit-equal "
+          f"{result['losses_bit_equal']}, phase "
+          f"{result['phase_wall_s']:.1f} s")
+    print("mesh train hybrid: " + json.dumps(result))
     return result
 
 
@@ -4287,14 +4636,23 @@ def main() -> int:
     moe = moe_serve_phase(torch, da_ops, fa_ops)
     vlm = vlm_serve_phase(torch, da_ops, fa_ops)
     family_parity = family_parity_phase(torch, da_ops, fa_ops)
-    family_train = family_train_phase(torch, fa_ops)
+    family_train = family_train_phase(torch, fa_ops, rg_ops)
     audio = audio_serve_phase(torch, da_ops, fa_ops)
     audio_parity = audio_parity_phase(torch, da_ops, fa_ops)
     mesh = mesh_serve_phase(torch, da_ops, fa_ops, smi)
+    mesh_families = family_mesh_serve_phase(torch, da_ops, fa_ops, rg_ops,
+                                            ml_ops, smi)
     mesh_train = mesh_train_phase(torch, fa_ops, smi)
+    mesh_train_hybrid = hybrid_mesh_train_phase(torch, rg_ops, smi)
 
     def trained_families(name):
         return sum(family_train[a]["launches"][name] for a in (MOE, VLM))
+
+    def mesh_families_launches(name):
+        # one mesh run of each family (every run's are equal)
+        return sum(mesh_families[a]["prefill_launches"][name]
+                   + mesh_families[a]["decode_launches"][name]
+                   for a in MESH_FAMILIES)
 
     def audio_train(name):
         return family_train[AUDIO]["launches"][name]
@@ -4310,7 +4668,9 @@ def main() -> int:
             "moe_serve": moe["launches"]["decode_attention"],
             "vlm_serve": vlm["launches"]["decode_attention"],
             "audio_serve": audio["launches"]["decode_attention"],
-            "mesh_serve": mesh["launches"]["decode_attention"]},
+            "mesh_serve": mesh["launches"]["decode_attention"],
+            "mesh_serve_families": mesh_families_launches(
+                "decode_attention")},
         "flash_attention_fwd": {
             "serve": served["flash_launches"],
             "train": trained["launches"]["flash_attention_fwd"],
@@ -4322,6 +4682,8 @@ def main() -> int:
             "audio_serve": audio["launches"]["flash_attention_fwd"],
             "audio_train": audio_train("flash_attention_fwd"),
             "mesh_serve": mesh["launches"]["flash_attention_fwd"],
+            "mesh_serve_families": mesh_families_launches(
+                "flash_attention_fwd"),
             "mesh_train": mesh_train["launches"]["flash_attention_fwd"]},
         "flash_attention_bwd_dq": {
             "train": trained["launches"]["flash_attention_bwd_dq"],
@@ -4337,8 +4699,14 @@ def main() -> int:
             "family_train": trained_families("flash_attention_bwd_dkv"),
             "audio_train": audio_train("flash_attention_bwd_dkv"),
             "mesh_train": mesh_train["launches"]["flash_attention_bwd_dkv"]},
-        "rglru_scan": {"hybrid_serve": hybrid["launches"]["rglru_scan"]},
-        "mlstm_chunk": {"ssm_serve": ssm["launches"]["mlstm_chunk"]},
+        "rglru_scan": {
+            "hybrid_serve": hybrid["launches"]["rglru_scan"],
+            "hybrid_train": family_train[HYBRID]["launches"]["rglru_scan"],
+            "mesh_serve_families": mesh_families_launches("rglru_scan"),
+            "mesh_train_hybrid": mesh_train_hybrid["launches"]["rglru_scan"]},
+        "mlstm_chunk": {
+            "ssm_serve": ssm["launches"]["mlstm_chunk"],
+            "mesh_serve_families": mesh_families_launches("mlstm_chunk")},
     }
     for kern in kernels:
         kern["launches_by_path"] = by_path[kern["name"]]
@@ -4360,7 +4728,8 @@ def main() -> int:
          "vlm_serve": vlm, "family_parity": family_parity,
          "family_train": family_train, "audio_serve": audio,
          "audio_parity": audio_parity, "mesh_serve": mesh,
-         "mesh_train": mesh_train,
+         "mesh_serve_families": mesh_families, "mesh_train": mesh_train,
+         "mesh_train_hybrid": mesh_train_hybrid,
          "smoke_wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

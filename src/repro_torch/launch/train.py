@@ -40,6 +40,7 @@ import sys
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -122,6 +123,9 @@ def run(args: argparse.Namespace, *, cfg: ModelConfig | None = None,
     data = TokenStream(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
         seed=args.seed, host_id=host_id, num_hosts=num_hosts))
+    # whisper's frames (a VLM's zero patches) beside the tokens, each data
+    # group its own draws
+    extra_rng = np.random.default_rng([args.seed, host_id])
     step_fn = make_train_step(bundle, tcfg, state_pl)
 
     start_step = 0
@@ -145,6 +149,8 @@ def run(args: argparse.Namespace, *, cfg: ModelConfig | None = None,
         for step in range(start_step, args.steps):
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in data.next_batch().items()}
+            batch.update(bundle.draw_extra_inputs(args.batch, extra_rng,
+                                                  device))
             if mesh is not None:
                 batch = shard_batch(batch, bundle.batch_axes(), rules, mesh)
             state, metrics = step_fn(state, batch)

@@ -548,11 +548,15 @@ def prefill_into_cache(cfg: ModelConfig, p: dict[str, torch.Tensor],
     s = x.shape[1]
     kc, vc, n = k, v, s
     if window > 0:
-        # the last min(window, S) entries, put in slot order
+        # the last min(window, S) entries, put in slot order: entry i goes
+        # to slot (S - n + i) % window, a rotation of the n = window
+        # entries by (S - n) % window when the prompt fills the ring, taken
+        # as two slices (no index tensor through a sharded cache's
+        # DTensors)
         n = min(window, s)
-        slot = (torch.arange(n, device=k.device) + (s - n)) % window
-        order = torch.argsort(slot)
-        kc, vc = k[:, s - n:][:, order], v[:, s - n:][:, order]
+        cut = n - (s - n) % window if n == window else n
+        kc, vc = (torch.cat([t[:, s - n + cut:], t[:, s - n:s - n + cut]],
+                            dim=1) for t in (k, v))
     if n > cache["k"].shape[1]:
         raise ValueError(f"a prompt of {n} tokens does not fit a cache of "
                          f"{cache['k'].shape[1]} positions")

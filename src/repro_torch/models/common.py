@@ -509,19 +509,24 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
                                                 _placements_of(x, axes))
 
 
-def on_local_shards(fn: Callable[..., torch.Tensor], args: Sequence[Any],
-                    axes: Sequence[Sequence[str | None] | None]
-                    ) -> torch.Tensor:
+def on_local_shards(fn: Callable[..., Any], args: Sequence[Any],
+                    axes: Sequence[Sequence[str | None] | None],
+                    outs: Sequence[tuple[Sequence[int],
+                                         Sequence[str | None]]] | None = None
+                    ) -> Any:
     """``fn(*args)`` for a function that takes plain tensors only (a
     kernel's wrapper hands ``data_ptr()``s to its library). Without rules,
     ``fn(*args)``. Under rules each tensor ``args[i]`` is first placed by
-    its logical axes ``axes[i]`` (``None`` for a non-tensor argument),
-    ``fn`` runs on every rank's local shards, and its output is a DTensor
-    placed like ``args[0]``. The gradient of an input that is replicated
-    on a mesh dim where the output is sharded is a partial sum there: each
-    rank's output shard contributes its own part (the KV heads that
-    several ranks' query heads read, an embedding table that every data
-    group's rows index)."""
+    its logical axes ``axes[i]`` (``None`` for a non-tensor argument,
+    which is passed on as it is), ``fn`` runs on every rank's local
+    shards, and its output is a DTensor placed like ``args[0]``; a
+    function with several outputs gives ``outs``, each output's (shape,
+    logical axes), and gets a tuple of DTensors placed by them. The
+    gradient of an input that is replicated on a mesh dim where the
+    (first) output is sharded is a partial sum there: each rank's output
+    shard contributes its own part (the KV heads that several ranks'
+    query heads read, an embedding table that every data group's rows
+    index, gate blocks that several ranks' channels read)."""
     st = _AXIS_RULES
     if st.rules is None or st.mesh is None:
         return fn(*args)
@@ -533,14 +538,36 @@ def on_local_shards(fn: Callable[..., torch.Tensor], args: Sequence[Any],
             for a, ax in zip(args, axes)]
     ins = tuple(None if ax is None else _placements_of(a, ax)
                 for a, ax in zip(args, axes))
-    out = ins[0]
+    if outs is None:
+        out = ins[0]
+        # a list: local_map reads a tuple as one placement per output
+        out_pls: Any = list(out)
+    else:
+        sizes = mesh_sizes(mesh)
+        placed = [placements(resolve_spec(shape, ax, st.rules, sizes), mesh)
+                  for shape, ax in outs]
+        out, out_pls = placed[0], tuple(list(p) for p in placed)
     grads = tuple(None if pl is None else tuple(
         Partial() if isinstance(p, Replicate) and isinstance(o, Shard)
         else p for p, o in zip(pl, out)) for pl in ins)
-    # a list: local_map reads a tuple as one placement per output
-    return local_map(fn, out_placements=list(out), in_placements=ins,
+    return local_map(fn, out_placements=out_pls, in_placements=ins,
                      in_grad_placements=grads, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def _rows(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of an embedding table. Under a mesh the
+    table is gathered whole and each rank looks up its own rows of the
+    batch (:func:`on_local_shards`; the table's gradient is summed over
+    the data groups): DTensor (torch 2.11) has no working rule for the
+    row gather's backward (``index_put`` into the table's gradient) with
+    the ids sharded over the batch."""
+    return on_local_shards(_rows, (ids, table),
+                           (("batch", None), (None, None)))
 
 
 # ---------------------------------------------------------------------------

@@ -16,12 +16,22 @@ cross-attention are not causal, so under ``attn_impl="pallas"`` they stay
 on the chunked path, as in the reference; the decoder's causal
 self-attention takes the flash kernels, and a decode step's the decode
 kernel. The caches are updated in place; :func:`whisper_cache_axes`
-gives their logical sharding axes (the ``shard()`` sites wait for the
-family's sharded slice).
+gives their logical sharding axes.
+
+Under a mesh the reference's ``shard()`` sites place the MLP's hidden
+units (over the model axis), both stacks' inputs and each layer's output
+(batch over the data axes) and the logits (the vocab over the model
+axis). Every attention route runs on each rank's local shards, as the
+LM's do (:mod:`~repro_torch.models.attention`); the prefill writes each
+layer's cross K/V into the rank's shard of the cache as
+:func:`whisper_cache_axes` places it (under ``attn_sharding="sequence"``
+the frames over the model axis), and a decode step's cross-attention
+runs on each rank's rows and heads with the cache's frames whole.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -30,10 +40,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
+    embed_rows,
     gelu_tanh,
+    is_dtensor,
     layer_norm,
     layer_slice,
     maybe_remat,
+    on_local_shards,
+    shard,
     sinusoid,
     sinusoidal_positions,
     softmax_cross_entropy,
@@ -103,7 +117,7 @@ def _mlp(cfg: ModelConfig, p: dict[str, torch.Tensor],
          x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = x @ p["w1"].to(dt) + p["b1"].to(dt)
-    h = gelu_tanh(h)
+    h = shard(gelu_tanh(h), "batch", None, "ffn_sharded")
     return h @ p["w2"].to(dt) + p["b2"].to(dt)
 
 
@@ -117,16 +131,17 @@ def _embed(cfg: ModelConfig, params: dict[str, Any],
     """Token embeddings plus the sinusoid of positions 0 .. S - 1, in the
     activation dtype."""
     dt = cfg.activation_dtype
-    x = params["embedding"].to(dt)[tokens]
+    x = embed_rows(params["embedding"].to(dt), tokens)
     pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dt)
-    return x + pos[None]
+    return shard(x + pos[None], "batch", "act_seq", None)
 
 
 def _logits(cfg: ModelConfig, params: dict[str, Any],
             x: torch.Tensor) -> torch.Tensor:
     """The final LayerNorm, then the tied embedding: (B, S, Vp)."""
     x = _ln(cfg, params["dec_ln"], x)
-    return x @ params["embedding"].to(x.dtype).T
+    return shard(x @ params["embedding"].to(x.dtype).T,
+                 "batch", "act_seq", "vocab_sharded")
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +152,8 @@ def _enc_layer(cfg: ModelConfig, p: dict[str, Any], h: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     h = h + attn.attn_forward(cfg, p["attn"], _ln(cfg, p["ln1"], h),
                               positions, causal=False)
-    return h + _mlp(cfg, p["mlp"], _ln(cfg, p["ln2"], h))
+    h = h + _mlp(cfg, p["mlp"], _ln(cfg, p["ln2"], h))
+    return shard(h, "batch", "act_seq", None)
 
 
 def encode(cfg: ModelConfig, params: dict[str, Any],
@@ -146,8 +162,9 @@ def encode(cfg: ModelConfig, params: dict[str, Any],
     Returns the encoder's output (B, T, D) in the activation dtype."""
     dt = cfg.activation_dtype
     x = frames.to(dt)
-    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
-                                 x.device).to(dt)[None]
+    x = shard(x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device).to(dt)[None],
+              "batch", "act_seq", None)
     positions = torch.arange(x.shape[1], device=x.device)
     body = maybe_remat(lambda h, p: _enc_layer(cfg, p, h, positions),
                        cfg.remat_policy)
@@ -168,7 +185,8 @@ def _dec_layer(cfg: ModelConfig, p: dict[str, Any], h: torch.Tensor,
     h = h + attn.attn_forward(cfg, p["cross_attn"], _ln(cfg, p["ln2"], h),
                               positions, causal=False, kv_x=enc_out,
                               kv_positions=enc_positions)
-    return h + _mlp(cfg, p["mlp"], _ln(cfg, p["ln3"], h))
+    h = h + _mlp(cfg, p["mlp"], _ln(cfg, p["ln3"], h))
+    return shard(h, "batch", "act_seq", None)
 
 
 def decode_train(cfg: ModelConfig, params: dict[str, Any],
@@ -237,10 +255,38 @@ def _cross_kv(cfg: ModelConfig, p: dict[str, torch.Tensor],
     return ck, cv
 
 
+#: the logical axes of one layer's cross K/V (B, T, Hkv, hd)
+CROSS_AXES = ("kv_batch", "kv_seq_sharded", None, None)
+
+
 def whisper_cache_axes(cfg: ModelConfig) -> dict:
-    ca = ("layers", "kv_batch", "kv_seq_sharded", None, None)
+    ca = ("layers", *CROSS_AXES)
     return {"self": attn.kv_cache_axes(cfg, layers=True),
             "cross_k": ca, "cross_v": ca}
+
+
+def _store_cross(buf: torch.Tensor, i: int, u: torch.Tensor) -> None:
+    """``buf[i] = u`` for layer ``i`` of a stacked cross K/V cache; under a
+    mesh ``u`` is placed as the cache is (:data:`CROSS_AXES`) and each
+    rank writes its own shard."""
+    if not is_dtensor(buf):
+        buf[i] = u
+        return
+    buf.to_local()[i].copy_(shard(u, *CROSS_AXES).to_local())
+
+
+def _cross_decode(scale: float, q: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor) -> torch.Tensor:
+    """One query row of each head against every frame's cross K/V, on
+    plain tensors: logits in the activation dtype, widened, then scaled
+    in fp32; the probabilities rounded back before the product with V.
+    q: (B, 1, H, hd); ck, cv: (B, T, Hkv, hd). Returns (B, 1, H, hd)."""
+    b, _, h, hd = q.shape
+    hkv = ck.shape[2]
+    qg = q.reshape(b, 1, hkv, h // hkv, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, ck).float() * scale
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, cv).reshape(b, 1, h, hd)
 
 
 def whisper_prefill(cfg: ModelConfig, params: dict[str, Any],
@@ -263,8 +309,8 @@ def whisper_prefill(cfg: ModelConfig, params: dict[str, Any],
         # the cross K/V go to the cache; attn_forward projects them again,
         # as the reference does
         ck, cv = _cross_kv(cfg, p["cross_attn"], enc_out)
-        cache["cross_k"][i] = ck
-        cache["cross_v"][i] = cv
+        _store_cross(cache["cross_k"], i, ck)
+        _store_cross(cache["cross_v"], i, cv)
         x = x + attn.attn_forward(cfg, p["cross_attn"], _ln(cfg, p["ln2"], x),
                                   positions, causal=False, kv_x=enc_out,
                                   kv_positions=enc_positions)
@@ -281,15 +327,17 @@ def whisper_decode_step(cfg: ModelConfig, params: dict[str, Any],
     the new self-attention k/v into ``cache`` in place; the cross K/V are
     read as the prefill left them."""
     dt = cfg.activation_dtype
-    x = params["embedding"].to(dt)[tokens]
+    x = embed_rows(params["embedding"].to(dt), tokens)
     pos = torch.as_tensor(pos, device=x.device)
     if pos.dim() != 0:
         raise ValueError("whisper decodes every row at one position: pos "
                          f"must be a scalar, got shape {tuple(pos.shape)}")
     # the step's sinusoid, computed as the reference's step computes it
     x = x + sinusoid(pos, cfg.d_model).to(dt)[None, None, :]
-    b, h_, hd = x.shape[0], cfg.num_heads, cfg.hd
-    scale = 1.0 / float(hd) ** 0.5
+    cross = functools.partial(_cross_decode, 1.0 / float(cfg.hd) ** 0.5)
+    # a rank's rows and heads (under "heads"), every frame
+    q_axes = ("kv_batch", None, "heads_sharded", None)
+    kv_axes = ("kv_batch", None, "kv_heads_sharded", None)
     for i in range(cfg.num_layers):
         p = layer_slice(params["dec_layers"], i)
         a, _ = attn.attn_decode(cfg, p["self_attn"], _ln(cfg, p["ln1"], x),
@@ -300,14 +348,10 @@ def whisper_decode_step(cfg: ModelConfig, params: dict[str, Any],
         q = torch.einsum("bsd,dhk->bshk", hq, cp["wq"].to(dt))
         if cfg.qkv_bias:
             q = q + cp["bq"].to(dt)
-        ck, cv = cache["cross_k"][i], cache["cross_v"][i]
-        hkv = ck.shape[2]
-        qg = q.reshape(b, 1, hkv, h_ // hkv, hd)
-        # logits in the activation dtype, widened, then scaled in fp32;
-        # the probabilities rounded back before the product with V
-        logits = torch.einsum("bskgh,btkh->bkgst", qg, ck).float() * scale
-        probs = torch.softmax(logits, dim=-1).to(dt)
-        o = torch.einsum("bkgst,btkh->bskgh", probs, cv).reshape(b, 1, h_, hd)
+        o = on_local_shards(cross, (q, cache["cross_k"][i],
+                                    cache["cross_v"][i]),
+                            (q_axes, kv_axes, kv_axes))
+        o = shard(o, "kv_batch", None, "heads_sharded", None)
         x = x + torch.einsum("bshk,hkd->bsd", o, cp["wo"].to(dt))
         x = x + _mlp(cfg, p["mlp"], _ln(cfg, p["ln3"], x))
     return _logits(cfg, params, x), cache

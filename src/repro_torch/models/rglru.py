@@ -14,12 +14,24 @@ Serving state (:func:`init_griffin_state`) is a list with one dict per
 layer: ``{"h", "conv"}`` for a recurrent layer, a ring-buffer KV cache of
 ``min(local_window, max_len)`` slots for an attention layer. Prefill and
 decode write it in place and return it; :func:`griffin_state_axes` gives
-its logical sharding axes (its ``shard()`` sites wait for the family's
-sharded slice).
+its logical sharding axes.
+
+Under a mesh the reference's ``shard()`` sites place the embeddings, the
+recurrence's input ``xr`` (its ``d_rnn`` channels over the model axis)
+and the logits (the vocab over the model axis). Everything between
+``xr`` and the output projection runs on each rank's own channels in one
+:func:`~repro_torch.models.common.on_local_shards` call
+(:func:`_rglru_core`): the causal conv is depthwise, the recurrence
+elementwise, and a rank whose channels are whole gate blocks reads only
+its blocks of ``w_a`` / ``w_i``. Where the model axis does not divide
+``rnn_blocks`` the gate weights stay whole, a rank's channels cut
+through blocks, and it reads the whole of the blocks they fall in
+(:func:`_channel_plan`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
@@ -32,10 +44,15 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     causal_conv,
+    embed_rows,
     gelu_tanh,
+    is_dtensor,
+    local_offsets,
     maybe_remat,
     mul_scalar,
+    on_local_shards,
     rms_norm,
+    shard,
     sigmoid,
     softmax_cross_entropy,
     store_state,
@@ -184,24 +201,98 @@ def _causal_conv(p: dict[str, torch.Tensor], x: torch.Tensor,
     return causal_conv(p["conv_w"], p["conv_b"], x, state)
 
 
+#: the leaves of a recurrent block that :func:`_rglru_core` reads, in its
+#: argument order
+_CORE_LEAVES = ("conv_w", "conv_b", "w_a", "w_i", "b_a", "b_i", "lam")
+
+
+def _channel_plan(p: dict[str, Any], xr: torch.Tensor
+                  ) -> tuple[bool, int, int, int]:
+    """How a rank's channels of ``xr (B, S, dr)`` meet the gate blocks:
+    (whether its blocks are cut, so that the conv and the gates take the
+    whole ``xr`` and their weights whole; the first and last + 1 channel
+    of the blocks its channels fall in; its first channel). Without a
+    mesh, or where each rank's channels are whole blocks (the model axis
+    divides ``rnn_blocks``, and ``w_a`` / ``w_i`` are split with them),
+    every tensor is the rank's own: (False, 0, its channels, 0)."""
+    dl = xr.to_local().shape[-1] if is_dtensor(xr) else xr.shape[-1]
+    w_a = p["w_a"]
+    nbl = w_a.to_local().shape[0] if is_dtensor(w_a) else w_a.shape[0]
+    blk = w_a.shape[1]
+    if nbl * blk == dl:
+        return False, 0, dl, 0
+    first = local_offsets(xr)[-1]
+    return True, first // blk * blk, -(-(first + dl) // blk) * blk, first
+
+
+def _rglru_core(use_pallas: bool, cut: bool, lo: int, hi: int, first: int,
+                xr: torch.Tensor, h0: torch.Tensor | None,
+                conv_state: torch.Tensor | None, conv_w, conv_b, w_a, w_i,
+                b_a, b_i, lam
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The causal conv, the gates and the scan on plain tensors: (h over
+    all t (B, S, dr) fp32, the final h, the new conv state). Under a mesh
+    a rank's own channels; with ``cut`` the conv and the gates run on
+    channels ``lo:hi`` of the whole ``xr``, conv weights, conv state and
+    per-channel leaves (the whole blocks that channels ``first`` ..
+    ``first + dr_local`` fall in), and their results are cut to the
+    rank's channels."""
+    p = {"conv_w": conv_w, "conv_b": conv_b, "b_a": b_a, "b_i": b_i,
+         "lam": lam}
+    if cut:
+        blk = w_a.shape[1]
+        p = {k: v[..., lo:hi] for k, v in p.items()}
+        xr = xr[..., lo:hi]
+        if conv_state is not None:
+            conv_state = conv_state[..., lo:hi]
+        w_a, w_i = w_a[lo // blk:hi // blk], w_i[lo // blk:hi // blk]
+    xr, new_conv = _causal_conv(p, xr, conv_state)
+    a, bx = rglru_gates(dict(p, w_a=w_a, w_i=w_i), xr)
+    if cut:
+        own = slice(first - lo, first - lo + h0.shape[-1])
+        a, bx = a[..., own], bx[..., own]
+        new_conv = new_conv[..., own]
+    if h0 is None:
+        h0 = a.new_zeros((a.shape[0], a.shape[-1]))
+    if use_pallas:
+        return (*rg_ops.rglru_scan(a, bx, h0), new_conv)
+    return (*rglru_scan_ref(a, bx, h0), new_conv)
+
+
 def rglru_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                         state: dict[str, torch.Tensor] | None = None,
                         use_pallas: bool = False
                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Full-sequence recurrent block. Returns (out, new_state)."""
     dt = x.dtype
+    bsz, s = x.shape[:2]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     y = gelu_tanh(h @ p["w_y"].to(dt))
-    xr = h @ p["w_x"].to(dt)
-    conv_state = state["conv"] if state is not None else None
-    xr, new_conv = _causal_conv(p, xr, conv_state)
-    a, bx = rglru_gates(p, xr)
-    h0 = (state["h"].float() if state is not None
-          else a.new_zeros((x.shape[0], a.shape[-1])))
-    if use_pallas:
-        hs, h_last = rg_ops.rglru_scan(a, bx, h0)
-    else:
-        hs, h_last = rglru_scan_ref(a, bx, h0)
+    xr = shard(h @ p["w_x"].to(dt), "batch", "act_seq_rnn", "rnn_sharded")
+    dr = xr.shape[-1]
+    cut, lo, hi, first = _channel_plan(p, xr)
+    h0 = conv_state = None
+    if state is not None:
+        h0, conv_state = state["h"].float(), state["conv"]
+    elif cut:       # the rank's own channels of the zero state
+        h0 = shard(torch.zeros((bsz, dr), dtype=torch.float32,
+                               device=x.device), "batch", "rnn_sharded")
+    # the whole sequence on every rank; with cut blocks every channel of
+    # the conv's and the gates' inputs and weights
+    own = "rnn_sharded"
+    act, wt, blocks = ((None, None, None) if cut
+                       else (own, "rnn_tp", "rnn_blocks"))
+    hs, h_last, new_conv = on_local_shards(
+        functools.partial(_rglru_core, use_pallas, cut, lo, hi, first),
+        (xr, h0, conv_state, *(p[k] for k in _CORE_LEAVES)),
+        (("batch", None, act),
+         None if h0 is None else ("batch", own),
+         None if conv_state is None else ("batch", None, act),
+         (None, wt), (wt,), (blocks, None, None), (blocks, None, None),
+         (wt,), (wt,), (wt,)),
+        outs=(((bsz, s, dr), ("batch", None, own)),
+              ((bsz, dr), ("batch", own)),
+              ((bsz, cfg.conv_width - 1, dr), ("batch", None, own))))
     hs = hs.to(dt) * y
     out = hs @ p["w_o"].to(dt)
     return out, {"h": h_last, "conv": new_conv}
@@ -223,13 +314,14 @@ def rglru_block_decode(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 def _embed(cfg: ModelConfig, params: dict[str, Any],
            tokens: torch.Tensor) -> torch.Tensor:
     """Gemma-style scaled embedding rows in the activation dtype."""
-    x = params["embedding"].to(cfg.activation_dtype)[tokens]
-    return mul_scalar(x, cfg.d_model ** 0.5)
+    x = embed_rows(params["embedding"].to(cfg.activation_dtype), tokens)
+    return shard(mul_scalar(x, cfg.d_model ** 0.5), "batch", "act_seq", None)
 
 
 def _logits(params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """Tied head: (B, S, D) @ embedding^T."""
-    return x @ params["embedding"].to(x.dtype).T
+    return shard(x @ params["embedding"].to(x.dtype).T,
+                 "batch", "act_seq", "vocab_sharded")
 
 
 def _mlp_sub(cfg: ModelConfig, p: dict[str, Any],

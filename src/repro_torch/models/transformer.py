@@ -22,8 +22,8 @@ from repro_torch.models.common import (
     ParamSpec,
     layer_slice,
     maybe_remat,
+    embed_rows,
     mul_scalar,
-    on_local_shards,
     rms_norm,
     shard,
     softmax_cross_entropy,
@@ -71,18 +71,9 @@ def embed_tokens(cfg: ModelConfig, params: dict[str, Any],
                  tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table in the activation dtype. Under a mesh
     the table is gathered whole and each rank looks up its own rows of the
-    batch (:func:`~repro_torch.models.common.on_local_shards`; the table's
-    gradient is summed over the data groups): DTensor (torch 2.11) has no
-    working rule for the row gather's backward (``index_put`` into the
-    table's gradient) with the ids sharded over the batch."""
+    batch (:func:`~repro_torch.models.common.embed_rows`)."""
     emb = params["embedding"].to(cfg.activation_dtype)
-    return mul_scalar(on_local_shards(_rows, (tokens, emb),
-                                      (("batch", None), (None, None))),
-                      cfg.embedding_multiplier)
-
-
-def _rows(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    return mul_scalar(embed_rows(emb, tokens), cfg.embedding_multiplier)
 
 
 def lm_logits(cfg: ModelConfig, params: dict[str, Any],

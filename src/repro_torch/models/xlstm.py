@@ -16,12 +16,23 @@ The stack is unrolled over a **list** of per-layer parameter dicts
 Serving state (:func:`init_xlstm_state`) is a list with one dict per
 layer: ``{"C", "n", "m", "conv"}`` for an mLSTM layer, ``{"c", "n", "m",
 "h", "conv"}`` for an sLSTM layer. Prefill and decode write it in place
-and return it; :func:`xlstm_state_axes` gives its logical sharding axes
-(its ``shard()`` sites wait for the family's sharded slice).
+and return it; :func:`xlstm_state_axes` gives its logical sharding axes.
+
+Under a mesh the reference's ``shard()`` sites place the embeddings and
+each block's residual output (batch over the data axes) and the logits
+(the vocab over the model axis). The inner activations stay whole on the
+model axis, as the reference's site leaves them: the up-projection is
+gathered there, and each block's cell (the mLSTM's conv, gates, kernel
+or recurrence and group norm; the sLSTM's conv, gates, whole per-step
+loop and group norm) runs in one
+:func:`~repro_torch.models.common.on_local_shards` call on each rank's
+rows, with its weights whole. The projections around the cells stay
+split over the model axis.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -34,9 +45,12 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     causal_conv,
+    embed_rows,
     gelu_tanh,
     layer_norm,
     maybe_remat,
+    on_local_shards,
+    shard,
     sigmoid,
     silu,
     softmax_cross_entropy,
@@ -163,13 +177,27 @@ mlstm_chunkwise = mlstm_chunkwise_ref
 # mLSTM block
 # ---------------------------------------------------------------------------
 
+def _mlstm_up(cfg: ModelConfig, p: dict[str, Any],
+              x: torch.Tensor) -> torch.Tensor:
+    """The block's norm and up-projection (B, S, 2 * di), whole on the
+    model axis: the reference's site on ``xm`` (inner activations
+    replicated on the model axis: the (B, S, di) -> (B, S, H, hd) head
+    reshape does not commute with a di-sharding), taken before the split
+    so that ``z`` is whole too (``w_up``'s columns are split over it)."""
+    h = layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
+    return shard(h @ p["w_up"].to(x.dtype), "batch", "act_seq_rnn", None)
+
+
 def _mlstm_qkv_gates(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                      conv_state: torch.Tensor | None = None):
     """x: (B, S, D) -> q, k, v (B, H, S, hd) (transposed views with a unit
     stride on hd), gates li, lf (B, H, S) fp32, z, new conv state."""
-    dt = x.dtype
-    h = layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
-    up = h @ p["w_up"].to(dt)
+    return _split_qkv_gates(cfg, p, _mlstm_up(cfg, p, x), conv_state)
+
+
+def _split_qkv_gates(cfg: ModelConfig, p: dict[str, Any], up: torch.Tensor,
+                     conv_state: torch.Tensor | None):
+    """:func:`_mlstm_qkv_gates` from the up-projection ``up``."""
     di = up.shape[-1] // 2
     xm, z = up[..., :di], up[..., di:]
     xc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], xm, conv_state)
@@ -188,19 +216,55 @@ def _mlstm_qkv_gates(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     return q, k, v, li, lf, z, new_conv
 
 
-def mlstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-                        state: dict[str, torch.Tensor] | None = None):
-    dt = x.dtype
-    bsz, s, _ = x.shape
-    di = d_inner(cfg)
+#: the leaves of an mLSTM block that its cell reads, in argument order
+_MLSTM_CELL = ("conv_w", "conv_b", "w_q", "w_k", "w_v", "w_i", "b_i", "w_f",
+               "b_f", "gn_scale")
+#: the leaves of an sLSTM block that its cell reads, in argument order
+_SLSTM_CELL = ("conv_w", "conv_b", "w_i", "w_f", "w_z", "w_o", "r_i", "r_f",
+               "r_z", "r_o", "b_i", "b_f", "b_z", "b_o", "gn_scale")
+
+
+def _whole(t: torch.Tensor) -> tuple[None, ...]:
+    return (None,) * t.dim()
+
+
+def _cell_on_local_shards(cfg: ModelConfig, cell, names: tuple[str, ...],
+                          p: dict[str, Any], inp: torch.Tensor,
+                          state: dict[str, torch.Tensor] | None,
+                          state_names: tuple[str, ...], out_dim: int):
+    """``cell(cfg, inp, *weights, *state)`` on each rank's rows, its
+    weights whole (:func:`~repro_torch.models.common.on_local_shards`);
+    returns (its output (B, S, out_dim), its new state by
+    ``state_names``), placed by :func:`xlstm_state_axes`."""
+    bsz, s = inp.shape[:2]
+    axes = _block_state_axes("C" in state_names)
+    st = [None] * len(state_names) if state is None else [
+        state[n] for n in state_names]
+    shapes = _block_state_shapes(cfg, bsz, "C" in state_names)
+    outs = on_local_shards(
+        functools.partial(cell, cfg),
+        (inp, *(p[n] for n in names), *st),
+        (("batch", None, None), *(_whole(p[n]) for n in names),
+         *(None if t is None else axes[n] for n, t in zip(state_names, st))),
+        outs=(((bsz, s, out_dim), ("batch", None, None)),
+              *((shapes[n], axes[n]) for n in state_names)))
+    return outs[0], dict(zip(state_names, outs[1:]))
+
+
+def _mlstm_cell(cfg: ModelConfig, up: torch.Tensor, conv_w, conv_b, w_q, w_k,
+                w_v, w_i, b_i, w_f, b_f, gn_scale, conv_state, C0, n0, m0):
+    """The mLSTM cell on plain tensors, from the up-projection to the
+    gated, normed output before the down-projection: (out (B, S, di),
+    conv state, C, n, m)."""
+    p = dict(zip(_MLSTM_CELL, (conv_w, conv_b, w_q, w_k, w_v, w_i, b_i, w_f,
+                               b_f, gn_scale)))
+    bsz, s = up.shape[:2]
+    di = up.shape[-1] // 2
     nh = cfg.num_heads
     hd = di // nh
-    conv_state = state["conv"] if state is not None else None
-    q, k, v, li, lf, z, new_conv = _mlstm_qkv_gates(cfg, p, x, conv_state)
-    if state is not None:
-        C0, n0, m0 = state["C"], state["n"], state["m"]
-    else:
-        f32 = dict(dtype=torch.float32, device=x.device)
+    q, k, v, li, lf, z, new_conv = _split_qkv_gates(cfg, p, up, conv_state)
+    if C0 is None:
+        f32 = dict(dtype=torch.float32, device=up.device)
         C0 = torch.zeros((bsz, nh, hd, hd), **f32)
         n0 = torch.zeros((bsz, nh, hd), **f32)
         m0 = torch.full((bsz, nh), NEG_INIT, **f32)
@@ -214,9 +278,15 @@ def mlstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
                                         chunk=cfg.mlstm_chunk)
     hflat = hs.transpose(1, 2).reshape(bsz, s, di)
     hflat = _group_norm(hflat, p["gn_scale"], nh, cfg.norm_eps)
-    out = hflat * silu(z)
-    out = out @ p["w_down"].to(dt)
-    return out, {"C": C, "n": n, "m": m, "conv": new_conv}
+    return hflat * silu(z), new_conv, C, n, m
+
+
+def mlstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+                        state: dict[str, torch.Tensor] | None = None):
+    out, new = _cell_on_local_shards(
+        cfg, _mlstm_cell, _MLSTM_CELL, p, _mlstm_up(cfg, p, x), state,
+        ("conv", "C", "n", "m"), d_inner(cfg))
+    return out @ p["w_down"].to(x.dtype), new
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +323,18 @@ def slstm_cell_scan(p: dict[str, Any], xi, xf, xz, xo,
     return torch.stack(hs, dim=1), {"c": c, "n": n, "m": m, "h": h}
 
 
-def slstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
-                        state: dict[str, torch.Tensor] | None = None):
-    dt = x.dtype
-    bsz, s, d = x.shape
+def _slstm_cell(cfg: ModelConfig, h: torch.Tensor, conv_w, conv_b, w_i, w_f,
+                w_z, w_o, r_i, r_f, r_z, r_o, b_i, b_f, b_z, b_o, gn_scale,
+                conv_state, c0, n0, m0, h0):
+    """The sLSTM cell on plain tensors, from the normed input to the group
+    norm, the whole sequence's per-step loop in one call: (hs (B, S, D),
+    conv state, c, n, m, h)."""
+    p = dict(zip(_SLSTM_CELL, (conv_w, conv_b, w_i, w_f, w_z, w_o, r_i, r_f,
+                               r_z, r_o, b_i, b_f, b_z, b_o, gn_scale)))
+    dt = h.dtype
+    bsz, s, d = h.shape
     nh = cfg.num_heads
     hd = d // nh
-    h = layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
-    conv_state = state["conv"] if state is not None else None
     hc, new_conv = _causal_conv(p["conv_w"], p["conv_b"], h, conv_state)
     hc = silu(hc)
     hh = h.reshape(bsz, s, nh, hd)
@@ -273,20 +347,29 @@ def slstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
     xf = gate(hch, p["w_f"], p["b_f"])
     xz = gate(hh, p["w_z"], p["b_z"])
     xo = gate(hh, p["w_o"], p["b_o"])
-    if state is None:
-        zero = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+    if c0 is None:
+        zero = torch.zeros((bsz, d), dtype=torch.float32, device=h.device)
         cell = {"c": zero, "n": zero, "m": torch.full_like(zero, NEG_INIT),
                 "h": zero}
     else:
-        cell = {name: state[name] for name in ("c", "n", "m", "h")}
-    hs, new_cell = slstm_cell_scan(p, xi, xf, xz, xo, cell, nh)
+        cell = {"c": c0, "n": n0, "m": m0, "h": h0}
+    hs, new = slstm_cell_scan(p, xi, xf, xz, xo, cell, nh)
     hs = _group_norm(hs.to(dt), p["gn_scale"], nh, cfg.norm_eps)
+    return hs, new_conv, new["c"], new["n"], new["m"], new["h"]
+
+
+def slstm_block_forward(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
+                        state: dict[str, torch.Tensor] | None = None):
+    dt = x.dtype
+    h = layer_norm(x, p["ln"], p["ln_b"], cfg.norm_eps)
+    hs, new = _cell_on_local_shards(cfg, _slstm_cell, _SLSTM_CELL, p, h,
+                                    state, ("conv", "c", "n", "m", "h"),
+                                    cfg.d_model)
     # post up-projection (PF = 4/3), gated GeLU (jax.nn.gelu: tanh form)
     u1 = hs @ p["w_up1"].to(dt)
     u2 = hs @ p["w_up2"].to(dt)
     out = gelu_tanh(u1) * u2
-    out = out @ p["w_down"].to(dt)
-    return out, dict(new_cell, conv=new_conv)
+    return out @ p["w_down"].to(dt), new
 
 
 # ---------------------------------------------------------------------------
@@ -302,13 +385,15 @@ def _block(cfg: ModelConfig, p: dict[str, Any], x: torch.Tensor,
 
 def _embed(cfg: ModelConfig, params: dict[str, Any],
            tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens].to(cfg.activation_dtype)
+    return shard(embed_rows(params["embedding"], tokens).to(
+        cfg.activation_dtype), "batch", "act_seq", None)
 
 
 def _logits(cfg: ModelConfig, params: dict[str, Any],
             x: torch.Tensor) -> torch.Tensor:
     x = layer_norm(x, params["ln_final"], params["ln_final_b"], cfg.norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    return shard(x @ params["lm_head"].to(x.dtype),
+                 "batch", "act_seq", "vocab_sharded")
 
 
 def xlstm_forward(cfg: ModelConfig, params: dict[str, Any],
@@ -318,7 +403,7 @@ def xlstm_forward(cfg: ModelConfig, params: dict[str, Any],
     fn = maybe_remat(lambda x, p: _block(cfg, p, x, None)[0],
                      cfg.remat_policy)
     for p in params["layers"]:
-        x = x + fn(x, p)
+        x = shard(x + fn(x, p), "batch", "act_seq", None)
     return _logits(cfg, params, x)
 
 
@@ -342,30 +427,15 @@ def init_xlstm_state(cfg: ModelConfig, batch: int, max_len: int,
     """Zero state (stabilisers at -1e30) for every layer; ``max_len`` does
     not size a recurrent state."""
     del max_len
-    di, nh, d = d_inner(cfg), cfg.num_heads, cfg.d_model
-    hd = di // nh
-    w = cfg.slstm_conv_width - 1
-    f32 = dict(dtype=torch.float32, device=device)
-    act = dict(dtype=cfg.activation_dtype, device=device)
     slstm = slstm_positions(cfg)
-    states = []
-    for i in range(cfg.num_layers):
-        if i in slstm:
-            states.append({
-                "c": torch.zeros((batch, d), **f32),
-                "n": torch.zeros((batch, d), **f32),
-                "m": torch.full((batch, d), NEG_INIT, **f32),
-                "h": torch.zeros((batch, d), **f32),
-                "conv": torch.zeros((batch, w, d), **act),
-            })
-        else:
-            states.append({
-                "C": torch.zeros((batch, nh, hd, hd), **f32),
-                "n": torch.zeros((batch, nh, hd), **f32),
-                "m": torch.full((batch, nh), NEG_INIT, **f32),
-                "conv": torch.zeros((batch, w, di), **act),
-            })
-    return states
+
+    def leaf(name, shape):
+        dt = cfg.activation_dtype if name == "conv" else torch.float32
+        return torch.full(shape, NEG_INIT if name == "m" else 0.0, dtype=dt,
+                          device=device)
+
+    return [{n: leaf(n, shape) for n, shape in _block_state_shapes(
+        cfg, batch, i not in slstm).items()} for i in range(cfg.num_layers)]
 
 
 def _serve_stack(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
@@ -374,23 +444,36 @@ def _serve_stack(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
     for p, st in zip(params["layers"], states):
         out, ns = _block(cfg, p, x, st)
         store_state(st, ns)
-        x = x + out
+        x = shard(x + out, "batch", "act_seq", None)
     return x
 
 
+def _block_state_axes(mlstm: bool) -> dict[str, tuple]:
+    if mlstm:
+        return {"C": ("batch", None, "xlstm_hd_sharded", None),
+                "n": ("batch", None, "xlstm_hd_sharded"),
+                "m": ("batch", None),
+                "conv": ("batch", None, "xlstm_inner_sharded")}
+    return {"c": ("batch", None), "n": ("batch", None),
+            "m": ("batch", None), "h": ("batch", None),
+            "conv": ("batch", None, None)}
+
+
+def _block_state_shapes(cfg: ModelConfig, batch: int,
+                        mlstm: bool) -> dict[str, tuple[int, ...]]:
+    d, di, nh = cfg.d_model, d_inner(cfg), cfg.num_heads
+    w = cfg.slstm_conv_width - 1
+    if mlstm:
+        hd = di // nh
+        return {"C": (batch, nh, hd, hd), "n": (batch, nh, hd),
+                "m": (batch, nh), "conv": (batch, w, di)}
+    return {"c": (batch, d), "n": (batch, d), "m": (batch, d),
+            "h": (batch, d), "conv": (batch, w, d)}
+
+
 def xlstm_state_axes(cfg: ModelConfig) -> list[dict]:
-    axes = []
-    for i in range(cfg.num_layers):
-        if i in slstm_positions(cfg):
-            axes.append({"c": ("batch", None), "n": ("batch", None),
-                         "m": ("batch", None), "h": ("batch", None),
-                         "conv": ("batch", None, None)})
-        else:
-            axes.append({"C": ("batch", None, "xlstm_hd_sharded", None),
-                         "n": ("batch", None, "xlstm_hd_sharded"),
-                         "m": ("batch", None),
-                         "conv": ("batch", None, "xlstm_inner_sharded")})
-    return axes
+    slstm = slstm_positions(cfg)
+    return [_block_state_axes(i not in slstm) for i in range(cfg.num_layers)]
 
 
 def xlstm_prefill(cfg: ModelConfig, params: dict[str, Any],

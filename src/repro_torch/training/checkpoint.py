@@ -33,7 +33,7 @@ import shutil
 import threading
 import time
 import uuid
-from typing import Any, NamedTuple
+from typing import Any, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -244,8 +244,10 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
                        mesh=None, placements: Any = None) -> Any:
     """The state saved at ``step`` (the latest when None) as a nested dict
     of tensors on ``device`` (the card when None). ``target``, a nested
-    dict, gives the structure to fill (every one of its leaves must be in
-    the checkpoint); without it the manifest's paths give the structure.
+    dict (with lists where the state has them: the hybrid's and the
+    xLSTM's layers), gives the structure to fill (every one of its leaves
+    must be in the checkpoint); without it the manifest's paths give the
+    structure, dicts all the way down.
     With ``mesh`` and ``placements`` (a tree of DTensor placements by the
     same paths, :func:`~repro_torch.distributed.sharding.tree_placements`)
     every leaf is a DTensor on ``mesh`` and each rank holds its own slice,
@@ -267,9 +269,9 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
             return arr.to(device)
         return place_local(arr, pls[key], mesh, device)
 
-    keys = ([k for k, _ in tree_leaves(target)] if target is not None
-            else list(manifest["leaves"]))
-    return _nest({key: load(key) for key in keys})
+    if target is None:
+        return _nest({key: load(key) for key in manifest["leaves"]})
+    return _fill(target, load)
 
 
 class AsyncCheckpointer:
@@ -312,6 +314,18 @@ class AsyncCheckpointer:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+
+
+def _fill(target: Any, load, prefix: str = "") -> Any:
+    """``target``'s dicts and lists (the hybrid's and the xLSTM's layers)
+    with each leaf replaced by ``load(its path)``; a list's index is its
+    path element, as :func:`~repro_torch.models.common.tree_leaves` and the
+    reference's ``_leaf_key`` write it."""
+    if isinstance(target, Mapping):
+        return {k: _fill(v, load, f"{prefix}{k}/") for k, v in target.items()}
+    if isinstance(target, list):
+        return [_fill(v, load, f"{prefix}{i}/") for i, v in enumerate(target)]
+    return load(prefix.rstrip("/"))
 
 
 def _nest(flat: dict[str, Any]) -> dict[str, Any]:

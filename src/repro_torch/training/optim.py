@@ -90,6 +90,11 @@ def _zip_map(fn, params, *trees):
                 for k in params}
         n = len(next(iter(outs.values()))) if outs else 0
         return tuple({k: v[i] for k, v in outs.items()} for i in range(n))
+    if isinstance(params, list):          # the hybrid's and xLSTM's layers
+        outs = [_zip_map(fn, p, *(t[i] for t in trees))
+                for i, p in enumerate(params)]
+        n = len(outs[0]) if outs else 0
+        return tuple([o[i] for o in outs] for i in range(n))
     return fn(params, *trees)
 
 

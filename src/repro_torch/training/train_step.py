@@ -96,20 +96,33 @@ def _split_microbatches(batch: dict[str, torch.Tensor], n: int
 def value_and_grad(bundle: ModelBundle, params: Any,
                    batch: dict[str, torch.Tensor]):
     """((loss, metrics), grads) of ``bundle.loss_fn`` in ``params``; grads
-    has ``params``' structure (zeros for a leaf the loss does not use)."""
+    has ``params``' structure (zeros for a leaf the loss does not use).
+    On a mesh each gradient is placed as its parameter is, as the
+    reference's ``jax.grad`` returns it: a partial sum (a replicated
+    parameter's, summed over the ranks that read it) is reduced here, once,
+    rather than wherever the optimizer's first op needs it."""
     live = map_tree(lambda t: t.detach().requires_grad_(True), params)
     loss, metrics = bundle.loss_fn(live, batch)
     leaves = [t for _, t in tree_leaves(live)]
     grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     grad_of = dict(zip(map(id, leaves), grads))
+
+    def placed(t):
+        g = grad_of[id(t)]
+        if is_dtensor(g) and tuple(g.placements) != tuple(t.placements):
+            return g.redistribute(t.device_mesh, t.placements)
+        return g
+
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            map_tree(lambda t: grad_of[id(t)], live))
+            map_tree(placed, live))
 
 
 def _accumulate(acc: Any, grads: Any, n: int) -> Any:
     """acc + grads / n, leaf by leaf, in fp32."""
     if isinstance(acc, dict):
         return {k: _accumulate(acc[k], grads[k], n) for k in acc}
+    if isinstance(acc, list):
+        return [_accumulate(a, g, n) for a, g in zip(acc, grads)]
     return acc + grads.float() / n
 
 

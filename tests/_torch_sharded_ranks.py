@@ -9,7 +9,9 @@ script prints one ``RESULT:`` JSON line with each rank's findings:
         --archs aiida-demo-110m,qwen2-0.5b,aiida-demo-110m:12/3 \\
         --rendezvous-dir /tmp/rdv
 
-(``arch:H/Hkv`` serves the reduced config with H query and Hkv KV heads.)
+(``arch:H/Hkv`` serves the reduced config with H query and Hkv KV heads;
+``arch:name=value+name=value`` overrides other fields of it, integers or
+strings.)
 
 The recipe is the reference's ``test_sharded_decode_matches_single_device``:
 the reduced config in float32 with the decode kernel's route, prompts (2, 8)
@@ -18,6 +20,9 @@ prefill also takes the flash kernel's route (``attn_impl="pallas"``), so
 both kernels' plain versions run on each rank's local shards, and the
 mesh serves twice more into a cache of 12 (per-row and scalar decode
 positions), so that a sequence-sharded cache is written on every rank.
+The hybrid and whisper decode every row at one scalar position (their
+ring buffers and step sinusoid take no other), the xLSTM at none; each
+rank's scan and mLSTM plain versions record what they see.
 """
 
 from __future__ import annotations
@@ -35,11 +40,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 
+#: families whose decode steps take one scalar position for every row
+SCALAR_POS_FAMILIES = ("hybrid", "audio", "ssm")
+
+
 def _serve(bundle, params, cache, prompt, logits_out, scalar_pos=False):
     """Prefill + 4 decode steps through the serving steps; the tokens
     (2, 5), each step's logits appended to ``logits_out``. The decode
     position is a (B,) vector, as the reference's test passes it, or with
-    ``scalar_pos`` one scalar for every row."""
+    ``scalar_pos`` (always for :data:`SCALAR_POS_FAMILIES`) one scalar for
+    every row. A family with extra inputs (whisper's frames) gets them
+    drawn from numpy seed 2."""
     from repro_torch.serving.serve import make_decode_step, make_prefill_step
 
     def keep(fn):
@@ -54,7 +65,10 @@ def _serve(bundle, params, cache, prompt, logits_out, scalar_pos=False):
     rec = dataclasses.replace(bundle, prefill_fn=keep(bundle.prefill_fn),
                               decode_fn=keep(bundle.decode_fn))
     prefill, decode = make_prefill_step(rec), make_decode_step(rec)
-    tok, cache = prefill(params, {"tokens": prompt}, cache)
+    scalar_pos = scalar_pos or bundle.cfg.family in SCALAR_POS_FAMILIES
+    batch = {"tokens": prompt, **bundle.draw_extra_inputs(
+        prompt.shape[0], np.random.default_rng(2), "cpu")}
+    tok, cache = prefill(params, batch, cache)
     toks = [tok]
     pos = torch.tensor(8 if scalar_pos else [8, 8], dtype=torch.int32)
     for _ in range(4):
@@ -82,6 +96,30 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
         return plain_decode(q, k, v, lens, **kw)
 
     da_ops.decode_attention_ref = recording_decode
+    # the scan's plain version, as each rank's kernel would see it: the
+    # shape of a at each call under the mesh
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
+    plain_scan, scans = rg_ops.rglru_scan_ref, []
+
+    def recording_scan(a, x, h0, **kw):
+        if on_mesh[0]:
+            scans.append(tuple(a.shape))
+        return plain_scan(a, x, h0, **kw)
+
+    rg_ops.rglru_scan_ref = recording_scan
+    # the mLSTM kernel's plain version: whether it got plain tensors, and
+    # the shape of q (B, H, S, hd) at each call under the mesh
+    from repro_torch.kernels.mlstm_chunk import ops as ml_ops
+
+    plain_mlstm, cells = ml_ops.mlstm_chunkwise_ref, []
+
+    def recording_mlstm(q, *args, **kw):
+        if on_mesh[0]:
+            cells.append((not is_dtensor(q), tuple(q.shape)))
+        return plain_mlstm(q, *args, **kw)
+
+    ml_ops.mlstm_chunkwise_ref = recording_mlstm
     # the masked decode route (soft-capped attention) under the mesh: its
     # logits (B, Hkv, G, 1, Smax), as a DTensor or as this rank's plain
     # shard
@@ -100,12 +138,16 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
     for case in archs:
         # "arch" or "arch:H/Hkv", the reduced config with H query and Hkv
         # KV heads
-        arch, _, heads = case.partition(":")
+        arch, _, extra = case.partition(":")
         cfg = reduced_config(arch).replace(
             dtype="float32", kv_cache_dtype="float32", decode_impl="pallas",
-            attn_impl="pallas")
-        if heads:
-            h, hkv = map(int, heads.split("/"))
+            attn_impl="pallas", use_pallas=True)
+        if "=" in extra:
+            kw = dict(kv.split("=") for kv in extra.split("+"))
+            cfg = cfg.replace(**{k: int(v) if v.isdigit() else v
+                                 for k, v in kw.items()})
+        elif extra:
+            h, hkv = map(int, extra.split("/"))
             cfg = cfg.replace(num_heads=h, num_kv_heads=hkv)
         bundle = build(cfg)
         params = bundle.init_params(0, "cpu")
@@ -121,6 +163,8 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
                              bundle.cache_axes(), rules, mesh, notes)
         seen.clear()
         capped.clear()
+        scans.clear()
+        cells.clear()
         on_mesh[0] = True
         with axis_rules(mesh, rules):
             sharded = _serve(bundle, sp, sc, prompt, sharded_logits)
@@ -131,7 +175,6 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
                 mesh), prompt, [], scalar_pos=scalar).tolist()
                 for scalar in (False, True)}
         on_mesh[0] = False
-        attn = sp["layers"]["attn"]
         out[case] = {
             "single": single.tolist(), "sharded": sharded.tolist(),
             "sharded_cache12": tight[False],
@@ -141,13 +184,18 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
             "max_logit": max(float(a.abs().max()) for a in single_logits),
             "decode_inputs": sorted(set(seen)),
             "masked_decode_logits": sorted(set(capped)),
-            "wq_local": list(attn["wq"].to_local().shape),
-            "wo_local": list(attn["wo"].to_local().shape),
+            "scan_inputs": sorted(set(scans)), "scan_calls": len(scans),
+            "mlstm_inputs": sorted(set(cells)), "mlstm_calls": len(cells),
+            "d_rnn": cfg.d_rnn, "rnn_blocks": cfg.rnn_blocks,
             "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "heads_rule": str(rules["heads"]), "notes": notes,
             "local_mesh": [list(local.mesh_dim_names), list(local.shape),
                            local.device_type],
         }
+        if isinstance(sp.get("layers"), dict):      # the LM families
+            attn = sp["layers"]["attn"]
+            out[case]["wq_local"] = list(attn["wq"].to_local().shape)
+            out[case]["wo_local"] = list(attn["wo"].to_local().shape)
     return out
 
 

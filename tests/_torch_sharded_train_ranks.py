@@ -9,7 +9,8 @@ script prints one ``RESULT:`` JSON line with each rank's findings:
         --spec '{"cases": ["adamw"]}' --rendezvous-dir /tmp/rdv
 
 With ``--all`` it runs every mesh of the tests (``mesh_specs``) and the
-launcher on 2 x 2 and 1 x 2 (``LAUNCH_CASES``), holds each case to the
+launcher on 2 x 2, 1 x 2 and 2 x 1 (``LAUNCH_CASES``: the LM families,
+the hybrid, whisper with its frames by data group), holds each case to the
 tests' bars (``case_failures``, ``probe_failures``, checkpoints restored
 bit-equal), prints one line per case and exits 1 if one failed. It needs
 no JAX, so it checks the port's meshes under whatever torch a machine
@@ -18,23 +19,31 @@ has (DTensor's rules differ across versions):
     python tests/_torch_sharded_train_ranks.py --all --rendezvous-dir "$(mktemp -d)"
 
 A training case (``adamw``, ``adamw_chunked_ce``, ``adafactor``,
-``micro2``, ``moe``, ``vlm``, ``kv_whole``: the table ``CASES``) takes a reduced config
+``micro2``, ``moe``, ``vlm``, ``kv_whole``, and the hybrid's, the ssm
+family's and whisper's ``hybrid``, ``ssm``, ``whisper``: the table
+``CASES``) takes a reduced config
 in float32 on the flash kernel's route (its plain versions
-run on each rank's local shards), the reference's init from seed 0 with
-the attention projections fan-in scaled, and a global batch from numpy:
+run on each rank's local shards; the hybrid's scan on its wrapper's),
+the reference's init from seed 0 with
+the attention projections fan-in scaled, and a global batch from numpy
+(whisper's frames too):
 the gradients at the initial state, then two train steps, one device's
 and the mesh's (each rank feeds its data group's rows). It reports the
 loss and grad_norm both ways, each gradient and each state leaf's
 distance over its norm, and each leaf's local shape. ``save`` writes the
-mesh's state after the two steps of the first case as a checkpoint;
+mesh's state after the two steps of the first case as a checkpoint,
+``save_lists`` a list-of-layers state per case (a training case's after
+its two steps, else its initial state placed on the mesh);
 ``restore`` places a checkpoint on the mesh; ``probe`` records what the
-mesh's sites hand on (``probe_local_shards``). Leaves are compared across
-processes by the SHA-256 of their bytes.
+mesh's sites hand on (``probe_local_shards``). Every mesh also reports
+each rank's share of a whisper batch (``frames_by_rank``). Leaves are
+compared across processes by the SHA-256 of their bytes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -57,32 +66,63 @@ CASES = {
     "micro2": ("aiida-demo-110m", "adamw", 2, 8, 0),
     "moe": ("moonshot-v1-16b-a3b", "adamw", 1, 4, 0),
     "vlm": ("llava-next-34b", "adamw", 1, 4, 0),
+    # the list-of-layers families and the encoder-decoder, each at its
+    # published attention sharding ("sequence"); the hybrid's scan on its
+    # wrapper (forward and reversed scan), the xLSTM on the plain
+    # chunkwise form (the mLSTM kernel has no backward)
+    "hybrid": ("recurrentgemma-2b", "adamw", 1, 4, 0, {"use_pallas": True}),
+    "ssm": ("xlstm-350m", "adamw", 1, 4, 0),
+    "whisper": ("whisper-large-v3", "adamw", 1, 4, 0),
 }
 SEQ = 16
 #: (data, model) -> the training cases that mesh runs
-MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2"),
-              (1, 2): ("adamw", "kv_whole", "moe", "vlm"),
+MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
+              (1, 2): ("adamw", "kv_whole", "moe", "vlm", "hybrid",
+                       "whisper"),
               (2, 2): ("adamw_chunked_ce",)}
+#: cases held row for row: the mesh splits the rows over ``data`` without
+#: FSDP (no parameter dim is split, so no product is summed in another
+#: order), and the one-device side runs the global batch in the mesh's
+#: data-group row blocks (as microbatches: the same step, the same sums),
+#: so that each row meets the ops at the batch size the mesh's ranks do.
+#: The reduced xLSTM amplifies float32 rounding ~400x at the reference's
+#: init (the group norm of a near-zero mLSTM head output: its float32
+#: gradients are 1.6e-3 of their norm from float64's), so a product's
+#: rounding in another order would swamp what the bars hold; row for row
+#: the mesh's gradients and states are one device's, bit for bit
+ROW_BLOCKED = ("ssm",)
+#: the list-of-layers states that 1 x 2 saves per rank
+LIST_CASES = ("hybrid", "ssm")
 #: (data, model) -> the cases whose sites that mesh probes
 PROBE_CASES = {(1, 2): ("adamw", "moe", "vlm"), (2, 2): ("adamw_chunked_ce",)}
 #: loss (and grad_norm) rtol; each leaf's distance over its norm
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
+#: a leaf whose gradient is zero but for rounding (whisper's key biases:
+#: softmax is shift-invariant along the keys, and with no rotary
+#: embedding q . bk is the same for every key) has no norm to hold it to:
+#: its gradient and AdamW moments are held absolutely, at
+#: ``tests/test_torch_encdec.py``'s ``ZERO_GRAD_TOL``, and the parameter
+#: to within twice the sum of the steps' learning rates (AdamW turns a
+#: rounding-sized gradient into a step of up to ~lr in either direction)
+ZERO_GRAD_TOL = 1e-5
 #: the launcher's runs of ``--all``: reduced, 2 steps on CPU ranks
 LAUNCH_CASES = (("--arch", "aiida-demo-110m", "--data-mesh", "2",
                  "--model-mesh", "2"),
                 ("--arch", "qwen2-0.5b", "--data-mesh", "2", "--model-mesh",
                  "2"),
-                ("--arch", "moonshot-v1-16b-a3b", "--model-mesh", "2"))
+                ("--arch", "moonshot-v1-16b-a3b", "--model-mesh", "2"),
+                ("--arch", "recurrentgemma-2b", "--model-mesh", "2"),
+                ("--arch", "whisper-large-v3", "--data-mesh", "2"))
 
 
 def case_config(case: str):
     from repro_torch.configs import reduced_config
 
     arch, _, _, _, ce_chunk, *overrides = CASES[case]
-    return reduced_config(arch).replace(dtype="float32",
-                                        kv_cache_dtype="float32",
-                                        attn_impl="pallas", ce_chunk=ce_chunk,
-                                        **(overrides or [{}])[0])
+    return reduced_config(arch).replace(**{
+        "dtype": "float32", "kv_cache_dtype": "float32",
+        "attn_impl": "pallas", "ce_chunk": ce_chunk,
+        **(overrides or [{}])[0]})
 
 
 def train_config(case: str):
@@ -95,17 +135,25 @@ def train_config(case: str):
                        microbatches=micro)
 
 
-def fan_in_scaled(cfg, params: dict) -> dict:
-    """The attention projections rescaled to std 1/sqrt(the fan-in they
-    contract over), as ``tests/test_torch_training.py::_fan_in_scaled``
-    does (float32 rounding then stays ~1e-6 of the gradients)."""
-    attn = params["layers"]["attn"]
-    for name in ("wq", "wk", "wv"):
-        attn[name] = attn[name] * np.float32(
-            (attn[name].shape[-2] / cfg.d_model) ** 0.5)
-    attn["wo"] = attn["wo"] * np.float32(
-        (attn["wo"].shape[-2] / (cfg.num_heads * cfg.hd)) ** 0.5)
-    return params
+def fan_in_scaled(cfg, params):
+    """Every attention's projections (each dict with a ``wq``: the LM's
+    stacked layers, the hybrid's attention layers, whisper's three)
+    rescaled to std 1/sqrt(the fan-in they contract over), as
+    ``tests/test_torch_training.py::_fan_in_scaled`` does (float32
+    rounding then stays ~1e-6 of the gradients)."""
+    if isinstance(params, list):
+        return [fan_in_scaled(cfg, p) for p in params]
+    if not isinstance(params, dict):
+        return params
+    if "wq" in params:
+        attn = params
+        for name in ("wq", "wk", "wv"):
+            attn[name] = attn[name] * np.float32(
+                (attn[name].shape[-2] / cfg.d_model) ** 0.5)
+        attn["wo"] = attn["wo"] * np.float32(
+            (attn["wo"].shape[-2] / (cfg.num_heads * cfg.hd)) ** 0.5)
+        return attn
+    return {k: fan_in_scaled(cfg, v) for k, v in params.items()}
 
 
 def initial_state(case: str):
@@ -131,6 +179,9 @@ def global_batches(case: str, n: int = 2) -> list[dict]:
         if cfg.family == "vlm":
             out[-1]["patches"] = torch.from_numpy(rng.normal(
                 0, 1, (rows, cfg.num_patches, cfg.d_model)).astype(np.float32))
+        if cfg.family == "audio":
+            out[-1]["frames"] = torch.from_numpy(rng.normal(
+                0, 1, (rows, cfg.num_frames, cfg.d_model)).astype(np.float32))
     return out
 
 
@@ -173,7 +224,9 @@ def train_case(case: str, mesh, data: int, on_mesh: list
     from repro_torch.models.common import axis_rules, tree_leaves
     from repro_torch.models.registry import build
     from repro_torch.training.optim import global_norm
-    from repro_torch.training.train_step import (_split_microbatches,
+    from repro_torch.models.common import map_tree
+    from repro_torch.training.train_step import (_accumulate,
+                                                 _split_microbatches,
                                                  make_train_step,
                                                  train_state_axes,
                                                  train_state_shapes,
@@ -181,7 +234,7 @@ def train_case(case: str, mesh, data: int, on_mesh: list
 
     cfg, tcfg = case_config(case), train_config(case)
     bundle = build(cfg)
-    rules = make_rules(cfg, mesh, fsdp=data > 1)
+    rules = make_rules(cfg, mesh, fsdp=data > 1 and case not in ROW_BLOCKED)
     pl = tree_placements(train_state_shapes(bundle, tcfg),
                          train_state_axes(bundle, tcfg), rules, mesh)
     state0 = initial_state(case)
@@ -201,7 +254,14 @@ def train_case(case: str, mesh, data: int, on_mesh: list
                                                        tcfg.microbatches))
             for k in own)
     else:
-        (l1, _), g1 = value_and_grad(bundle, state0["params"], batches[0])
+        blocks = data if case in ROW_BLOCKED else 1
+        parts = [value_and_grad(bundle, state0["params"], mb)
+                 for mb in _split_microbatches(batches[0], blocks)]
+        l1 = sum(l for (l, _), _ in parts) / blocks
+        g1 = parts[0][1]
+        for _, g in parts[1:]:
+            g1 = _accumulate(g1, g, 1)
+        g1 = map_tree(lambda t: t / blocks, g1) if blocks > 1 else g1
         on_mesh[0] = True
         with axis_rules(mesh, rules):
             (l2, _), g2 = value_and_grad(
@@ -212,14 +272,23 @@ def train_case(case: str, mesh, data: int, on_mesh: list
         out["grad_loss"] = [float(l1), float(l2.full_tensor())]
         out["grad_norm"] = [float(global_norm(g1)), float(n2.full_tensor())]
         want = dict(tree_leaves(g1))
-        out["grad_err"] = {k: _rel(g, want[k]) for k, g in tree_leaves(g2)}
+        zero = {k for k, g in want.items()
+                if float(g.abs().max()) < ZERO_GRAD_TOL}
+        out["grad_err"] = {k: _rel(g, want[k]) for k, g in tree_leaves(g2)
+                           if k not in zero}
+        out["zero_grad"] = {k: [float(want[k].abs().max()),
+                                float(g.full_tensor().abs().max())]
+                            for k, g in tree_leaves(g2) if k in zero}
 
-    single, mesh_step = (make_train_step(bundle, tcfg),
-                         make_train_step(bundle, tcfg, pl))
+    single, mesh_step = (make_train_step(bundle, dataclasses.replace(
+        tcfg, microbatches=data if case in ROW_BLOCKED else
+        tcfg.microbatches)), make_train_step(bundle, tcfg, pl))
     s1, s2 = state0, mesh_state
     out["loss"], out["step_grad_norm"] = [], []
+    lr_sum = 0.0
     for b in batches:
         s1, m1 = single(s1, b)
+        lr_sum += float(m1["lr"])
         with axis_rules(mesh, rules):
             s2, m2 = mesh_step(s2, _local_batch(b, bundle, rules, mesh))
         out["loss"].append([float(m1["loss"]), float(m2["loss"])])
@@ -227,8 +296,19 @@ def train_case(case: str, mesh, data: int, on_mesh: list
                                       float(m2["grad_norm"])])
         assert not hasattr(m2["loss"], "full_tensor"), "metrics whole"
     want = dict(tree_leaves(s1))
+    zero = set(out.get("zero_grad", ()))
+
+    def zero_leaf(k):
+        return next((z for z in zero if k == f"params/{z}" or (
+            k.startswith("opt/") and (k.endswith(f"/{z}") or f"/{z}/" in k))),
+            None)
+
     out["state_err"] = {k: _rel(t, want[k]) for k, t in tree_leaves(s2)
-                        if k != "step"}
+                        if k != "step" and zero_leaf(k) is None}
+    out["zero_state"] = {
+        k: [float((t.full_tensor() - want[k]).abs().max()),
+            2 * lr_sum if k.startswith("params/") else ZERO_GRAD_TOL]
+        for k, t in tree_leaves(s2) if zero_leaf(k) is not None}
     out["step"] = int(s2["step"].full_tensor())
     pls = dict(tree_leaves(pl))
     out["placed_as_axes"] = all(tuple(t.placements) == pls[k]
@@ -249,13 +329,13 @@ def probe_local_shards(case: str, mesh, data: int) -> dict:
     while the mesh runs."""
     from repro_torch.distributed.sharding import make_rules, place_tree, \
         tree_placements
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, common
     from repro_torch.models.common import axis_rules, is_dtensor
     from repro_torch.models.registry import build
 
     seen: dict = {"impl": [], "shard_out": [], "rows": [], "combine": []}
     impls, shard_out, rows = (dict(attention._IMPLS), attention._shard_out,
-                              transformer._rows)
+                              common._rows)
     einsum = torch.einsum
 
     def impl_probe(name):
@@ -283,7 +363,7 @@ def probe_local_shards(case: str, mesh, data: int) -> dict:
     out: dict = {}
     try:
         attention._IMPLS.update({n: impl_probe(n) for n in impls})
-        attention._shard_out, transformer._rows = shard_out_probe, rows_probe
+        attention._shard_out, common._rows = shard_out_probe, rows_probe
         torch.einsum = einsum_probe
         for impl in impls:
             cfg = case_config(case).replace(attn_impl=impl)
@@ -298,7 +378,7 @@ def probe_local_shards(case: str, mesh, data: int) -> dict:
                     global_batches(case, 1)[0], bundle, rules, mesh))
     finally:
         attention._IMPLS.update(impls)
-        attention._shard_out, transformer._rows = shard_out, rows
+        attention._shard_out, common._rows = shard_out, rows
         torch.einsum = einsum
     out.update(seen)
     return out
@@ -306,7 +386,7 @@ def probe_local_shards(case: str, mesh, data: int) -> dict:
 
 def rank_cases(rank: int, data: int, model: int, spec: dict) -> dict:
     from repro_torch.distributed.sharding import (batch_coordinate,
-                                                  make_rules,
+                                                  make_rules, place_tree,
                                                   tree_placements)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.common import tree_leaves
@@ -332,18 +412,46 @@ def rank_cases(rank: int, data: int, model: int, spec: dict) -> dict:
 
     is_dtensor_input = [False]
     fa_ops.flash_attention_bwd_ref = recording_bwd
-    saved = None
+    # the scan's plain version under the mesh, forward and reversed: (the
+    # shape of a, reverse) at each call
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
+    plain_scan, scans = rg_ops.rglru_scan_ref, []
+
+    def recording_scan(a, x, h0, reverse=False):
+        if is_dtensor_input[0]:
+            scans.append((tuple(a.shape), reverse))
+        return plain_scan(a, x, h0, reverse=reverse)
+
+    rg_ops.rglru_scan_ref = recording_scan
+    saved, lists = None, {}
     for case in spec.get("cases", []):
         seen.clear()
+        scans.clear()
         out[case], state = train_case(case, mesh, data, is_dtensor_input)
         out[case]["mesh_bwd_inputs"] = sorted(set(seen))
         out[case]["mesh_bwd_calls"] = len(seen)
+        out[case]["mesh_scan_inputs"] = sorted(set(scans))
+        out[case]["mesh_scan_calls"] = len(scans)
         saved = saved or state
+        if case in spec.get("save_lists", {}):
+            lists[case] = state
     for case in spec.get("probe", []):
         out[f"probe:{case}"] = probe_local_shards(case, mesh, data)
     if "save" in spec:
         ckpt.save_checkpoint(spec["save"], 2, saved)
         out["saved"] = digest(saved)
+    for case, directory in spec.get("save_lists", {}).items():
+        state = lists.get(case)
+        if state is None:        # not trained here: its initial state
+            cfg, tcfg = case_config(case), train_config(case)
+            bundle = build(cfg)
+            state = place_tree(initial_state(case), tree_placements(
+                train_state_shapes(bundle, tcfg),
+                train_state_axes(bundle, tcfg),
+                make_rules(cfg, mesh, fsdp=data > 1), mesh), mesh)
+        ckpt.save_checkpoint(directory, 2, state)
+        out[f"saved:{case}"] = digest(state)
     # restores: name -> (directory, the arch its state belongs to)
     for name, (directory, case) in spec.get("restore", {}).items():
         cfg, tcfg = case_config(case), train_config(case)
@@ -367,6 +475,20 @@ def rank_cases(rank: int, data: int, model: int, spec: dict) -> dict:
                                    num_hosts=num_hosts)).next_batch()
     out["data_group"] = [host_id, num_hosts]
     out["first_batch"] = digest(first)
+    # whisper's frames by rank: this data group's rows, sharded as the
+    # tokens are
+    bundle = build(case_config("whisper"))
+    batch = global_batches("whisper", 1)[0]
+    local = _local_batch(batch, bundle, make_rules(bundle.cfg, mesh,
+                                                   fsdp=data > 1), mesh)
+    rows = batch["frames"].shape[0] // num_hosts
+    out["frames_by_rank"] = {
+        "own_rows": torch.equal(local["frames"].to_local(), batch["frames"][
+            host_id * rows:(host_id + 1) * rows]),
+        "whole": torch.equal(local["frames"].full_tensor(), batch["frames"]),
+        "placements": [str(p) for p in local["frames"].placements],
+        "same_as_tokens": (tuple(local["frames"].placements)
+                           == tuple(local["tokens"].placements))}
     return out
 
 
@@ -390,7 +512,8 @@ def prepare(root: str) -> dict[str, str]:
     from repro_torch.training import checkpoint as ckpt
 
     dirs = {"single": os.path.join(root, "single"),
-            "saved": os.path.join(root, "from_2x1")}
+            "saved": os.path.join(root, "from_2x1"),
+            **{c: os.path.join(root, f"{c}_from_1x2") for c in LIST_CASES}}
     ckpt.save_checkpoint(dirs["single"], 0, initial_state("adamw"))
     tmp = os.path.join(dirs["saved"], "step_2.tmp")
     os.makedirs(tmp)
@@ -410,6 +533,7 @@ def mesh_specs(dirs: dict[str, str], reference: str | None = None
                      "restore": {"single": [dirs["single"], "adamw"]}},
             (1, 2): {"cases": MESH_CASES[(1, 2)],
                      "probe": PROBE_CASES[(1, 2)],
+                     "save_lists": {c: dirs[c] for c in LIST_CASES},
                      "restore": {**from_2x1, **({"reference": [
                          reference, "adamw"]} if reference else {})}},
             (2, 2): {"cases": MESH_CASES[(2, 2)],
@@ -420,7 +544,8 @@ def case_failures(case: str, found: list[dict]) -> list[str]:
     """The bars a training case misses on some rank: the loss and
     grad_norm within :data:`LOSS_RTOL` of one device's at the initial
     state and at each step, every gradient and state leaf within
-    :data:`LEAF_TOL` of its norm, two steps taken and the state placed by
+    :data:`LEAF_TOL` of its norm (a leaf with a zero gradient as
+    :data:`ZERO_GRAD_TOL` says), two steps taken and the state placed by
     its axes."""
     out = []
 
@@ -443,6 +568,12 @@ def case_failures(case: str, found: list[dict]) -> list[str]:
             worst = max(c.get(what, {"-": 0.0}).items(), key=lambda kv: kv[1])
             if not worst[1] <= LEAF_TOL:
                 out.append(f"rank {rank} {case} {what}: {worst}")
+        out += [f"rank {rank} {case} zero gradient {k}: {v}"
+                for k, v in c.get("zero_grad", {}).items()
+                if not max(v) < ZERO_GRAD_TOL]
+        out += [f"rank {rank} {case} zero-gradient state {k}: {v}"
+                for k, v in c.get("zero_state", {}).items()
+                if not v[0] <= v[1]]
         if not (c["step"] == 2 and c["placed_as_axes"]):
             out.append(f"rank {rank} {case}: step {c['step']}, placed as "
                        f"its axes {c['placed_as_axes']}")
@@ -494,6 +625,9 @@ def run_all(root: str) -> int:
 
     from repro_torch.configs import spawn_ranks
     from repro_torch.launch import train as launch
+    from repro_torch.models.registry import build
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_step import train_state_shapes
 
     import _torch_sharded_train_ranks as me   # importable by the ranks
     print(sys.version.split()[0], torch.__version__, flush=True)
@@ -531,6 +665,13 @@ def run_all(root: str) -> int:
                 f"rank {rank}" for rank, r in enumerate(found)
                 if r[f"restore:{name}"] != want.get(name)
                 or not r[f"restore:{name}:placed_as_axes"]])
+        for case, directory in spec.get("save_lists", {}).items():
+            got = ckpt.restore_checkpoint(directory, target=train_state_shapes(
+                build(case_config(case)), train_config(case)), device="cpu")
+            report(f"restore {mesh} {case} list of layers on one device",
+                   [] if digest(got) == found[0][f"saved:{case}"]
+                   and isinstance(got["params"]["layers"], list)
+                   else ["restored leaves differ"])
     for i, argv in enumerate(LAUNCH_CASES):
         try:
             launch.main(["--reduced", "--device", "cpu", "--steps", "2",

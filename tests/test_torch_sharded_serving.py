@@ -9,7 +9,13 @@ The 1x2 head-sharded case must really be sharded: each rank's decode
 kernel's plain version sees half the heads, and each rank holds half of
 ``wq``'s and ``wo``'s heads. Where model does not divide the KV heads
 (4/2 heads on 1x4, 12/3 on 1x2) they stay whole on every rank, and each
-rank's kernels read only the KV heads its query heads map to.
+rank's kernels read only the KV heads its query heads map to. The
+hybrid splits its ``d_rnn`` channels over ``model`` (each rank's scan
+sees half of them on 1 x 2), also where ``model`` does not divide
+``rnn_blocks`` (each rank reads the whole gate blocks its channels cut
+through) and with a ring buffer that the prompt overfills and the decode
+steps wrap; the xLSTM's cells run on each rank's rows with every head;
+whisper splits its heads.
 """
 
 import json
@@ -21,7 +27,10 @@ import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: case -> (arch, data, model); "arch:H/Hkv" overrides the head counts
+#: the hybrid's overrides where model (2) does not divide rnn_blocks
+CUT_BLOCKS = "rnn_blocks=3+d_rnn=96+local_window=6"
+#: case -> (arch, data, model); "arch:H/Hkv" overrides the head counts,
+#: "arch:name=value+..." other fields
 CASES = {
     "aiida-heads-1x2": ("aiida-demo-110m", 1, 2),
     "aiida-heads-2x2": ("aiida-demo-110m", 2, 2),
@@ -30,6 +39,14 @@ CASES = {
     "qwen2-sequence-1x2": ("qwen2-0.5b", 1, 2),
     "moonshot-expert-1x2": ("moonshot-v1-16b-a3b", 1, 2),
     "grok-ffn-1x2": ("grok-1-314b", 1, 2),
+    "recurrentgemma-rnn-1x2": ("recurrentgemma-2b", 1, 2),
+    "recurrentgemma-2x2": ("recurrentgemma-2b", 2, 2),
+    # 3 gate blocks of 32 channels on 2 ranks of 48; a ring of 6 slots
+    # that the 8-token prompt overfills and the decode steps wrap
+    "recurrentgemma-blocks-cut-ring-1x2": (
+        "recurrentgemma-2b:" + CUT_BLOCKS, 1, 2),
+    "xlstm-1x2": ("xlstm-350m", 1, 2),
+    "whisper-heads-1x2": ("whisper-large-v3:attn_sharding=heads", 1, 2),
 }
 
 
@@ -129,3 +146,38 @@ def test_whole_kv_heads_are_read_by_their_query_heads(meshes, mesh, arch,
         assert r["decode_inputs"], r
         for q_shape, k_shape in r["decode_inputs"]:
             assert (q_shape[1], k_shape[2]) == (q_heads, kv_heads), r
+
+
+@pytest.mark.parametrize("mesh,arch,rows,channels", [
+    ((1, 2), "recurrentgemma-2b", 2, 64),
+    ((2, 2), "recurrentgemma-2b", 1, 64),
+    ((1, 2), "recurrentgemma-2b:" + CUT_BLOCKS, 2, 48),
+])
+def test_hybrid_ranks_scan_their_own_channels(meshes, mesh, arch, rows,
+                                              channels):
+    """Each rank's scan (the kernel's plain version) sees its rows and its
+    d_rnn / model channels of every prompt step, once per recurrent layer
+    and prefill; where model does not divide rnn_blocks the gate weights
+    stay whole on every rank (the rules' fallback), and the channels are
+    split all the same."""
+    for found in meshes[mesh]:
+        r = found[arch]
+        assert r["d_rnn"] // mesh[1] == channels
+        assert r["scan_inputs"] == [[rows, 8, channels]], r
+        # 2 recurrent layers of 3, a prefill per mesh serve (3)
+        assert r["scan_calls"] == 2 * 3, r
+        cut = [n for n in r["notes"] if "kind_rglru/w_" in n]
+        assert bool(cut) == (r["rnn_blocks"] % mesh[1] != 0), r["notes"]
+        assert all("replicated" in n for n in cut)
+
+
+def test_xlstm_cells_run_on_local_shards(meshes):
+    """1 x 2: the mLSTM kernel's plain version gets plain tensors with
+    every row and head (the inner activations stay whole on the model
+    axis, as the reference's site leaves them), once per mLSTM layer and
+    prefill; no decode step runs it."""
+    for found in meshes[(1, 2)]:
+        r = found["xlstm-350m"]
+        assert r["mlstm_inputs"] == [[True, [2, r["heads"], 8,
+                                            2 * 128 // r["heads"]]]], r
+        assert r["mlstm_calls"] == 7 * 3, r

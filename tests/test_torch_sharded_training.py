@@ -6,14 +6,18 @@ rendezvous under a temporary directory
 it: 2 x 1 (FSDP: the ``embed`` dim over ``data``) with AdamW, Adafactor
 and two microbatches, then 1 x 2 (heads, the MoE's experts and the
 vocab over ``model``; the VLM backbone's sequence-sharded attention) and
-2 x 2 (both, with the chunked CE). Against one device on
+2 x 2 (both, with the chunked CE); the xLSTM on 2 x 1, the hybrid (its
+``d_rnn`` channels over ``model``) and whisper on 1 x 2. Against one
+device on
 the same global batch: the loss, grad_norm and every gradient leaf, and
 every parameter and optimizer-state leaf after two steps, at the bars
 ``tests/test_torch_training.py`` holds the port to the reference with
 (loss rtol 1e-5, each leaf 1e-4 of its norm). Checkpoints: 2 x 1 saves
 its state after two steps, which restores bit-equal on 1 x 2, 2 x 2, one
 device and through the reference's ``restore_checkpoint``; one device's
-and the reference's checkpoints restore onto a mesh. Leaves cross
+and the reference's checkpoints restore onto a mesh; the hybrid's and the
+xLSTM's list-of-layers states, saved per rank on 1 x 2 and on one
+device, restore bit-equal on one device in both packages. Leaves cross
 processes as SHA-256 digests of their bytes.
 """
 
@@ -39,6 +43,7 @@ from repro.training.train_step import train_state_shapes as j_state_shapes
 from repro.configs import reduced_config as j_reduced
 from repro.models.registry import build as j_build
 from repro_torch.configs import reduced_config
+from repro_torch.models import rglru as rg
 from repro_torch.models.registry import build
 from repro_torch.models.common import tree_leaves
 from repro_torch.training import checkpoint as ckpt
@@ -264,7 +269,9 @@ def test_data_pipeline_host_sharding_disjoint():
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["aiida-demo-110m", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["aiida-demo-110m", "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-2b", "xlstm-350m",
+                                  "whisper-large-v3"])
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_train_state_shapes_and_axes_match_reference(arch, optimizer):
     """``train_state_shapes`` (meta tensors, nothing allocated),
@@ -288,11 +295,81 @@ def test_train_state_shapes_and_axes_match_reference(arch, optimizer):
         if isinstance(tree, dict):
             for k in tree:
                 walk(tree[k], f"{prefix}{k}/")
+        elif isinstance(tree, list):        # the hybrid's, the xLSTM's layers
+            for i, t in enumerate(tree):
+                walk(t, f"{prefix}{i}/")
         else:
             flat[prefix.rstrip("/")] = tuple(tree)
 
     walk(jaxes)
     assert axes == flat
+
+
+def test_hybrid_training_ranks_scan_their_own_channels(meshes):
+    """1 x 2: each rank's scan (its wrapper's plain versions, forward and
+    reversed in the backward) sees its d_rnn / 2 channels and all of its
+    rows and steps, once per recurrent layer and pass (forward, the remat
+    recompute, the backward's reversed scan)."""
+    cfg = ranks.case_config("hybrid")
+    rglru_layers = sum(k == "rglru" for k in rg.layer_kinds(cfg))
+    for r in meshes[(1, 2)]:
+        c = r["hybrid"]
+        want = [[[4, ranks.SEQ, cfg.d_rnn // 2], rev] for rev in (False,
+                                                                  True)]
+        assert c["mesh_scan_inputs"] == want, c["mesh_scan_inputs"]
+        assert c["mesh_scan_calls"] == 3 * rglru_layers, c
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
+def test_shard_batch_splits_frames_by_rank(meshes, mesh):
+    """Whisper's frames go to each data group as its tokens do: its own
+    rows, sharded over ``data`` like the tokens, the whole batch when
+    gathered."""
+    data, _ = mesh
+    for r in meshes[mesh]:
+        f = r["frames_by_rank"]
+        assert f["own_rows"] and f["whole"] and f["same_as_tokens"], f
+        assert f["placements"][0] == ("S(0)" if data > 1 else "R"), f
+
+
+def _list_target(case: str, package: str):
+    """The train-state shapes of ``case``'s config in either package."""
+    if package == "port":
+        return train_state_shapes(build(ranks.case_config(case)),
+                                  ranks.train_config(case))
+    arch, opt = ranks.CASES[case][:2]
+    return j_state_shapes(j_build(j_reduced(arch)),
+                          JTrainConfig(optim=J.OptimConfig(name=opt)))
+
+
+@pytest.mark.parametrize("case", ranks.LIST_CASES)
+@pytest.mark.parametrize("where", ["one-device", "1x2"])
+def test_list_of_layers_checkpoint_restores_bit_equal(meshes, tmp_path,
+                                                      case, where):
+    """A list-of-layers train state (the hybrid's after 1 x 2's two steps,
+    the xLSTM's initial one placed on 1 x 2), saved per rank on 1 x 2 or
+    whole on one device, restores on one device bit-equal with its lists
+    (keys ``params/layers/<i>/...``) in the port, and bit-equal in the
+    reference's ``restore_checkpoint`` given its own target."""
+    if where == "one-device":
+        state = ranks.initial_state(case)
+        directory = str(tmp_path / case)
+        ckpt.save_checkpoint(directory, 2, state)
+        want = ranks.digest(state)
+    else:
+        directory = meshes["dirs"][case]
+        want = meshes[(1, 2)][0][f"saved:{case}"]
+        assert all(r[f"saved:{case}"] == want for r in meshes[(1, 2)])
+    got = ckpt.restore_checkpoint(directory, target=_list_target(case, "port"),
+                                  device="cpu")
+    assert isinstance(got["params"]["layers"], list)
+    assert isinstance(got["opt"]["mu"]["layers"], list)
+    assert any(k.startswith("params/layers/1/") for k in want)
+    assert ranks.digest(got) == want
+    ref = j_ckpt.restore_checkpoint(directory,
+                                    target=_list_target(case, "reference"))
+    assert isinstance(ref["params"]["layers"], list)
+    assert _np_digest(ref) == want
 
 
 def _partial(tmp, rank: int, token: str, leaves: dict) -> None:
