@@ -286,7 +286,19 @@ then:
    relative, 6 scan launches per step both ways, the step-2 list-of-
    layers checkpoint restored without a mesh bit-equal; prints step 2's
    host ms both ways (step 3 of the mesh's run holds the checkpoint's
-   host copy).
+   host copy);
+26. the dry run (``launch/dryrun.py``) in two subprocesses
+   (``scripts/dryrun_card_check.py``, each a fake group of 256 ranks; the
+   production cell's started before phase 21 and run beside it): its
+   world-1 traces of an ``aiida-demo-110m`` train cell (8 x 1024, AdamW,
+   ``nothing_saveable``) and decode cell (batch 4, cache 1024) against
+   the same steps run on the card: per-rank FLOPs and argument bytes
+   equal, predicted arguments + temp within 15% of
+   ``max_memory_allocated``, no collectives; ``qwen3-4b`` ``train_4k``
+   on the 16 x 16 fake mesh under ``optimized`` (FSDP on) ok, its
+   per-rank memory printed against the card's 80 GB; a CUDA-type fake
+   mesh's collective counts and wire bytes equal to a CPU-type one's;
+   the phase within 90 s.
 
 Prints the smoke's wall, a ``{"kernels": [...]}`` line (each kernel with
 the body that ran it), the ``nvidia-smi`` line, and as the
@@ -4562,6 +4574,126 @@ def hybrid_mesh_train_phase(torch, rg_ops, smi: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: the phase's wall limit, and the predicted peak's bound against the
+#: card's ``max_memory_allocated``
+DRYRUN_LIMIT_S, DRYRUN_PEAK_TOL = 90.0, 0.15
+
+
+def start_dryrun_part(part: str):
+    """``scripts/dryrun_card_check.py --part <part>`` started in the
+    background (it joins a fake group of 256 ranks: the smoke's own
+    process holds NCCL groups), its output in
+    ``chiprun_out/dryrun_<part>.log``
+    (a full pipe would stall it): (the process, its open log). It is
+    killed at exit if it still runs."""
+    import atexit
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log = open(out_dir / f"dryrun_{part}.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "dryrun_card_check.py"),
+         "--part", part, "--out", str(out_dir / f"dryrun_{part}.json")],
+        cwd=ROOT, env=sub_env(), stdout=log, stderr=subprocess.STDOUT,
+        text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, log
+
+
+def dryrun_phase(smi: str, production) -> dict:
+    """The dry run (``launch/dryrun.py``) in two subprocesses
+    (``scripts/dryrun_card_check.py --part card``, started here, and
+    ``production``, started by the caller before phase 21: a CPU-bound
+    fake trace that runs beside the GPU jobs of phases 21–25): (a) its
+    world-1
+    traces of an ``aiida-demo-110m`` train cell (8 x 1024, AdamW,
+    ``nothing_saveable``) and decode cell (batch 4, cache 1024) against
+    the same steps run on the card: per-rank FLOPs and argument bytes
+    equal, the predicted arguments + temp within 15% of
+    ``max_memory_allocated``, no collectives; (b) ``qwen3-4b``
+    ``train_4k`` on the 16 x 16 fake mesh under ``optimized`` ok, its
+    per-rank memory printed against the card's 80 GB; (c) a CUDA-type
+    fake mesh's per-kind collective counts and wire bytes equal to a
+    CPU-type one's. The phase's own wall is at most 90 s."""
+    t_phase = time.perf_counter()
+    procs = {"production": production, "card": start_dryrun_part("card")}
+    r: dict = {}
+    try:
+        for part, (proc, log) in procs.items():
+            proc.wait(timeout=SUBPROCESS_TIMEOUT_S)
+            log.seek(0)
+            text = log.read()
+            line = [l for l in text.splitlines() if l.startswith("RESULT:")]
+            check(proc.returncode == 0 and bool(line),
+                  f"dry run {part} exited {proc.returncode}: {text[-3000:]}")
+            got = json.loads(line[0][len("RESULT:"):])
+            r[f"{part}_wall_s"] = got.pop("wall_s")
+            r.update(got)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for name, c in r["world1"].items():
+        print(f"dryrun (a) {name} ({smi}): flops fake {c['fake_flops']:.6e} "
+              f"real {c['real_flops']:.6e}, argument bytes fake "
+              f"{c['fake_argument_bytes']} real {c['real_argument_bytes']}, "
+              f"predicted peak {c['predicted_peak_bytes']} vs "
+              f"max_memory_allocated {c['max_memory_allocated']} "
+              f"({100 * c['peak_rel_err']:.2f}%)")
+        check(c["fake_flops"] == c["real_flops"] > 0,
+              f"dry run {name}: FLOPs {c['fake_flops']} vs the card's "
+              f"{c['real_flops']}")
+        check(c["fake_argument_bytes"] == c["real_argument_bytes"],
+              f"dry run {name}: argument bytes differ")
+        check(c["peak_rel_err"] <= DRYRUN_PEAK_TOL,
+              f"dry run {name}: predicted peak {c['predicted_peak_bytes']} "
+              f"vs {c['max_memory_allocated']}")
+        check(not any(c["fake_collectives"].values())
+              and not any(c["real_collectives"].values()),
+              f"dry run {name}: collectives at world 1")
+    p = r["production"]
+    print(f"dryrun (b) qwen3-4b train_4k 16x16 optimized: "
+          f"per-rank arguments + temp {p['per_rank_bytes'] / 1e9:.2f} GB "
+          f"against {p['hbm_bytes'] / 1e9:.0f} GB ({smi}), flops "
+          f"{p['flops']:.6e}, wire {p['total_wire_bytes']:.6e} B, trace "
+          f"{p['trace_s']} s")
+    check(p["n_devices"] == 256, f"dry run production cell: {p}")
+    mt = r["mesh_types"]
+    print(f"dryrun (c) collectives on a cuda-type fake mesh: cell "
+          f"{mt['cuda']['counts']}, Shard -> Shard "
+          f"{mt['cuda']['shard_to_shard']}; cpu-type: cell "
+          f"{mt['cpu']['counts']}, Shard -> Shard "
+          f"{mt['cpu']['shard_to_shard']}")
+    keys = ("counts", "wire_bytes", "shard_to_shard",
+            "shard_to_shard_wire_bytes")
+    check(all(mt["cuda"][k] == mt["cpu"][k] for k in keys)
+          and mt["cuda"]["shard_to_shard"]["all-to-all"] == 1
+          and mt["cuda"]["shard_to_shard"]["all-gather"] == 0,
+          "dry run: the cuda-type mesh's collectives differ")
+    wall = time.perf_counter() - t_phase
+    result = {**r, "phase_wall_s": wall, "nvidia_smi": smi}
+    print(f"dryrun: phase {wall:.1f} s ((a) {r['world1_s']:.1f} s + (c) "
+          f"{r['mesh_types_s']:.1f} s in {r['card_wall_s']:.1f} s; (b) "
+          f"{r['production_s']:.1f} s in {r['production_wall_s']:.1f} s, "
+          f"beside phases 21-25)")
+    check(wall <= DRYRUN_LIMIT_S,
+          f"dry run phase took {wall:.1f} s > {DRYRUN_LIMIT_S} s")
+    print("dryrun: " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -4636,6 +4768,9 @@ def main() -> int:
     moe = moe_serve_phase(torch, da_ops, fa_ops)
     vlm = vlm_serve_phase(torch, da_ops, fa_ops)
     family_parity = family_parity_phase(torch, da_ops, fa_ops)
+    # phase 26's production cell: a CPU-bound fake trace, run beside the
+    # GPU jobs of phases 21-25 (the smoke's time)
+    dryrun_production = start_dryrun_part("production")
     family_train = family_train_phase(torch, fa_ops, rg_ops)
     audio = audio_serve_phase(torch, da_ops, fa_ops)
     audio_parity = audio_parity_phase(torch, da_ops, fa_ops)
@@ -4644,6 +4779,7 @@ def main() -> int:
                                             ml_ops, smi)
     mesh_train = mesh_train_phase(torch, fa_ops, smi)
     mesh_train_hybrid = hybrid_mesh_train_phase(torch, rg_ops, smi)
+    dryrun = dryrun_phase(smi, dryrun_production)
 
     def trained_families(name):
         return sum(family_train[a]["launches"][name] for a in (MOE, VLM))
@@ -4729,7 +4865,7 @@ def main() -> int:
          "family_train": family_train, "audio_serve": audio,
          "audio_parity": audio_parity, "mesh_serve": mesh,
          "mesh_serve_families": mesh_families, "mesh_train": mesh_train,
-         "mesh_train_hybrid": mesh_train_hybrid,
+         "mesh_train_hybrid": mesh_train_hybrid, "dryrun": dryrun,
          "smoke_wall_s": time.perf_counter() - t_start}, indent=1))
     keys = ("name", "route", "body", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.devices import (make_serving_mesh, setup_devices,
-                                         spawn_ranks)
+                                         setup_fake_devices, spawn_ranks)
 from repro_torch.models.common import ModelConfig
 
 ARCH_IDS = [

@@ -13,6 +13,9 @@ without one, through ``MASTER_ADDR`` and ``MASTER_PORT`` as ``torchrun``
 sets them, on NCCL for ``"cuda"`` and gloo for ``"cpu"``. The call is idempotent for the
 same world and fails loudly when the world is not ``n_devices`` ranks.
 :func:`spawn_ranks` starts ``n`` local ranks that do so.
+:func:`setup_fake_devices` joins a fake group of ``n`` ranks in this one
+process instead (the dry run's placeholder devices): meshes over it are
+real, collectives issue nothing.
 """
 
 from __future__ import annotations
@@ -82,8 +85,28 @@ def setup_devices(platform: str = "cuda", n_devices: int | None = None
     return devices
 
 
+def setup_fake_devices(n: int) -> None:
+    """Join a fake process group of ``n`` ranks as rank 0 (torch's
+    ``FakeStore`` and ``"fake"`` backend, from ``torch.testing._internal``,
+    the only place the port touches it): meshes over ``n`` placeholder
+    ranks build as over real ones and no collective leaves the process.
+    Idempotent for the same group; refuses a group that already exists
+    with another backend or size, as :func:`setup_devices` does."""
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"the process group is already {dist.get_backend()} over "
+                f"{dist.get_world_size()} ranks, not fake over {n}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), world_size=int(n),
+                            rank=0)
+
+
 def mesh_device_type() -> str:
-    """The device type of a mesh over this process group's ranks."""
+    """The device type of a mesh over this process group's ranks (a fake
+    group's mesh is the CPU's)."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 

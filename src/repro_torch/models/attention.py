@@ -81,6 +81,23 @@ def make_attn_specs(cfg: ModelConfig, *, cross: bool = False
 # Projections
 # ---------------------------------------------------------------------------
 
+def qkv_weight(w: torch.Tensor, heads: str) -> torch.Tensor:
+    """A Q, K or V projection weight (D, heads, hd) gathered along its
+    embed dim (FSDP's all-gather), its heads placed by the rules' axis
+    ``heads``. Left to DTensor, the product of a batch-sharded input with
+    an embed-sharded weight may split the flattened (heads * hd) output
+    columns over the model axis, which cannot be unflattened to (heads,
+    hd) where model does not divide the heads."""
+    return shard(w, None, heads, None)
+
+
+def out_weight(w: torch.Tensor) -> torch.Tensor:
+    """The output projection (H, hd, D) gathered along its embed dim, as
+    :func:`qkv_weight` (the backward's product otherwise splits the
+    flattened (H * hd) columns of the input's gradient)."""
+    return shard(w, "heads", None, None)
+
+
 def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, kv_x: torch.Tensor | None = None):
     """Project to q, k, v (B, S, heads, hd), k and v from ``kv_x`` when it
@@ -88,9 +105,12 @@ def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
     kv_heads_eff."""
     dt = x.dtype
     kv_in = x if kv_x is None else kv_x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", kv_in, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", kv_in, p["wv"].to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     qkv_weight(p["wq"], "heads").to(dt))
+    k = torch.einsum("bsd,dhk->bshk", kv_in,
+                     qkv_weight(p["wk"], "kv_heads_w").to(dt))
+    v = torch.einsum("bsd,dhk->bshk", kv_in,
+                     qkv_weight(p["wv"], "kv_heads_w").to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -128,7 +148,7 @@ def _shard_out(cfg: ModelConfig, out: torch.Tensor) -> torch.Tensor:
 
 def _out_proj(p: dict[str, torch.Tensor], out: torch.Tensor,
               dt: torch.dtype) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dt))
+    return torch.einsum("bshk,hkd->bsd", out, out_weight(p["wo"]).to(dt))
 
 
 # ---------------------------------------------------------------------------

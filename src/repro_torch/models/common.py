@@ -786,6 +786,10 @@ def maybe_remat(fn: Callable, policy_name: str) -> Callable:
 # Cross-entropy loss with padded-vocab masking
 # ---------------------------------------------------------------------------
 
+def _gold_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+
+
 def softmax_cross_entropy(
     logits: torch.Tensor,              # (B, S, Vp) any float dtype
     labels: torch.Tensor,              # (B, S) integer
@@ -796,7 +800,11 @@ def softmax_cross_entropy(
     Returns (loss, denom = max(sum(mask), 1)), both fp32. Under a mesh the
     vocab dim is gathered first, as the serving steps gather it for their
     argmax: DTensor's gather of the gold logit over a sharded vocab leaves
-    a partial value it cannot reduce."""
+    a partial value it cannot reduce. The gold logit is read on each
+    rank's rows (:func:`on_local_shards`): left to DTensor, the read's
+    backward fills a zero gradient of the *global* logits' shape on every
+    rank before it keeps its rows (at 256 x 4096 rows of 152k logits,
+    638 GB per rank)."""
     logits = shard(logits.float(), "batch", "act_seq", None)
     vp = logits.shape[-1]
     if vp != vocab_size:
@@ -804,7 +812,8 @@ def softmax_cross_entropy(
             torch.arange(vp, device=logits.device) < vocab_size, 0.0, -1e30)
         logits = logits + pad_bias
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = on_local_shards(_gold_logit, (logits, labels),
+                           (("batch", "act_seq", None), ("batch", "act_seq")))
     nll = logz - gold
     if mask is None:
         mask = torch.ones_like(nll)

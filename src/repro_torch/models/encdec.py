@@ -244,8 +244,10 @@ def _cross_kv(cfg: ModelConfig, p: dict[str, torch.Tensor],
               enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention's K and V of ``enc_out`` (B, T, Hkv_eff, hd)."""
     dt = enc_out.dtype
-    ck = torch.einsum("btd,dhk->bthk", enc_out, p["wk"].to(dt))
-    cv = torch.einsum("btd,dhk->bthk", enc_out, p["wv"].to(dt))
+    ck = torch.einsum("btd,dhk->bthk", enc_out,
+                      attn.qkv_weight(p["wk"], "kv_heads_w").to(dt))
+    cv = torch.einsum("btd,dhk->bthk", enc_out,
+                      attn.qkv_weight(p["wv"], "kv_heads_w").to(dt))
     if cfg.qkv_bias:
         ck = ck + p["bk"].to(dt)
         cv = cv + p["bv"].to(dt)
@@ -345,13 +347,15 @@ def whisper_decode_step(cfg: ModelConfig, params: dict[str, Any],
         x = x + a
         hq = _ln(cfg, p["ln2"], x)
         cp = p["cross_attn"]
-        q = torch.einsum("bsd,dhk->bshk", hq, cp["wq"].to(dt))
+        q = torch.einsum("bsd,dhk->bshk", hq,
+                         attn.qkv_weight(cp["wq"], "heads").to(dt))
         if cfg.qkv_bias:
             q = q + cp["bq"].to(dt)
         o = on_local_shards(cross, (q, cache["cross_k"][i],
                                     cache["cross_v"][i]),
                             (q_axes, kv_axes, kv_axes))
         o = shard(o, "kv_batch", None, "heads_sharded", None)
-        x = x + torch.einsum("bshk,hkd->bsd", o, cp["wo"].to(dt))
+        x = x + torch.einsum("bshk,hkd->bsd", o,
+                             attn.out_weight(cp["wo"]).to(dt))
         x = x + _mlp(cfg, p["mlp"], _ln(cfg, p["ln3"], x))
     return _logits(cfg, params, x), cache

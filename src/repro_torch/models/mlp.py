@@ -121,7 +121,10 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     # --- aux loss (Switch-style load balancing) ---------------------------
     density = probs.mean(dim=1)                                # (G, E)
     frac = _one_hot(probs.argmax(dim=-1), e).mean(dim=1)       # (G, E)
-    aux_loss = (density * frac).sum(dim=-1).mean() * e
+    # replicated at once: a mean over groups sharded over data is a
+    # Partial(avg), which DTensor (torch 2.11) cannot turn into the CE's
+    # Partial(sum) when the two are added
+    aux_loss = shard((density * frac).sum(dim=-1).mean() * e)
 
     # --- top-k selection ---------------------------------------------------
     topw, topi = top_k_stable(probs, k)                        # (G, g, k)
@@ -148,8 +151,16 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(dt), xt)
     expert_in = shard(expert_in, "expert_sharded", "moe_groups", None, None)
     act = act_fn(cfg.mlp_act)
-    hg = torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"].to(dt))
-    hu = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"].to(dt))
+    # each expert weight gathered along its embed dim (FSDP's all-gather):
+    # left to DTensor, an embed-sharded weight lets it split the capacity
+    # dim over the model axis for the combine, which a capacity that
+    # model does not divide cannot take
+    e_ax = "expert_sharded" if cfg.moe_sharding == "expert" else "expert"
+    w_gate, w_up = (shard(p[n], e_ax, None, "moe_ffn").to(dt)
+                    for n in ("w_gate", "w_up"))
+    w_down = shard(p["w_down"], e_ax, "moe_ffn", None).to(dt)
+    hg = torch.einsum("egcd,edf->egcf", expert_in, w_gate)
+    hu = torch.einsum("egcd,edf->egcf", expert_in, w_up)
     h = shard(act(hg) * hu, "expert_sharded", "moe_groups", None,
               "moe_ffn_act")
     # under TP-in-expert no constraint on expert_out: it holds per-shard
@@ -158,7 +169,7 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     # expert's output is gathered on every rank first: DTensor (torch
     # 2.11) cannot reshape the capacity tensor for the combine while its
     # expert dim is sharded.
-    expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"].to(dt))
+    expert_out = torch.einsum("egcf,efd->egcd", h, w_down)
     if cfg.moe_sharding == "expert":
         expert_out = shard(expert_out, "expert", "moe_groups", None, None)
     out = torch.einsum("gtec,egcd->gtd", combine.to(dt), expert_out)

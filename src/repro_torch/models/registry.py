@@ -18,6 +18,10 @@ and the audio family (whisper's encoder-decoder). A VLM batch carries
 ``patches`` (B, num_patches, d_model) beside its tokens, an audio batch
 ``frames`` (B, num_frames, d_model) (``extra_inputs``, ``batch_shapes``;
 ``draw_extra_inputs`` fills them as the training job's recipe does).
+
+The dry run's input-shape cells (:data:`SHAPES`) and what a bundle
+makes of them (:meth:`ModelBundle.batch_struct`,
+:meth:`ModelBundle.supports_cell`) are the reference's.
 """
 
 from __future__ import annotations
@@ -29,11 +33,37 @@ import numpy as np
 import torch
 
 from repro_torch.models import encdec, rglru, transformer, xlstm
-from repro_torch.models.common import (ModelConfig, init_params,
-                                       init_params_on_device, resolve_device,
-                                       spec_axes, spec_shapes)
+from repro_torch.models.common import (ModelConfig, ShapeDtype,
+                                       init_params, init_params_on_device,
+                                       resolve_device, spec_axes,
+                                       spec_shapes)
 
 LM_FAMILIES = ("dense", "moe", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell."""
+
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+# Families whose attention cost is sub-quadratic (may run long_500k).
+SUBQUADRATIC_FAMILIES = ("hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +154,23 @@ class ModelBundle:
             s = max(s - self.cfg.num_patches, 16)
         return {"tokens": ((batch_size, s), torch.int32),
                 "labels": ((batch_size, s), torch.int32), **extra}
+
+    def batch_struct(self, cell: ShapeCell) -> dict[str, ShapeDtype]:
+        """The inputs of one step of ``cell`` as :class:`ShapeDtype` leaves,
+        no storage: a decode cell's tokens (B, 1), else
+        :meth:`batch_shapes` at the cell's batch and length."""
+        b = cell.global_batch
+        if cell.kind == "decode":
+            return {"tokens": ShapeDtype((b, 1), torch.int32)}
+        return {k: ShapeDtype(shape, dtype) for k, (shape, dtype)
+                in self.batch_shapes(b, cell.seq_len).items()}
+
+    def supports_cell(self, cell: ShapeCell) -> tuple[bool, str]:
+        if cell.name == "long_500k" and \
+                self.cfg.family not in SUBQUADRATIC_FAMILIES:
+            return False, "full attention is O(S^2); long_500k assigned to " \
+                          "sub-quadratic families only (see DESIGN.md)"
+        return True, ""
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: str | torch.device | None = None) -> Any:

@@ -11,7 +11,8 @@ script prints one ``RESULT:`` JSON line with each rank's findings:
 
 (``arch:H/Hkv`` serves the reduced config with H query and Hkv KV heads;
 ``arch:name=value+name=value`` overrides other fields of it, integers or
-strings.)
+strings. ``--fsdp`` places the parameters by FSDP's rules, the ``embed``
+dim over ``data``.)
 
 The recipe is the reference's ``test_sharded_decode_matches_single_device``:
 the reduced config in float32 with the decode kernel's route, prompts (2, 8)
@@ -78,7 +79,8 @@ def _serve(bundle, params, cache, prompt, logits_out, scalar_pos=False):
     return torch.cat(toks, dim=1)
 
 
-def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
+def serve_cases(rank: int, archs: list[str], data: int, model: int,
+                fsdp: bool = False) -> dict:
     from repro_torch.configs import make_serving_mesh, reduced_config
     from repro_torch.distributed.sharding import distribute_tree, make_rules
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -156,7 +158,7 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int) -> dict:
         single_logits, sharded_logits = [], []
         single = _serve(bundle, params, bundle.init_cache(2, 32, "cpu"),
                         prompt, single_logits)
-        rules = make_rules(cfg, mesh, fsdp=False)
+        rules = make_rules(cfg, mesh, fsdp=fsdp)
         notes: list[str] = []
         sp = distribute_tree(params, bundle.param_axes(), rules, mesh, notes)
         sc = distribute_tree(bundle.init_cache(2, 32, "cpu"),
@@ -204,13 +206,15 @@ def main(argv=None) -> None:
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=2)
     ap.add_argument("--archs", required=True)
+    ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--rendezvous-dir", required=True)
     args = ap.parse_args(argv)
     from repro_torch.configs import spawn_ranks
 
     import _torch_sharded_ranks as me     # importable by the spawned ranks
     per_rank = spawn_ranks(me.serve_cases, args.data * args.model, "cpu",
-                           (args.archs.split(","), args.data, args.model),
+                           (args.archs.split(","), args.data, args.model,
+                            args.fsdp),
                            rendezvous_dir=args.rendezvous_dir)
     print("RESULT:" + json.dumps(per_rank))
 

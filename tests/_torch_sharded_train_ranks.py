@@ -19,7 +19,8 @@ has (DTensor's rules differ across versions):
     python tests/_torch_sharded_train_ranks.py --all --rendezvous-dir "$(mktemp -d)"
 
 A training case (``adamw``, ``adamw_chunked_ce``, ``adafactor``,
-``micro2``, ``moe``, ``vlm``, ``kv_whole``, and the hybrid's, the ssm
+``micro2``, ``moe``, ``vlm``, ``kv_whole``, ``kv_whole_fsdp``,
+``heads_whole_fsdp``, and the hybrid's, the ssm
 family's and whisper's ``hybrid``, ``ssm``, ``whisper``: the table
 ``CASES``) takes a reduced config
 in float32 on the flash kernel's route (its plain versions
@@ -61,6 +62,13 @@ CASES = {
     "adamw": ("aiida-demo-110m", "adamw", 1, 4, 0),
     # one KV head: on 1 x 2 it stays whole on both ranks, which read it
     "kv_whole": ("aiida-demo-110m", "adamw", 1, 4, 0, {"num_kv_heads": 1}),
+    # 12/3 heads under FSDP on 2 x 2: the three KV heads stay whole on
+    # both model ranks while the projections' embed dim is over data
+    "kv_whole_fsdp": ("aiida-demo-110m", "adamw", 1, 4, 0,
+                      {"num_heads": 12, "num_kv_heads": 3}),
+    # 3/1 heads under FSDP on 2 x 2: the query heads whole too
+    "heads_whole_fsdp": ("aiida-demo-110m", "adamw", 1, 4, 0,
+                         {"num_heads": 3, "num_kv_heads": 1}),
     "adamw_chunked_ce": ("aiida-demo-110m", "adamw", 1, 4, 8),
     "adafactor": ("aiida-demo-110m", "adafactor", 1, 4, 0),
     "micro2": ("aiida-demo-110m", "adamw", 2, 8, 0),
@@ -79,7 +87,8 @@ SEQ = 16
 MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
               (1, 2): ("adamw", "kv_whole", "moe", "vlm", "hybrid",
                        "whisper"),
-              (2, 2): ("adamw_chunked_ce",)}
+              (2, 2): ("adamw_chunked_ce", "kv_whole_fsdp",
+                       "heads_whole_fsdp")}
 #: cases held row for row: the mesh splits the rows over ``data`` without
 #: FSDP (no parameter dim is split, so no product is summed in another
 #: order), and the one-device side runs the global batch in the mesh's

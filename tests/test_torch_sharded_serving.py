@@ -15,7 +15,9 @@ sees half of them on 1 x 2), also where ``model`` does not divide
 ``rnn_blocks`` (each rank reads the whole gate blocks its channels cut
 through) and with a ring buffer that the prompt overfills and the decode
 steps wrap; the xLSTM's cells run on each rank's rows with every head;
-whisper splits its heads.
+whisper splits its heads. Under FSDP (``embed`` over ``data``) on 2 x 2
+the projections run where model leaves the heads whole: 12/3 heads (the
+KV heads), 3/1 (all of them) and qwen2's sequence sharding with 3/1.
 """
 
 import json
@@ -29,13 +31,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: the hybrid's overrides where model (2) does not divide rnn_blocks
 CUT_BLOCKS = "rnn_blocks=3+d_rnn=96+local_window=6"
-#: case -> (arch, data, model); "arch:H/Hkv" overrides the head counts,
-#: "arch:name=value+..." other fields
+#: case -> (arch, data, model[, fsdp]); "arch:H/Hkv" overrides the head
+#: counts, "arch:name=value+..." other fields
 CASES = {
     "aiida-heads-1x2": ("aiida-demo-110m", 1, 2),
     "aiida-heads-2x2": ("aiida-demo-110m", 2, 2),
     "aiida-heads-1x4-kv-whole": ("aiida-demo-110m", 1, 4),
     "aiida-12q3kv-heads-1x2-kv-whole": ("aiida-demo-110m:12/3", 1, 2),
+    "aiida-12q3kv-fsdp-2x2-kv-whole": ("aiida-demo-110m:12/3", 2, 2, True),
+    "aiida-3q1kv-fsdp-2x2-heads-whole": ("aiida-demo-110m:3/1", 2, 2, True),
+    "qwen2-3q1kv-fsdp-2x2-sequence": ("qwen2-0.5b:3/1", 2, 2, True),
     "qwen2-sequence-1x2": ("qwen2-0.5b", 1, 2),
     "moonshot-expert-1x2": ("moonshot-v1-16b-a3b", 1, 2),
     "grok-ffn-1x2": ("grok-1-314b", 1, 2),
@@ -50,13 +55,21 @@ CASES = {
 }
 
 
-def _run_mesh(tmp_path_factory, data: int, model: int) -> list[dict]:
-    archs = [a for a, d, m in CASES.values() if (d, m) == (data, model)]
+def _mesh_key(case: str) -> tuple:
+    """(data, model), or (data, model, "fsdp") for a case under FSDP."""
+    _, data, model, *fsdp = CASES[case]
+    return (data, model, "fsdp") if fsdp and fsdp[0] else (data, model)
+
+
+def _run_mesh(tmp_path_factory, key: tuple) -> list[dict]:
+    archs = [CASES[c][0] for c in CASES if _mesh_key(c) == key]
+    data, model, *fsdp = key
     tmp = tmp_path_factory.mktemp(f"mesh{data}x{model}")
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "_torch_sharded_ranks.py"),
          "--data", str(data), "--model", str(model), "--archs",
-         ",".join(archs), "--rendezvous-dir", str(tmp)],
+         ",".join(archs), "--rendezvous-dir", str(tmp),
+         *(["--fsdp"] if fsdp else [])],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT:")]
@@ -66,14 +79,14 @@ def _run_mesh(tmp_path_factory, data: int, model: int) -> list[dict]:
 
 @pytest.fixture(scope="module")
 def meshes(tmp_path_factory):
-    return {(d, m): _run_mesh(tmp_path_factory, d, m)
-            for d, m in sorted({(d, m) for _, d, m in CASES.values()})}
+    return {key: _run_mesh(tmp_path_factory, key)
+            for key in sorted({_mesh_key(c) for c in CASES}, key=str)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_sharded_tokens_equal_single_device_tokens(meshes, case):
-    arch, data, model = CASES[case]
-    ranks = meshes[(data, model)]
+    arch, data, model, *_ = CASES[case]
+    ranks = meshes[_mesh_key(case)]
     assert len(ranks) == data * model
     for rank, found in enumerate(ranks):
         r = found[arch]

@@ -6,7 +6,9 @@ rendezvous under a temporary directory
 it: 2 x 1 (FSDP: the ``embed`` dim over ``data``) with AdamW, Adafactor
 and two microbatches, then 1 x 2 (heads, the MoE's experts and the
 vocab over ``model``; the VLM backbone's sequence-sharded attention) and
-2 x 2 (both, with the chunked CE); the xLSTM on 2 x 1, the hybrid (its
+2 x 2 (both, with the chunked CE, and under FSDP with 12/3 heads, the
+KV heads whole on both model ranks, and 3/1 heads, the query heads whole
+too); the xLSTM on 2 x 1, the hybrid (its
 ``d_rnn`` channels over ``model``) and whisper on 1 x 2. Against one
 device on
 the same global batch: the loss, grad_norm and every gradient leaf, and
