@@ -12,17 +12,19 @@ then:
 2. holds the split-KV decode-attention kernel against its plain PyTorch
    version (bf16 at 2e-2, f32 at 5e-5): kv_len 0, 1, Smax and across the
    tile and split edges, B * Hkv of 4, 16 and 64 (splits of 64 and 128
-   positions), hd 32/64/128, G = 3/2/8, and the decode shapes of phases
+   positions), hd 32/64/128/256, G = 3/2/8/10, and the decode shapes of phases
    18, 19 and 22 (G = 1 and 7 at hd 128, caches of 1024 and 3072;
    whisper's 8 rows of G = 1 with 20 KV heads at hd 64, cache 448, at
    each batch's first, profiled and last steps and the edges 5, 64, 65,
-   133, 256, 448), each call launched twice for the
+   133, 256, 448), and hd 256 with 10 query heads on one KV head (caches
+   of 300 to 4096), each call launched twice for the
    same output (the merge's tickets back at zero); requires ptxas to
    report no spills; times kernel (events and the profiler's device time
-   per launch), plain version and SDPA at the serving shape;
+   per launch), plain version and SDPA at the serving shape and at hd 256
+   over recurrentgemma-2b's full 2048-slot ring (B = 4, 10/1 heads);
 3. does the same for the flash-attention forward kernel (out and lse, in
    bf16 on its tensor-core body and in f32 on its CUDA-core body, each
-   bf16 call counted by ``tensor_core_launches``): hd 32/64/128, lengths
+   bf16 call counted by ``tensor_core_launches``): hd 32/64/128/256, lengths
    at the tile edges 1/63/64/65/127/128/129/700/1024 and the serving
    prompts 96/250/511/700, causal and not, Skv > Sq with q_offset =
    Skv - Sq, Skv = 0, windows 1/64/127, softcap with a window, G = 1/3/4,
@@ -32,10 +34,14 @@ then:
    G = 1, llava's 3008 positions with G = 7 at B = 1 and 2; hd 64 with 20
    heads and G = 1: whisper's prompts of 4 and 132 tokens in 8 rows and
    its 4 x 448 training batch), and the training shape B = 8, S = 1024;
-   out also
+   hd 256 (recurrentgemma-2b: 10 query heads on one KV head, window 2048
+   at S = 4096 and past an odd S = 333, its 2 x 1024 training batch,
+   softcap, G = 2, a query offset, strided and odd-offset views); out also
    within 1e-2 / 1e-4 of its norm and lse within 1e-4 absolute; requires
-   ptxas to report no spills; times it at each serving shape and at the
-   training shape, printing kernel, device and SDPA ms, kernel/SDPA and
+   ptxas to report no spills; times it at each serving shape, at the
+   training shape and at hd 256 at the hybrid's prefill (4 x 4096) and
+   training (2 x 1024) shapes with its window (SDPA given it as a boolean
+   mask), printing kernel, device and SDPA ms, kernel/SDPA and
    bound/kernel;
 4. serves 8 requests at the full width of ``aiida-demo-110m`` (bf16,
    random weights from a seed) through ``BatchScheduler`` and checks that
@@ -46,18 +52,20 @@ then:
 6. holds the two flash-attention backward kernels (dq pass, dk/dv pass;
    bf16 on their tensor-core bodies, each bf16 call counted by
    ``tensor_core_launches``, f32 on their CUDA-core bodies) against their
-   plain version on the card: hd 32/64/128, Sq at the tile edges
+   plain version on the card: hd 32/64/128/256, Sq at the tile edges
    1/63/64/65/127/128/129/250/1024, causal and not, Skv > Sq with
    q_offset, windows 1/64, softcap, G = 1/3/4, strided q/k/v/do views,
    keyless rows and phase 21's training batches (moonshot 8 x 1024 with
    G = 1, llava 2 x 3008 with G = 7, hd 128; whisper 4 x 448 with 20
-   heads of 64) (f32 at 1e-4, bf16 at 2e-2,
+   heads of 64; the hybrid's 2 x 1024 with 10/1 heads of 256 and the
+   forward's other hd-256 cases) (f32 at 1e-4, bf16 at 2e-2,
    and each output's error within 1e-4 / 1e-2 of its norm, or within 1e-4 of zero where the plain
    version's is zero to rounding); requires ptxas to report no spills;
    checks them again at the training shape (B = 8, S = 1024, bf16) and
    times each pass there (events and the profiler's device time), the
    plain version and SDPA's whole backward, printing kernel/SDPA and
-   bound/kernel;
+   bound/kernel; times each pass the same way at hd 256 at the hybrid's
+   training and prefill shapes with its window;
 7. trains ``aiida-demo-110m`` at full width (bf16 activations, fp32
    parameters, AdamW, the config's remat policy) for 6 steps of 8 x 1024
    tokens through ``make_train_step`` and checks every loss is finite and
@@ -83,14 +91,19 @@ then:
    element) at the prefill shape (4, 4096, 2560), kernel and yardstick at
    B = 1, and reports the bytes per element the design moves;
 10. serves ``recurrentgemma-2b`` at full width and depth (26 layers, bf16,
-   random weights from a seed, the config's chunked attention over a
-   2048-slot ring, the scan kernel): 4 prompts of 4096 tokens, 64 greedy
-   tokens each, through the serving steps; checks 18 scan launches in
-   the prefill and none in the decode steps; prints prefill and decode
-   times, tokens/s, peak memory and a profiled prefill and decode step;
+   random weights from a seed, its attention on the flash kernels,
+   ``attn_impl="pallas"``, a change from the published ``"chunked"``,
+   over a 2048-slot ring, the scan kernel): 4 prompts of 4096 tokens, 64
+   greedy tokens each, through the serving steps; checks 18 scan and 8
+   flash launches in the prefill and neither in the decode steps (they
+   read the ring on the masked path, as the reference's); prints prefill
+   and decode times beside a prefill on the chunked path on the same
+   weights (a time only), tokens/s, peak memory and a profiled prefill
+   and decode step;
 11. serves the first 3 layers of the same parameters in float32 on the
    card and on the CPU (2 prompts of 2560 tokens, past the window, 8 new
-   tokens) and requires identical greedy tokens;
+   tokens; the one attention layer on the flash forward's float32 body)
+   and requires identical greedy tokens;
 12. holds the chunkwise mLSTM kernel against its plain chunkwise version
    (hs at 5e-5 / 2e-2 and within 1e-4 / 1e-2 of its norm, the fp32 state
    at 5e-5) and the sequential oracle (hs 1e-4, C 1e-3, m 1e-5, or,
@@ -217,8 +230,9 @@ then:
    finished ok, finite
    losses, every flash forward, recompute, dq and dk/dv launch on the
    tensor-core bodies (16 / 8 / 8 per whisper step: its decoder's
-   self-attention; none for the hybrid, whose attention is the chunked
-   route, and the xLSTM), the hybrid's scan launched 3 times per
+   self-attention; 12 / 6 / 6 per hybrid step: its 6 attention layers at
+   hd 256, ``attn_impl="pallas"``; none for the xLSTM), the hybrid's scan
+   launched 3 times per
    recurrent layer and step (forward, remat recompute, the backward's
    reversed scan), moonshot's aux loss finite and positive; prints
    losses, aux, peak memory, wall;
@@ -349,6 +363,9 @@ PARITY_BATCH, PARITY_SEQ = 2, 256
 
 HYBRID = "recurrentgemma-2b"
 RG_D = 2560                        # its d_rnn
+HYBRID_WINDOW = 2048               # its local attention's window
+# phase 21's hybrid training batch (rows, tokens)
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 2, 1024
 SERVE_RG_BATCH, SERVE_RG_PROMPT, SERVE_RG_NEW = 4, 4096, 64
 PARITY_RG_BATCH, PARITY_RG_PROMPT, PARITY_RG_NEW, PARITY_RG_LAYERS = \
     2, 2560, 8, 3
@@ -481,6 +498,14 @@ DECODE_CASES = (
     (1, 56, 8, 128, 3072, [3025]),
     (1, 56, 8, 128, 3072, [3039]),
     (1, 56, 8, 128, 3072, [3072]),
+    # hd 256, recurrentgemma-2b's 10 query heads on one KV head (its
+    # layers are windowed and decode on the ring-buffer masked path, so no
+    # model reaches these): a 2048-slot cache across the edges, a random
+    # batch, a group of 4 and a long cache
+    (4, 10, 1, 256, 2048, [0, 1, 65, 2048]),
+    (16, 10, 1, 256, 1024, None),
+    (2, 8, 2, 256, 300, [299, 37]),
+    (1, 10, 1, 256, 4096, [4096]),
 ) + tuple(
     # phase 22's whisper (G = 1, 20 KV heads, hd 64, cache 448): each
     # batch's first, profiled and last decode steps (every row at one
@@ -539,8 +564,27 @@ def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
 
     # timing at the serving phase's shapes: bf16, mid-generation depths
     b, h, hkv, hd, smax = 4, 12, 4, 64, 1024
-    dt = torch.bfloat16
     lens = [n + SERVE_NEW // 2 for n in SERVE_PROMPTS]
+    t = decode_timing(torch, da_ops, da_ref, b, h, hkv, hd, smax, lens)
+    # hd 256 at recurrentgemma-2b's heads over a full 2048-slot ring (its
+    # decode steps take the masked path: timed here alone)
+    t256 = decode_timing(torch, da_ops, da_ref, 4, 10, 1, 256, 2048,
+                         [2048] * 4)
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "body": "decode_attention_kernel: split-KV, merged in one launch",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
+        "max_abs_err": worst, **t, "ptxas": usage, "timing_hd256": t256,
+    }
+
+
+def decode_timing(torch, da_ops, da_ref, b, h, hkv, hd, smax, lens) -> dict:
+    """Kernel (CUDA events, and the profiler's device time per launch),
+    plain and SDPA ms of one bf16 decode call, and its bound."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dt = torch.bfloat16
     kv = torch.tensor(lens, dtype=torch.int32, device="cuda")
     es = 2
     cache_bytes = 2 * b * smax * hkv * hd * es
@@ -588,16 +632,11 @@ def decode_phase(torch, da_ops, da_ref, build_log: str) -> dict:
           f"{library_ms:.5f} ms, bound {bound:.5f} ms, bound/kernel "
           f"{bound / ms:.4f} (device {bound / device_ms:.4f})")
     return {
-        "name": "decode_attention", "route": "cuda",
-        "body": "decode_attention_kernel: split-KV, merged in one launch",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                  "decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention/kernel.py:64",
-        "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+        "ms": ms, "device_ms": device_ms,
         "device_launches_seen_per_call": device_seen,
         "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "split_plan": plan, "ptxas": usage,
+        "library_ms": library_ms, "split_plan": plan,
         "timed_at": f"B={b} H={h} Hkv={hkv} hd={hd} Smax={smax} bf16 "
                     f"kv_len={lens}",
     }
@@ -624,6 +663,23 @@ AUDIO_ATTN_CASES = (
     [dict(b=AUDIO_BATCH, sq=n, skv=n, h=20, hkv=20, hd=64)
      for n in AUDIO_PROMPTS]
     + [dict(b=4, sq=AUDIO_MAX_LEN, skv=AUDIO_MAX_LEN, h=20, hkv=20, hd=64)])
+
+# hd 256, recurrentgemma-2b's attention (10 query heads on one KV head, a
+# window of 2048): phase 10's prompt of 4096 (the window inside S), a
+# window wider than an odd S, phase 21's training batch of 2 x 1024, and
+# softcap, no causal mask, a query offset, G = 2, strided and odd-offset
+# views; the forward and backward sweeps both hold them
+_H = dict(b=1, h=10, hkv=1, hd=256)
+HD256_CASES = [
+    dict(_H, sq=4096, skv=4096, window=2048),
+    dict(_H, sq=333, skv=333, window=2048),
+    dict(_H, b=2, sq=1024, skv=1024, window=2048),
+    dict(_H, b=2, sq=37, skv=37, h=2, window=16, softcap=30.0),
+    dict(_H, sq=129, skv=129, h=4, hkv=2, causal=False),
+    dict(_H, sq=65, skv=200, h=4, hkv=2, q_offset=135),
+    dict(_H, sq=129, skv=129, strided=True),
+    dict(_H, sq=65, skv=65, odd=True),
+]
 
 # the forward's sweep: each case is (b, sq, skv, h, hkv, hd, options); a
 # "strided" case reads q, k and v as views of one fused (b, s, h + 2 hkv,
@@ -657,7 +713,7 @@ FLASH_CASES = (
     # the earlier sweep's cases
     + [dict(_C, sq=37, skv=37), dict(_C, sq=511, skv=511, softcap=30.0),
        dict(_C, sq=37, skv=42, q_offset=5)]
-    + FAMILY_ATTN_CASES + AUDIO_ATTN_CASES)
+    + FAMILY_ATTN_CASES + AUDIO_ATTN_CASES + HD256_CASES)
 
 
 def flash_inputs(torch, gen, c: dict, dt):
@@ -808,15 +864,30 @@ def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
                        hd)
     train["timed_at"] = (f"B={TRAIN_BATCH} S={TRAIN_SEQ} H={h} Hkv={hkv} "
                          f"hd={hd} bf16 causal")
-    for path, b, s, t in ([("serve", 1, n, by_len[n]) for n in SERVE_PROMPTS]
-                          + [("serve", 1, None, serve),
-                             ("train", TRAIN_BATCH, TRAIN_SEQ, train)]):
+    # hd 256 at recurrentgemma-2b's prefill (phase 10) and training batch
+    # (phase 21), its window of 2048 (SDPA takes it as a boolean mask)
+    hd256 = {}
+    for path, b, s in (("hybrid_prefill", SERVE_RG_BATCH, SERVE_RG_PROMPT),
+                       ("hybrid_train", HYBRID_TRAIN_BATCH,
+                        HYBRID_TRAIN_SEQ)):
+        hd256[path] = fwd_timing(torch, fa_ops, fa_ref, b, s, 10, 1, 256,
+                                 window=HYBRID_WINDOW)
+        hd256[path]["timed_at"] = (f"B={b} S={s} H=10 Hkv=1 hd=256 bf16 "
+                                   f"causal window {HYBRID_WINDOW}")
+    worst = max([worst, train["max_abs_err"]]
+                + [t["max_abs_err"] for t in (*by_len.values(),
+                                              *hd256.values())])
+    # (path, timing, the head_dim whose instantiation ran it; None for the
+    # serving mean)
+    for path, t, t_hd in ([("serve", by_len[n], hd) for n in SERVE_PROMPTS]
+                          + [("serve", serve, None), ("train", train, hd)]
+                          + [(p, t, 256) for p, t in hd256.items()]):
         t["bound_ms"] = max(t["t_bytes"], t["t_ops"])
         t["bound_by"] = "bytes" if t["t_bytes"] >= t["t_ops"] else "operations"
         t["kernel_over_sdpa"] = t["ms"] / t["library_ms"]
         t["bound_over_kernel"] = t["bound_ms"] / t["ms"]
-        if s is not None:
-            t["ptxas"] = usage[f"hd{hd}"]
+        if t_hd is not None:
+            t["ptxas"] = usage[f"hd{t_hd}"]
         print(f"flash_attention_fwd timing ({path}, {t['timed_at']}): kernel "
               f"{t['ms']:.5f} ms (device {t['device_ms']:.5f} ms), sdpa "
               f"{t['library_ms']:.5f} ms, "
@@ -837,44 +908,84 @@ def flash_phase(torch, fa_ops, fa_ref, build_log: str) -> dict:
                                        "bound_by", "library_ms", "timed_at")},
         "timing_by_path": {"serve": serve, "train": train,
                            "serve_by_len": {str(n): t
-                                            for n, t in by_len.items()}},
+                                            for n, t in by_len.items()},
+                           **hd256},
         "ptxas": usage,
     }
 
 
-def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd) -> dict:
-    """Kernel (CUDA events over back-to-back calls, and the profiler's
-    device time), plain and SDPA ms of one bf16 causal forward at (b, s),
-    and the two terms of its bound."""
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a head of a causal self-attention over ``s``
+    positions sees, each row its last ``window`` keys (all with 0)."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def window_mask(torch, s: int, window: int):
+    """SDPA's boolean mask of a causal window (True: attend)."""
+    i = torch.arange(s, device="cuda")
+    keep = i[None, :] <= i[:, None]
+    if window > 0:
+        keep &= i[None, :] > i[:, None] - window
+    return keep
+
+
+def fwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd, window=0) -> dict:
+    """One bf16 causal forward at (b, s), held against the plain version
+    on the first input set (``fwd_close``), then the kernel's ms (CUDA
+    events over back-to-back calls, and the profiler's device time), the
+    plain version's and SDPA's (with a window, SDPA takes it as a boolean
+    mask), and the two terms of its bound."""
     dt = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    opts = dict(causal=True, window=window, scale=hd ** -0.5, softcap=0.0,
+                q_offset=0)
     nbytes = b * s * (2 * h + 2 * hkv) * hd * 2 + 4 * b * h * s
     sets = [(torch.randn(b, s, h, hd, device="cuda").to(dt),
              torch.randn(b, s, hkv, hd, device="cuda").to(dt),
              torch.randn(b, s, hkv, hd, device="cuda").to(dt))
             for _ in range(copies_for(nbytes))]
-    ms = time_ms(torch, lambda q, k, v: fa_ops.flash_attention_fwd(q, k, v),
-                 sets)
+    shape = f"B={b} S={s} H={h} Hkv={hkv} hd={hd} bf16 causal" + (
+        f" window {window}" if window else "")
+    out, lse = fa_ops.flash_attention_fwd(*sets[0], **opts)
+    rout, rlse = fa_ref.flash_attention_ref(*sets[0], **opts)
+    torch.cuda.synchronize()
+    errs = fwd_close(torch, out, lse, rout, rlse, "bfloat16",
+                     f"flash fwd {shape}")
+    print(f"flash_attention_fwd {shape} (timed shape): out err "
+          f"{errs['out']:.3e} ({errs['share_out']:.3e} of its norm), lse err "
+          f"{errs['lse']:.3e} (tol {TOL['bfloat16']}, {NORM_TOL['bfloat16']} "
+          f"of the norm, lse {LSE_TOL})")
+    del out, lse, rout, rlse
+    ms = time_ms(torch, lambda q, k, v: fa_ops.flash_attention_fwd(
+        q, k, v, **opts), sets)
     plain_ms = time_ms(
-        torch, lambda q, k, v: fa_ref.flash_attention_ref(
-            q, k, v, causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
-            q_offset=0), sets[:4], iters=10)
+        torch, lambda q, k, v: fa_ref.flash_attention_ref(q, k, v, **opts),
+        sets[:4], iters=10)
     lib_sets = [(q.transpose(1, 2).contiguous(),
                  k.transpose(1, 2).repeat_interleave(h // hkv, 1)
                  .contiguous(),
                  v.transpose(1, 2).repeat_interleave(h // hkv, 1)
                  .contiguous()) for q, k, v in sets]
-    library_ms = time_ms(torch, lambda q, k, v: sdpa(q, k, v, is_causal=True),
-                         lib_sets)
+    if window:
+        mask = window_mask(torch, s, window)
+        library_ms = time_ms(
+            torch, lambda q, k, v: sdpa(q, k, v, attn_mask=mask), lib_sets)
+    else:
+        library_ms = time_ms(
+            torch, lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
+    del lib_sets
     # the kernel's own device time: at the serving shapes the wrapper's
     # host cost, not the card, sets the timed ``ms``
     rotate = itertools.cycle(sets)
     device_ms = device_share(
-        torch, lambda: fa_ops.flash_attention_fwd(*next(rotate)),
+        torch, lambda: fa_ops.flash_attention_fwd(*next(rotate), **opts),
         20, expect="flash_fwd")["device_ms_by_kind"]["flash_fwd"]
-    pairs = b * s * (s + 1) // 2
+    pairs = b * visible_pairs(s, window)
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "max_abs_err": max(errs["out"],
+                                                         errs["lse"]),
             "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "t_ops": 4 * hd * h * pairs / PEAK_FLOPS["bfloat16"] * 1e3}
 
@@ -1166,7 +1277,11 @@ BWD_CASES = (
     + [dict(_D, sq=40, skv=40, q_offset=-10),
        dict(_D, sq=100, skv=100, q_offset=-70, hd=128, window=16)]
     # the families' training batches (phase 21)
-    + FAMILY_ATTN_CASES[-3::2] + AUDIO_ATTN_CASES[-1:])
+    + FAMILY_ATTN_CASES[-3::2] + AUDIO_ATTN_CASES[-1:]
+    # hd 256: the forward's cases but the odd-offset view, and rows
+    # without a key
+    + [c for c in HD256_CASES if not c.get("odd")]
+    + [dict(_H, sq=40, skv=40, h=2, q_offset=-10)])
 
 
 def bwd_inputs(torch, gen, c: dict, dt):
@@ -1229,10 +1344,53 @@ def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
                   " ".join(f"{n}={e:.3e}" for n, e in errs.items()) +
                   f" (tol {tol}, {NORM_TOL[dt_name]} of the norm)")
 
-    # the training phase's shapes, bf16 causal: checked on the first input
-    # set (whose plain backward is also the one timed), then timed
-    b, s, h, hkv, hd, dt = TRAIN_BATCH, TRAIN_SEQ, 12, 4, 64, torch.bfloat16
-    opts = dict(causal=True, window=0, scale=hd ** -0.5, softcap=0.0,
+    # the training phase's shape (bf16 causal) and hd 256 at
+    # recurrentgemma-2b's training batch (phase 21) and, as a yardstick, its
+    # prefill shape (phase 10), its window of 2048: each checked on its
+    # first input set, then timed
+    b, s, h, hkv, hd = TRAIN_BATCH, TRAIN_SEQ, 12, 4, 64
+    train = bwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd, 0, note)
+    hd256 = {path: bwd_timing(torch, fa_ops, fa_ref, b_, s_, 10, 1, 256,
+                              HYBRID_WINDOW, note)
+             for path, b_, s_ in (("hybrid_train", HYBRID_TRAIN_BATCH,
+                                   HYBRID_TRAIN_SEQ),
+                                  ("hybrid_prefill", SERVE_RG_BATCH,
+                                   SERVE_RG_PROMPT))}
+    rows = []
+    for name, line in (("dq", 298), ("dkv", 329)):
+        t = train[name]
+        rows.append({
+            "name": f"flash_attention_bwd_{name}", "route": "cuda",
+            "body": f"flash_bwd_{name}_wgmma_kernel (bf16; f32 "
+                    f"flash_bwd_{name}_f32_kernel)",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
+            "max_abs_err": worst[name],
+            "max_norm_share": worst[f"share_{name}"],
+            **t, **{k: train[k] for k in ("plain_ms", "library_ms",
+                                         "library_device_ms", "timed_at")},
+            "kernel_over_sdpa": t["ms"] / train["library_ms"],
+            "ptxas": {hd_: usage[f"flash_bwd_{name}_wgmma_kernel<{hd_}>"]
+                      for hd_ in fa_ops._HEAD_DIMS},
+            "timing_hd256": {path: {**t256[name], **{
+                k: t256[k] for k in ("plain_ms", "library_ms",
+                                     "library_device_ms", "timed_at")}}
+                for path, t256 in hd256.items()},
+        })
+    return rows
+
+
+def bwd_timing(torch, fa_ops, fa_ref, b, s, h, hkv, hd, window, note
+               ) -> dict:
+    """The dq and dk/dv passes of one bf16 causal backward at (b, s), with
+    a window unless it is 0: both held against the plain version on the
+    first input set (``note`` takes the errors), then each pass's CUDA
+    events over back-to-back calls, the profiler's device time and bound;
+    the plain version's and SDPA's whole backward (the window as a boolean
+    mask), by events and SDPA's by device time."""
+    dt = torch.bfloat16
+    opts = dict(causal=True, window=window, scale=hd ** -0.5, softcap=0.0,
                 q_offset=0)
     q_bytes, kv_bytes, row_bytes = (b * s * h * hd * 2, b * s * hkv * hd * 2,
                                     b * h * s * 4)
@@ -1248,45 +1406,54 @@ def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()
         sets.append((q, k, v, do, out, lse, delta))
-    dq_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
-                    fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                                  opts), sets, iters=20)
-    dkv_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
-                     fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                    opts), sets, iters=20)
-    # each pass's own device time, from the profiler
+    shape = f"B={b} S={s} H={h} Hkv={hkv} hd={hd} bf16 causal" + (
+        f" window {window}" if window else "")
+    q, k, v, do, out, lse, delta = sets[0]
+    got = (fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, opts),
+           *fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, opts))
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+    torch.cuda.synchronize()
+    errs = bwd_close(torch, got, want, "bfloat16", f"flash bwd {shape}")
+    note(errs)
+    print(f"flash_attention_bwd {shape}: max_abs_err "
+          + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+          + f" (tol {BWD_TOL['bfloat16']}, {NORM_TOL['bfloat16']} of the "
+          "norm)")
+    del got, want
+    passes = (("dq", fa_ops.flash_attention_bwd_dq, 3, q_bytes),
+              ("dkv", fa_ops.flash_attention_bwd_dkv, 4, 2 * kv_bytes))
     rotate = itertools.cycle(sets)
 
     def one_pass(fn):
         q, k, v, do, out, lse, delta = next(rotate)
         fn(q, k, v, do, lse, delta, opts)
 
-    device_ms = {
-        name: device_share(torch, lambda: one_pass(fn), 10,
-                           expect=f"flash_bwd_{name}")[
-            "device_ms_by_kind"][f"flash_bwd_{name}"]
-        for name, fn in (("dq", fa_ops.flash_attention_bwd_dq),
-                         ("dkv", fa_ops.flash_attention_bwd_dkv))}
-    q, k, v, do, out, lse, delta = sets[0]
-    got = (fa_ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, opts),
-           *fa_ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, opts))
-    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
-    torch.cuda.synchronize()
-    errs = bwd_close(torch, got, want, "bfloat16",
-                     f"flash bwd bfloat16 B={b} S={s} (training shape)")
-    note(errs)
-    print(f"flash_attention_bwd bfloat16 B={b} S={s} (training shape): "
-          "max_abs_err " + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
-          + f" (tol {BWD_TOL['bfloat16']}, {NORM_TOL['bfloat16']} of the "
-          "norm)")
-    del got, want
-    plain_ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
-                       fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                      **opts),
-                       sets[:1], iters=3)
+    pairs = b * h * visible_pairs(s, window)
+    result = {}
+    for name, fn, products, out_bytes in passes:
+        ms = time_ms(torch, lambda q, k, v, do, out, lse, delta:
+                     fn(q, k, v, do, lse, delta, opts), sets, iters=20)
+        # each pass's own device time, from the profiler
+        device_ms = device_share(
+            torch, lambda: one_pass(fn), 10,
+            expect=f"flash_bwd_{name}")["device_ms_by_kind"][
+                f"flash_bwd_{name}"]
+        t_bytes = (nbytes_in + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = products * 2 * hd * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+        result[name] = {"ms": ms, "device_ms": device_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops
+                        else "operations",
+                        "bound_over_kernel": max(t_bytes, t_ops) / ms}
+    result["plain_ms"] = time_ms(
+        torch, lambda q, k, v, do, out, lse, delta:
+        fa_ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **opts),
+        sets[:1], iters=3)
     # library yardstick: SDPA's backward (both passes and its own delta)
     # with the KV heads expanded outside the timed call
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = dict(attn_mask=window_mask(torch, s, window)) if window else \
+        dict(is_causal=True)
     lib = []
     for q, k, v, do, *_ in sets:
         qt = q.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1294,60 +1461,40 @@ def flash_bwd_phase(torch, fa_ops, fa_ref, build_log: str) -> list[dict]:
             .requires_grad_(True)
         vt = v.transpose(1, 2).repeat_interleave(h // hkv, 1).contiguous() \
             .requires_grad_(True)
-        lib.append((sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt),
+        lib.append((sdpa(qt, kt, vt, **mask), (qt, kt, vt),
                     do.transpose(1, 2).contiguous()))
-    library_ms = time_ms(torch, lambda o, ins, g: torch.autograd.grad(
-        o, ins, g, retain_graph=True), lib, iters=20)
-    rotate = itertools.cycle(lib)
+    result["library_ms"] = time_ms(
+        torch, lambda o, ins, g: torch.autograd.grad(o, ins, g,
+                                                     retain_graph=True),
+        lib, iters=20)
+    lib_rotate = itertools.cycle(lib)
 
     def sdpa_bwd():
-        o, ins, g = next(rotate)
+        o, ins, g = next(lib_rotate)
         torch.autograd.grad(o, ins, g, retain_graph=True)
 
-    library_device_ms = device_share(torch, sdpa_bwd, 10)["device_ms"]
-    del lib, sets, rotate
-
-    pairs = b * h * s * (s + 1) // 2
-    rows = []
-    for name, ms, products, out_bytes, line in (
-            ("dq", dq_ms, 3, q_bytes, 298),
-            ("dkv", dkv_ms, 4, 2 * kv_bytes, 329)):
-        t_bytes = (nbytes_in + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = products * 2 * hd * pairs / PEAK_FLOPS["bfloat16"] * 1e3
-        rows.append({
-            "name": f"flash_attention_bwd_{name}", "route": "cuda",
-            "body": f"flash_bwd_{name}_wgmma_kernel (bf16; f32 "
-                    f"flash_bwd_{name}_f32_kernel)",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention_bwd.cu",
-            "replaces": f"src/repro/kernels/flash_attention/kernel.py:{line}",
-            "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
-            "max_norm_share": worst[f"share_{name}"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "device_ms": device_ms[name],
-            "library_device_ms": library_device_ms,
-            "kernel_over_sdpa": ms / library_ms,
-            "bound_over_kernel": max(t_bytes, t_ops) / ms,
-            "ptxas": {hd_: usage[f"flash_bwd_{name}_wgmma_kernel<{hd_}>"]
-                      for hd_ in fa_ops._HEAD_DIMS},
-            "timed_at": f"B={b} S={s} H={h} Hkv={hkv} hd={hd} bf16 causal; "
-                        "plain_ms and library_ms are the whole backward "
-                        "(dq, dk and dv in one call)",
-        })
-        print(f"flash_attention_bwd_{name} timing: kernel {ms:.5f} ms "
-              f"(device {device_ms[name]:.5f} ms), sdpa bwd (whole) "
-              f"{library_ms:.5f} ms (device {library_device_ms:.5f} ms), "
-              f"kernel/sdpa {ms / library_ms:.3f}, bound "
-              f"{max(t_bytes, t_ops):.5f} ms ({rows[-1]['bound_by']}), "
-              f"bound/kernel {max(t_bytes, t_ops) / ms:.4f}, plain (whole "
-              f"bwd) {plain_ms:.4f} ms")
-    print(f"flash_attention_bwd pair timing: dq + dk/dv {dq_ms + dkv_ms:.5f}"
-          f" ms (device {device_ms['dq'] + device_ms['dkv']:.5f} ms), sdpa "
-          f"bwd {library_ms:.5f} ms, pair/sdpa "
-          f"{(dq_ms + dkv_ms) / library_ms:.3f}")
-    return rows
+    result["library_device_ms"] = device_share(torch, sdpa_bwd, 10)[
+        "device_ms"]
+    result["timed_at"] = (f"{shape}; plain_ms and library_ms are the whole "
+                          "backward (dq, dk and dv in one call" + (
+                              "; SDPA with the window as a boolean mask)"
+                              if window else ")"))
+    lib_ms = result["library_ms"]
+    for name in ("dq", "dkv"):
+        t = result[name]
+        print(f"flash_attention_bwd_{name} timing ({shape}): kernel "
+              f"{t['ms']:.5f} ms (device {t['device_ms']:.5f} ms), sdpa bwd "
+              f"(whole) {lib_ms:.5f} ms (device "
+              f"{result['library_device_ms']:.5f} ms), kernel/sdpa "
+              f"{t['ms'] / lib_ms:.3f}, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}), bound/kernel {t['bound_over_kernel']:.4f}"
+              f", plain (whole bwd) {result['plain_ms']:.4f} ms")
+    pair = result["dq"]["ms"] + result["dkv"]["ms"]
+    print(f"flash_attention_bwd pair timing ({shape}): dq + dk/dv "
+          f"{pair:.5f} ms (device "
+          f"{result['dq']['device_ms'] + result['dkv']['device_ms']:.5f} "
+          f"ms), sdpa bwd {lib_ms:.5f} ms, pair/sdpa {pair / lib_ms:.3f}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1709,12 +1856,12 @@ def host_params(torch, cfg, seed):
 
 
 def greedy(torch, bundle, params, prompts, new_tokens, max_len, device,
-           counter):
+           counters):
     """Prefill a batch of equal-length prompts, then ``new_tokens - 1``
     greedy decode steps, through the serving steps. Returns the
     (B, new_tokens) tokens, the host ms of the prefill and of each decode
-    step, the launches ``counter`` (a kernel wrapper) counted in the
-    prefill and in the decode steps, and the state the run leaves."""
+    step, one (prefill, decode steps) pair of launches for each kernel
+    wrapper in ``counters``, and the state the run leaves."""
     from repro_torch.serving.serve import make_decode_step, make_prefill_step
 
     prefill, decode = make_prefill_step(bundle), make_decode_step(bundle)
@@ -1723,12 +1870,12 @@ def greedy(torch, bundle, params, prompts, new_tokens, max_len, device,
     n = toks.shape[1]
     if device == "cuda":
         torch.cuda.synchronize()
-    before = counter.launches
+    before = [c.launches for c in counters]
     t = time.perf_counter()
     tok, cache = prefill(params, {"tokens": toks}, cache)
     out = [tok.cpu()]                    # the host reads every step's tokens
     prefill_ms = (time.perf_counter() - t) * 1e3
-    mid = counter.launches
+    mid = [c.launches for c in counters]
     step_ms = []
     for i in range(new_tokens - 1):
         t = time.perf_counter()
@@ -1736,15 +1883,21 @@ def greedy(torch, bundle, params, prompts, new_tokens, max_len, device,
                             torch.tensor(n + i, device=device))
         out.append(tok.cpu())
         step_ms.append((time.perf_counter() - t) * 1e3)
-    launches = (mid - before, counter.launches - mid)
+    launches = tuple((m - b, c.launches - m)
+                     for c, b, m in zip(counters, before, mid))
     return torch.cat(out, dim=1), prefill_ms, step_ms, launches, cache
 
 
 def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
     """Full-width, full-depth serving in bf16: 4 prompts of 4096 tokens
     (past the 2048-slot ring, so the prefill's ring wraps), 64 greedy
-    tokens each. Every prefill must launch the scan kernel once per RG-LRU
-    layer and no decode step may launch it."""
+    tokens each, the attention on the flash kernels (``attn_impl=
+    "pallas"``). Every prefill must launch the scan kernel once per RG-LRU
+    layer and the flash forward once per attention layer; no decode step
+    may launch either (the decode steps read the ring through the masked
+    path, as the reference's). A prefill on the chunked path, the
+    config's published route, is timed beside it on the same weights."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.models.common import cast_for_compute
     from repro_torch.models.registry import build
@@ -1753,6 +1906,7 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
 
     bundle = build(cfg)
     n_rglru = layer_kinds(cfg).count("rglru")
+    n_attn = layer_kinds(cfg).count("attn")
     t = time.perf_counter()
     dev_params = cast_for_compute(params, cfg.activation_dtype,
                                   torch.device("cuda"))
@@ -1764,18 +1918,19 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
                             generator=gen).tolist()
     max_len = SERVE_RG_PROMPT + SERVE_RG_NEW
     # warm-up (library handles, allocator) outside the counted run
-    scan = rg_ops.rglru_scan
+    scan, flash = rg_ops.rglru_scan, fa_ops.flash_attention_fwd
     greedy(torch, bundle, dev_params, [p[:512] for p in prompts], 2, 1024,
-           "cuda", scan)
+           "cuda", (scan,))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    tc_before = flash.tensor_core_launches
     t = time.perf_counter()
-    tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
-        torch, bundle, dev_params, prompts, SERVE_RG_NEW, max_len, "cuda",
-        scan)
+    tokens, prefill_ms, step_ms, ((pre_l, dec_l), (pre_f, dec_f)), cache = \
+        greedy(torch, bundle, dev_params, prompts, SERVE_RG_NEW, max_len,
+               "cuda", (scan, flash))
     wall = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     peak = torch.cuda.max_memory_allocated()
@@ -1790,13 +1945,33 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
           f"rglru launches in {SERVE_RG_NEW - 1} decode steps {dec_l} != 0")
     check(launches["rglru_scan"] == n_rglru,
           f"rglru launches in the run {launches['rglru_scan']} != {n_rglru}")
+    check(pre_f == n_attn and dec_f == 0 and
+          launches["flash_attention_fwd"] == n_attn,
+          f"flash launches per prefill {pre_f} (want {n_attn}), in "
+          f"{SERVE_RG_NEW - 1} decode steps {dec_f} (want 0), in the run "
+          f"{launches['flash_attention_fwd']}")
+    check(flash.tensor_core_launches - tc_before == n_attn,
+          f"flash tensor-core launches "
+          f"{flash.tensor_core_launches - tc_before} != {n_attn}")
     check(all(bool(torch.isfinite(t.float()).all()) for st in cache
               for t in st.values()), "non-finite serving state")
+    # the published chunked route's prefill on the same weights (a time
+    # only: two bf16 routes round differently)
+    chunked = build(cfg.replace(attn_impl="chunked"))
+    chunked_prefill = make_prefill_step(chunked)
+    toks = torch.tensor(prompts, device="cuda")
+    chunked_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chunked_prefill(dev_params, {"tokens": toks}, chunked.init_cache(
+            SERVE_RG_BATCH, max_len, "cuda"))[0].cpu()
+        chunked_ms.append((time.perf_counter() - t) * 1e3)
+    del chunked
 
     # one profiled prefill, and decode steps from the state the run left
     prefill = make_prefill_step(bundle)
     decode = make_decode_step(bundle)
-    toks = torch.tensor(prompts, device="cuda")
     last = tokens[:, -1:].to("cuda").long()
     pos = torch.tensor(max_len - 1, device="cuda")
     profiled = {
@@ -1817,12 +1992,14 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
         "attn_impl": cfg.attn_impl, "wall_s": wall,
         "tokens_per_s": SERVE_RG_BATCH * SERVE_RG_NEW / wall,
         "prefill_ms": prefill_ms,
+        "chunked_prefill_ms": chunked_ms,
         "prefill_tokens_per_s": SERVE_RG_BATCH * SERVE_RG_PROMPT
         / (prefill_ms / 1e3),
         "decode_step_ms_median": decode_median,
         "decode_tokens_per_s": SERVE_RG_BATCH / (decode_median / 1e3),
         "peak_memory_bytes": peak,
         "rglru_launches_prefill": pre_l, "rglru_launches_decode": dec_l,
+        "flash_launches_prefill": pre_f, "flash_launches_decode": dec_f,
         "launches": launches,
         "first_tokens": tokens[:, :8].tolist(),
         "profile": profiled,
@@ -1833,9 +2010,11 @@ def hybrid_serve_phase(torch, cfg, params, counters) -> dict:
 
 def hybrid_parity_phase(torch, cfg, params) -> dict:
     """The first Griffin unit (rglru, rglru, attn) of the same parameters
-    at full width in float32, on the card (scan kernel) and on the CPU
+    at full width in float32, on the card (the scan kernel, and the flash
+    forward's CUDA-core body under ``attn_impl="pallas"``) and on the CPU
     (plain versions): identical greedy tokens for prompts past the
     window."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.models.common import cast_for_compute
     from repro_torch.models.registry import build
@@ -1859,17 +2038,21 @@ def hybrid_parity_phase(torch, cfg, params) -> dict:
     for dev in ("cuda", "cpu"):
         p = cast_for_compute(sub, torch.float32, torch.device(dev))
         runs[dev] = greedy(torch, bundle, p, prompts, PARITY_RG_NEW,
-                           max_len, dev, rg_ops.rglru_scan)
+                           max_len, dev, (rg_ops.rglru_scan,
+                                          fa_ops.flash_attention_fwd))
     card, cpu = runs["cuda"][0].tolist(), runs["cpu"][0].tolist()
     check(card == cpu, f"hybrid f32 greedy tokens differ: card {card} "
                        f"cpu {cpu}")
-    check(runs["cuda"][3] == (2, 0),
-          f"hybrid parity rglru launches (prefill, decode) "
-          f"{runs['cuda'][3]} != (2, 0)")
+    n_flash = int(cfg.attn_impl == "pallas")
+    check(runs["cuda"][3] == ((2, 0), (n_flash, 0)),
+          f"hybrid parity (rglru, flash) launches (prefill, decode) "
+          f"{runs['cuda'][3]} != ((2, 0), ({n_flash}, 0))")
     print(f"hybrid parity f32 ({PARITY_RG_LAYERS} layers, B="
-          f"{PARITY_RG_BATCH}, prompt {PARITY_RG_PROMPT}): card and cpu "
-          f"tokens identical: {card}")
-    return {"tokens": card, "prefill_ms": {d: r[1] for d, r in runs.items()}}
+          f"{PARITY_RG_BATCH}, prompt {PARITY_RG_PROMPT}, attn_impl "
+          f"{cfg.attn_impl}): card and cpu tokens identical: {card}")
+    return {"tokens": card, "attn_impl": cfg.attn_impl,
+            "launches": runs["cuda"][3],
+            "prefill_ms": {d: r[1] for d, r in runs.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -2082,7 +2265,7 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
     mlstm = ml_ops.mlstm_chunk
     # warm-up (library handles, allocator) outside the counted run
     greedy(torch, bundle, dev_params, [p[:256] for p in prompts], 2, 512,
-           "cuda", mlstm)
+           "cuda", (mlstm,))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2090,9 +2273,9 @@ def ssm_serve_phase(torch, cfg, params, counters) -> dict:
         c.launches = 0
     mlstm.tensor_core_launches = 0
     t = time.perf_counter()
-    tokens, prefill_ms, step_ms, (pre_l, dec_l), cache = greedy(
+    tokens, prefill_ms, step_ms, ((pre_l, dec_l),), cache = greedy(
         torch, bundle, dev_params, prompts, SERVE_X_NEW, max_len, "cuda",
-        mlstm)
+        (mlstm,))
     wall = time.perf_counter() - t
     launches = {c.__name__: c.launches for c in counters}
     tc_launches = mlstm.tensor_core_launches
@@ -3160,9 +3343,11 @@ FAMILY_JOBS = {
 # forward, recomputed and backward: 256 tokens took 30.91 s for 3 steps)
 HYBRID_TRAIN_LAYERS = 18
 FAMILY_JOBS[HYBRID] = {"arch": HYBRID, "reduced": False,
-                       "steps": FAMILY_TRAIN_STEPS, "batch": 2, "seq": 1024,
+                       "steps": FAMILY_TRAIN_STEPS,
+                       "batch": HYBRID_TRAIN_BATCH, "seq": HYBRID_TRAIN_SEQ,
                        "overrides": {"num_layers": HYBRID_TRAIN_LAYERS,
-                                     "use_pallas": True}}
+                                     "use_pallas": True,
+                                     "attn_impl": "pallas"}}
 FAMILY_JOBS[XLSTM] = {"arch": XLSTM, "reduced": False,
                       "steps": FAMILY_TRAIN_STEPS, "batch": 8, "seq": 128,
                       "overrides": {}}
@@ -3579,12 +3764,12 @@ def family_train_phase(torch, fa_ops, rg_ops) -> dict:
     memory) and the xLSTM at full depth for 3: finished ok, finite
     losses, every flash launch (forward, its remat recompute, dq
     and dk/dv; whisper's decoder self-attention only, its encoder and
-    cross-attention being on the chunked path) on the tensor-core bodies,
-    none for the hybrid (its published attention is the chunked route:
-    head_dim 256) and the xLSTM, the hybrid's scan launched three times
-    per recurrent layer and step (forward, its remat recompute, the
-    backward's reversed scan), and the MoE's aux loss positive and finite
-    at every layer call."""
+    cross-attention being on the chunked path; the hybrid's 6 attention
+    layers at head_dim 256 under ``attn_impl="pallas"``) on the
+    tensor-core bodies, none for the xLSTM, the hybrid's scan launched
+    three times per recurrent layer and step (forward, its remat
+    recompute, the backward's reversed scan), and the MoE's aux loss
+    positive and finite at every layer call."""
     import os
     import tempfile
 
@@ -3638,7 +3823,13 @@ def family_train_phase(torch, fa_ops, rg_ops) -> dict:
                   f"{arch} train losses {losses}")
             cfg = get_config(arch).replace(**config["overrides"])
             layers = cfg.num_layers
-            flash = 0 if arch in (HYBRID, XLSTM) else layers * steps
+            # the hybrid's attention layers (6 of 18) take the flash
+            # kernels; the xLSTM has no attention
+            if arch == HYBRID:
+                attn_layers = layer_kinds(cfg).count("attn")
+            else:
+                attn_layers = 0 if arch == XLSTM else layers
+            flash = attn_layers * steps
             want = {"flash_attention_fwd": 2 * flash,
                     "flash_attention_bwd_dq": flash,
                     "flash_attention_bwd_dkv": flash}
@@ -4743,7 +4934,7 @@ def main() -> int:
     train_parity = train_parity_phase(torch, cfg_full)
     kernels.append(rglru_phase(torch, rg_ops, rg_ref,
                                _build.build_log("rglru_scan")))
-    cfg_rg = get_config(HYBRID).replace(use_pallas=True)
+    cfg_rg = get_config(HYBRID).replace(use_pallas=True, attn_impl="pallas")
     rg_params = host_params(torch, cfg_rg, 10)
     counters = (da_ops.decode_attention, fa_ops.flash_attention_fwd,
                 fa_ops.flash_attention_bwd_dq, fa_ops.flash_attention_bwd_dkv,
@@ -4793,6 +4984,9 @@ def main() -> int:
     def audio_train(name):
         return family_train[AUDIO]["launches"][name]
 
+    def hybrid_train(name):
+        return family_train[HYBRID]["launches"][name]
+
     # launches on each main path (serving, training, hybrid and ssm
     # serving, the engine, the calcjob, the pretraining chain, MoE and
     # VLM serving, their training, whisper's serving and training, the
@@ -4820,21 +5014,25 @@ def main() -> int:
             "mesh_serve": mesh["launches"]["flash_attention_fwd"],
             "mesh_serve_families": mesh_families_launches(
                 "flash_attention_fwd"),
-            "mesh_train": mesh_train["launches"]["flash_attention_fwd"]},
+            "mesh_train": mesh_train["launches"]["flash_attention_fwd"],
+            "hybrid_serve": hybrid["launches"]["flash_attention_fwd"],
+            "hybrid_train": hybrid_train("flash_attention_fwd")},
         "flash_attention_bwd_dq": {
             "train": trained["launches"]["flash_attention_bwd_dq"],
             "calcjob": calcjob["flash_attention_bwd_dq"],
             "pretrain": pretrain["flash_attention_bwd_dq"],
             "family_train": trained_families("flash_attention_bwd_dq"),
             "audio_train": audio_train("flash_attention_bwd_dq"),
-            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dq"]},
+            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dq"],
+            "hybrid_train": hybrid_train("flash_attention_bwd_dq")},
         "flash_attention_bwd_dkv": {
             "train": trained["launches"]["flash_attention_bwd_dkv"],
             "calcjob": calcjob["flash_attention_bwd_dkv"],
             "pretrain": pretrain["flash_attention_bwd_dkv"],
             "family_train": trained_families("flash_attention_bwd_dkv"),
             "audio_train": audio_train("flash_attention_bwd_dkv"),
-            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dkv"]},
+            "mesh_train": mesh_train["launches"]["flash_attention_bwd_dkv"],
+            "hybrid_train": hybrid_train("flash_attention_bwd_dkv")},
         "rglru_scan": {
             "hybrid_serve": hybrid["launches"]["rglru_scan"],
             "hybrid_train": family_train[HYBRID]["launches"]["rglru_scan"],

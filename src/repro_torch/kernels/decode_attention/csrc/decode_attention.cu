@@ -23,13 +23,14 @@
 //     kv_len is clamped to [0, Smax], and kv_len = 0 gives exact zeros
 //     (written by split 0);
 //   * the cache is read in place through its strides, in its native
-//     (B, Smax, Hkv, hd) layout, in tiles of 64 positions: each tile's K
-//     and V rows are two cp.async groups, and the next tile's are in flight
-//     while this one is used (16-byte copies into rows padded by 16 bytes,
-//     so the reads below are conflict-free). Q.K^T: two threads per
-//     position, each over every other 16-byte piece of the row, for all
-//     GC heads; the softmax: one warp per head; P.V: each thread owns
-//     (head, dim) outputs;
+//     (B, Smax, Hkv, hd) layout, in tiles of 64 positions (32 for float32
+//     at hd = 256, for shared memory): each tile's K and V rows are two
+//     cp.async groups, and the next tile's are in flight while this one is
+//     used (16-byte copies into rows padded by 16 bytes, so the reads below
+//     are conflict-free). Q.K^T: two threads per position (four in a tile
+//     of 32), each over every other (fourth) 16-byte piece of the row, for
+//     all GC heads; the softmax: one warp per head; P.V: each thread owns
+//     (head, dim) outputs, two dims of each head at hd = 256;
 //   * each block keeps an fp32 online-softmax state (m, l, acc) per head.
 //     With one live block for its (b, head chunk) it writes out directly.
 //     Otherwise it writes its partial to a workspace, and the last block
@@ -49,7 +50,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;            // positions per tile
+constexpr int kTile = 64;            // a split is a multiple of this
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -99,15 +100,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared-memory plan of one (dtype, head_dim): K and V rows of a tile,
-// padded by 16 bytes, in two stages.
+// Shared-memory plan of one (dtype, head_dim): K and V rows of a tile of
+// KT positions, padded by 16 bytes, in two stages. KT is 64 (the split's
+// unit), 32 for float32 at hd = 256, whose two stages of 64 would take
+// 266 KB.
 template <typename T, int HD>
 struct Plan {
   static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte copy
   static constexpr int CPR = HD / VEC;         // copies per row
   static constexpr int LD = HD + VEC;          // padded row, elements
-  static constexpr int TILE = kTile * LD;      // one K or V tile
+  static constexpr int KT = sizeof(T) == 4 && HD == 256 ? 32 : kTile;
+  static constexpr int TILE = KT * LD;         // one K or V tile
   static constexpr int SMEM = 4 * TILE * sizeof(T);
+  static_assert(kTile % KT == 0 && kThreads % KT == 0, "tile plan");
   static_assert(SMEM <= 232448, "over the shared memory a block can use");
 };
 
@@ -118,7 +123,7 @@ __device__ __forceinline__ void stage_tile(T* kv_s, const T* kb, const T* vb,
                                            long long kss, long long vss,
                                            int start, int end, int t) {
   using PL = Plan<T, HD>;
-  const int p0 = start + t * kTile, rows = min(kTile, end - p0);
+  const int p0 = start + t * PL::KT, rows = min(PL::KT, end - p0);
   T* ks = kv_s + (t & 1) * PL::TILE;
   T* vs = kv_s + (2 + (t & 1)) * PL::TILE;
   for (int i = threadIdx.x; i < rows * PL::CPR; i += kThreads) {
@@ -145,10 +150,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long kss, long long ksh, long long vsb,
                         long long vss, long long vsh, float scale) {
   using PL = Plan<T, HD>;
-  constexpr int VEC = PL::VEC, CPR = PL::CPR, LD = PL::LD;
-  constexpr int DG = kThreads / HD;         // thread groups over the dims
+  constexpr int VEC = PL::VEC, CPR = PL::CPR, LD = PL::LD, KT = PL::KT;
+  constexpr int TPP = kThreads / KT;        // threads per position in Q.K^T
+  constexpr int NPL = KT / 32;              // positions per lane, softmax
+  constexpr int DPD = HD > kThreads ? HD / kThreads : 1;  // dims per thread
+  constexpr int DW = HD / DPD;              // threads along the dims in P.V
+  constexpr int DG = kThreads / DW;         // thread groups over the heads
   constexpr int HPT = GC / DG;              // heads per thread in P.V
   static_assert(HPT >= 1 && GC >= kWarps, "GC too small for this head_dim");
+  static_assert(CPR % TPP == 0, "a row splits evenly over its threads");
 
   const int sp = blockIdx.x, y = blockIdx.y, b = blockIdx.z;
   const int chunks = gridDim.y / (H / G);   // query-head chunks per KV head
@@ -170,7 +180,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_live = (len + P - 1) / P;     // blocks with live positions
 
   __shared__ float q_s[GC][HD];
-  __shared__ float s_s[GC][kTile];          // logits, then probabilities
+  __shared__ float s_s[GC][KT];             // logits, then probabilities
   __shared__ float alpha_s[GC];
   __shared__ float m_s[GC];                 // the running max and sum of
   __shared__ float l_s[GC];                 // each head, kept by its warp
@@ -182,7 +192,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // wait on memory together
   const T* kb = k + (long long)b * ksb + (long long)kvh * ksh;
   const T* vb = v + (long long)b * vsb + (long long)kvh * vsh;
-  const int nt = (end - start + kTile - 1) / kTile;
+  const int nt = (end - start + KT - 1) / KT;
   stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, 0);
   if (nt > 1) stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, 1);
   const T* qb = q + head0 * HD;
@@ -191,35 +201,37 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     q_s[g][i % HD] = g < ng ? to_float(qb[i]) * scale : 0.f;
   }
 
-  // the P.V sums of heads (tid / HD) + DG jj at dim tid % HD (this
-  // thread's); head g's softmax state belongs to warp g % kWarps
+  // the P.V sums of heads pg + DG jj at dims pd + DW dd (this thread's);
+  // head g's softmax state belongs to warp g % kWarps
   if (tid < GC) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
-  float acc[HPT];
+  float acc[HPT][DPD];
 #pragma unroll
-  for (int jj = 0; jj < HPT; ++jj) acc[jj] = 0.f;
-  const int pd = tid % HD, pg = tid / HD;
+  for (int jj = 0; jj < HPT; ++jj)
+#pragma unroll
+    for (int dd = 0; dd < DPD; ++dd) acc[jj][dd] = 0.f;
+  const int pd = tid % DW, pg = tid / DW;
 
   for (int t = 0; t < nt; ++t) {
-    const int p0 = start + t * kTile, rows = min(kTile, end - p0);
+    const int p0 = start + t * KT, rows = min(KT, end - p0);
     const bool more = t + 1 < nt;
     const T* ks = kv_s + (t & 1) * PL::TILE;
     const T* vs = kv_s + (2 + (t & 1)) * PL::TILE;
     cp_async_wait(more ? 3 : 1);  // this tile's K rows have landed
     __syncthreads();
 
-    // Q.K^T: position tid / 2, every other 16-byte piece of its row
+    // Q.K^T: position tid / TPP, every TPP-th 16-byte piece of its row
     {
-      const int pos = tid >> 1, part = tid & 1;
+      const int pos = tid / TPP, part = tid % TPP;
       float s[GC];
 #pragma unroll
       for (int g = 0; g < GC; ++g) s[g] = 0.f;
       if (pos < rows) {
 #pragma unroll
-        for (int i = 0; i < CPR / 2; ++i) {
-          const int ci = 2 * i + part;
+        for (int i = 0; i < CPR / TPP; ++i) {
+          const int ci = TPP * i + part;
           union {
             uint4 u;
             T e[VEC];
@@ -236,7 +248,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
-        s[g] += __shfl_xor_sync(kFull, s[g], 1);
+#pragma unroll
+        for (int o = 1; o < TPP; o <<= 1)
+          s[g] += __shfl_xor_sync(kFull, s[g], o);
         if (part == 0) s_s[g][pos] = pos < rows ? s[g] : -INFINITY;
       }
     }
@@ -245,14 +259,24 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax of this tile, one warp per head; the tile holds at
     // least one live position, so m_new is finite
     for (int g = warp; g < GC; g += kWarps) {
-      const float x0 = s_s[g][lane], x1 = s_s[g][lane + 32];
+      float x[NPL], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        x[j] = s_s[g][lane + 32 * j];
+        mx = fmaxf(mx, x[j]);
+      }
       const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      const float m_new = fmaxf(m_old, warp_max(mx));
       const float alpha = expf(m_old - m_new);
-      const float e0 = expf(x0 - m_new), e1 = expf(x1 - m_new);
-      const float l_new = l_s[g] * alpha + warp_sum(e0 + e1);
-      s_s[g][lane] = to_float(from_float<T>(e0));
-      s_s[g][lane + 32] = to_float(from_float<T>(e1));
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        x[j] = expf(x[j] - m_new);
+        sum += x[j];
+      }
+      const float l_new = l_s[g] * alpha + warp_sum(sum);
+#pragma unroll
+      for (int j = 0; j < NPL; ++j)
+        s_s[g][lane + 32 * j] = to_float(from_float<T>(x[j]));
       __syncwarp();
       if (lane == 0) {
         alpha_s[g] = alpha;
@@ -265,12 +289,17 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // P.V
 #pragma unroll
-    for (int jj = 0; jj < HPT; ++jj) acc[jj] *= alpha_s[pg + DG * jj];
-    for (int r = 0; r < rows; ++r) {
-      const float vf = to_float(vs[r * LD + pd]);
+    for (int jj = 0; jj < HPT; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < HPT; ++jj)
-        acc[jj] = fmaf(s_s[pg + DG * jj][r], vf, acc[jj]);
+      for (int dd = 0; dd < DPD; ++dd) acc[jj][dd] *= alpha_s[pg + DG * jj];
+    for (int r = 0; r < rows; ++r) {
+#pragma unroll
+      for (int dd = 0; dd < DPD; ++dd) {
+        const float vf = to_float(vs[r * LD + pd + DW * dd]);
+#pragma unroll
+        for (int jj = 0; jj < HPT; ++jj)
+          acc[jj][dd] = fmaf(s_s[pg + DG * jj][r], vf, acc[jj][dd]);
+      }
     }
     __syncthreads();              // every thread is done with this stage
     if (t + 2 < nt) stage_tile<T, HD>(kv_s, kb, vb, kss, vss, start, end, t + 2);
@@ -280,7 +309,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < HPT; ++jj) {
       const int g = pg + DG * jj;
-      if (g < ng) ob[g * HD + pd] = from_float<T>(acc[jj] / fmaxf(l_s[g], 1e-30f));
+      if (g < ng)
+#pragma unroll
+        for (int dd = 0; dd < DPD; ++dd)
+          ob[g * HD + pd + DW * dd] =
+              from_float<T>(acc[jj][dd] / fmaxf(l_s[g], 1e-30f));
     }
     return;
   }
@@ -295,7 +328,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 #pragma unroll
   for (int jj = 0; jj < HPT; ++jj)
-    part[2 * GC + (pg + DG * jj) * HD + pd] = acc[jj];
+#pragma unroll
+    for (int dd = 0; dd < DPD; ++dd)
+      part[2 * GC + (pg + DG * jj) * HD + pd + DW * dd] = acc[jj][dd];
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -315,14 +350,23 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float mx = -INFINITY;
     for (int i = 0; i < n_live; ++i)
       mx = fmaxf(mx, __ldcg(all + i * (GC * (HD + 2)) + g));
-    float tot = 0.f, sum = 0.f;
+    float tot = 0.f, sum[DPD];
+#pragma unroll
+    for (int dd = 0; dd < DPD; ++dd) sum[dd] = 0.f;
     for (int i = 0; i < n_live; ++i) {
       const float* pi = all + i * (GC * (HD + 2));
       const float f = expf(__ldcg(pi + g) - mx);
       tot = fmaf(__ldcg(pi + GC + g), f, tot);
-      sum = fmaf(__ldcg(pi + 2 * GC + g * HD + pd), f, sum);
+#pragma unroll
+      for (int dd = 0; dd < DPD; ++dd)
+        sum[dd] = fmaf(__ldcg(pi + 2 * GC + g * HD + pd + DW * dd), f,
+                       sum[dd]);
     }
-    if (g < ng) ob[g * HD + pd] = from_float<T>(sum / fmaxf(tot, 1e-30f));
+    if (g < ng)
+#pragma unroll
+      for (int dd = 0; dd < DPD; ++dd)
+        ob[g * HD + pd + DW * dd] =
+            from_float<T>(sum[dd] / fmaxf(tot, 1e-30f));
   }
 }
 
@@ -380,6 +424,9 @@ cudaError_t launch_hd(int hd, int gc, const void* q, const void* k,
                              smax, splits, P, st, scale, stream);
     case 128:
       return launch_g<T, 128>(gc, q, k, v, kv_len, out, ws, tickets, B, H,
+                              Hkv, smax, splits, P, st, scale, stream);
+    case 256:
+      return launch_g<T, 256>(gc, q, k, v, kv_len, out, ws, tickets, B, H,
                               Hkv, smax, splits, P, st, scale, stream);
     default:
       return cudaErrorInvalidValue;

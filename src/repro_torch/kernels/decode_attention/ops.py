@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 #: positions per tile of the kernel; a split is a multiple of it
 TILE = 64
 #: at most this many splits per (batch row, KV head)

@@ -15,7 +15,9 @@
 //   training shape (B = 8, S = 1024, 12 query and 4 KV heads, hd = 64,
 //   bf16, causal) each pass moves ~50 MB once, about 15 us, and does
 //   6 * hd (dq) or 8 * hd (dk/dv) flops per live (query, key) pair and
-//   head, 20 and 26 us: the bound is the operations.
+//   head, 20 and 26 us: the bound is the operations. So it is at
+//   recurrentgemma-2b's training batch (B = 2, S = 1024, 10 query heads on
+//   one KV head, hd = 256): 16 and 22 us.
 //
 // Two bodies per pass, chosen by dtype:
 //
@@ -28,20 +30,28 @@
 //   * dq pass: one block per (query head, batch row, 64-row query tile),
 //     the heaviest (last) tiles first; GQA folds into the index, kv_head =
 //     h / G. Q and dO come in once by TMA; K/V tiles of 128 keys (64 at
-//     hd = 128, for registers) stream through a 2-stage ring, only those
-//     some row of the block can see (the reference's _block_needed).
+//     hd = 128, 32 at hd = 256, for registers) stream through a 2-stage
+//     ring, only those some row of the block can see (the reference's
+//     _block_needed).
 //     S = Q.K^T and dP = dO.V^T are wgmma products from shared memory,
 //     all four operands K-major; dQ += dS.K reads K MN-major through the
 //     transpose-B bit, as the forward reads V;
 //   * dk/dv pass: one block per (KV head, batch row, 64-key tile), the
 //     first (under causal the heaviest) tiles first. K and V come in once;
-//     Q and dO tiles of 64 query rows (32 at hd = 128, for registers)
+//     Q and dO tiles of 64 query rows (32 from hd = 128 on, for registers)
 //     stream through the ring over the G query heads x the live query
 //     tiles, and the threads stage each tile's lse and delta in shared
 //     memory one tile ahead. S^T = K.Q^T and dP^T = V.dO^T (K-major), then
 //     dV += P^T.dO and dK += dS^T.Q read dO and Q MN-major from the same
 //     swizzled tiles. One owner per output tile: no atomics, and the
 //     result is deterministic;
+//   * hd = 256 (recurrentgemma-2b): dq's accumulator is 128 fp32 registers
+//     a thread (dQ += dS.K one m64n256 product per 16 keys). dK and dV
+//     would be 256, more than a thread has, so a dk/dv block is two
+//     warpgroups, each owning 128 of the columns of both: each computes
+//     the whole S^T and dP^T (64 x 32, 32 registers) for itself from the
+//     shared tiles, which costs 4 * hd of the pass's 8 * hd flops a pair
+//     once more, and keeps 176 accumulator registers a thread;
 //   * p = exp2(s scale log2e - lse log2e), softcap, masks and dS = p (dP -
 //     delta) dcap run on the accumulator registers, masks only on tiles
 //     that cross the causal diagonal, the window's edge or Skv. P and dS
@@ -56,9 +66,11 @@
 // float32, on the CUDA cores (flash_bwd_dq_f32_kernel and
 //   flash_bwd_dkv_f32_kernel): wgmma has no fp32 operands, and TF32 would
 //   miss the 1e-4 bar that the float32 train-step parity rests on.
-//   * tiles of 32 rows; DPT = 16 head dims per thread, so HD / 16 threads
-//     share one row, read consecutive shared-memory banks, and sum their
-//     partial dot products with log2(HD / 16) shuffles;
+//   * blocks of 32 rows; DPT = 16 head dims per thread (32 at hd = 256), so
+//     HD / DPT threads share one row, read consecutive shared-memory banks,
+//     and sum their partial dot products with log2(HD / DPT) shuffles; the
+//     other side's tiles are staged in static shared memory, 32 rows (16 at
+//     hd = 256, inside its 48 KB);
 //   * dq pass: one block per (query tile, query head, batch row). The
 //     row's q (scaled), do and fp32 dq accumulator stay in registers; K
 //     and V tiles are staged in shared memory, and only the live KV tiles
@@ -104,9 +116,18 @@ struct BwdArgs {
 // float32: the CUDA-core bodies
 // ---------------------------------------------------------------------------
 
-constexpr int F32_BQ = 32;    // query rows per tile
-constexpr int F32_BKV = 32;   // key rows per tile
-constexpr int DPT = 16;       // head dims per thread
+constexpr int F32_BQ = 32;    // query rows per block (dq pass)
+constexpr int F32_BKV = 32;   // key rows per block (dk/dv pass)
+// head dims per thread: 16, so HD / 16 threads share a row; 32 at
+// hd = 256, whose 16 threads a row would make blocks of 512 threads, held
+// to 128 registers each (the dk/dv pass spilled)
+template <int HD>
+constexpr int kDpt = HD == 256 ? 32 : 16;
+
+// Rows of the K/V (dq pass) or Q/dO (dk/dv pass) tiles staged in static
+// shared memory, which holds at most 48 KB: 16 at hd = 256.
+template <int HD>
+constexpr int kF32StageRows = HD == 256 ? 16 : 32;
 
 // Sum a partial dot product over the TPR consecutive lanes of one row.
 template <int TPR>
@@ -116,14 +137,14 @@ __device__ __forceinline__ float row_sum(float d) {
   return d;
 }
 
-// Stage rows [r0, r0 + 32) of a (rows, HD) slab with row stride `rs` into
-// shared memory times `mul`, 16-byte loads, zeros past `n_rows`.
-template <int HD, int NT>
+// Stage rows [r0, r0 + ROWS) of a (rows, HD) slab with row stride `rs`
+// into shared memory times `mul`, 16-byte loads, zeros past `n_rows`.
+template <int HD, int NT, int ROWS>
 __device__ __forceinline__ void stage(float (*dst)[HD], const float* src,
                                       long long rs, int r0, int n_rows,
                                       float mul) {
   constexpr int CPR = HD / 4;
-  for (int i = threadIdx.x; i < 32 * CPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = (i % CPR) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < n_rows)
@@ -155,10 +176,12 @@ __device__ __forceinline__ float cap(float s, float softcap, float& dcap) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(F32_BQ * HD / DPT)
+__global__ void __launch_bounds__(F32_BQ * HD / kDpt<HD>)
 flash_bwd_dq_f32_kernel(const BwdArgs a) {
+  constexpr int DPT = kDpt<HD>;
   constexpr int TPR = HD / DPT;
   constexpr int NT = F32_BQ * TPR;
+  constexpr int KT = kF32StageRows<HD>;   // keys per staged tile
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (a.H / a.Hkv);
   const int row = threadIdx.x / TPR, part = threadIdx.x % TPR;
@@ -166,8 +189,8 @@ flash_bwd_dq_f32_kernel(const BwdArgs a) {
   const bool row_live = qi < a.Sq;
   const int qpos = qi + a.q_offset;
 
-  __shared__ float k_s[F32_BKV][HD];
-  __shared__ float v_s[F32_BKV][HD];
+  __shared__ float k_s[KT][HD];
+  __shared__ float v_s[KT][HD];
 
   const float* q = static_cast<const float*>(a.q);
   const float* dout = static_cast<const float*>(a.dout);
@@ -197,13 +220,13 @@ flash_bwd_dq_f32_kernel(const BwdArgs a) {
                     (long long)kvh * a.ksh;
   const float* vb = static_cast<const float*>(a.v) + (long long)b * a.vsb +
                     (long long)kvh * a.vsh;
-  for (int k0 = (kv_lo / F32_BKV) * F32_BKV; k0 < kv_hi; k0 += F32_BKV) {
+  for (int k0 = (kv_lo / KT) * KT; k0 < kv_hi; k0 += KT) {
     __syncthreads();  // every thread is done with the previous tile
-    stage<HD, NT>(k_s, kb, a.kss, k0, a.Skv, 1.f);
-    stage<HD, NT>(v_s, vb, a.vss, k0, a.Skv, 1.f);
+    stage<HD, NT, KT>(k_s, kb, a.kss, k0, a.Skv, 1.f);
+    stage<HD, NT, KT>(v_s, vb, a.vss, k0, a.Skv, 1.f);
     __syncthreads();
 #pragma unroll 4
-    for (int j = 0; j < F32_BKV; ++j) {
+    for (int j = 0; j < KT; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) {
@@ -232,20 +255,22 @@ flash_bwd_dq_f32_kernel(const BwdArgs a) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(F32_BKV * HD / DPT)
+__global__ void __launch_bounds__(F32_BKV * HD / kDpt<HD>)
 flash_bwd_dkv_f32_kernel(const BwdArgs a) {
+  constexpr int DPT = kDpt<HD>;
   constexpr int TPR = HD / DPT;
   constexpr int NT = F32_BKV * TPR;
+  constexpr int QT = kF32StageRows<HD>;   // query rows per staged tile
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.Hkv;
   const int row = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const int ki = kt * F32_BKV + row;
   const bool row_live = ki < a.Skv;
 
-  __shared__ float q_s[F32_BQ][HD];
-  __shared__ float do_s[F32_BQ][HD];
-  __shared__ float lse_s[F32_BQ];
-  __shared__ float delta_s[F32_BQ];
+  __shared__ float q_s[QT][HD];
+  __shared__ float do_s[QT][HD];
+  __shared__ float lse_s[QT];
+  __shared__ float delta_s[QT];
 
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
@@ -277,18 +302,18 @@ flash_bwd_dkv_f32_kernel(const BwdArgs a) {
     const float* db = static_cast<const float*>(a.dout) +
                       (long long)b * a.dsb + (long long)h * a.dsh;
     const long long lb = ((long long)b * a.H + h) * a.Sq;
-    for (int q0 = (q_lo / F32_BQ) * F32_BQ; q0 < q_hi; q0 += F32_BQ) {
+    for (int q0 = (q_lo / QT) * QT; q0 < q_hi; q0 += QT) {
       __syncthreads();  // every thread is done with the previous tile
-      stage<HD, NT>(q_s, qb, a.qss, q0, a.Sq, a.scale);
-      stage<HD, NT>(do_s, db, a.dss, q0, a.Sq, 1.f);
-      for (int i = threadIdx.x; i < F32_BQ; i += NT) {
+      stage<HD, NT, QT>(q_s, qb, a.qss, q0, a.Sq, a.scale);
+      stage<HD, NT, QT>(do_s, db, a.dss, q0, a.Sq, 1.f);
+      for (int i = threadIdx.x; i < QT; i += NT) {
         const bool live = q0 + i < a.Sq;
         lse_s[i] = live ? a.lse[lb + q0 + i] : -INFINITY;
         delta_s[i] = live ? a.delta[lb + q0 + i] : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
-      for (int r = 0; r < F32_BQ; ++r) {
+      for (int r = 0; r < QT; ++r) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int i = 0; i < DPT; ++i) {
@@ -327,7 +352,7 @@ flash_bwd_dkv_f32_kernel(const BwdArgs a) {
 
 template <int HD>
 cudaError_t launch_f32(int pass, const BwdArgs& a, cudaStream_t stream) {
-  constexpr int NT = 32 * HD / DPT;
+  constexpr int NT = 32 * HD / kDpt<HD>;
   if (pass == 0) {
     const dim3 grid((a.Sq + F32_BQ - 1) / F32_BQ, a.H, a.B);
     flash_bwd_dq_f32_kernel<HD><<<grid, NT, 0, stream>>>(a);
@@ -354,10 +379,12 @@ struct Swizzle {
 };
 
 // Tile plan of the dq pass: a block is one warpgroup over 64 query rows.
+// Keys per ring stage: fewer as hd grows, for registers (dQ is HD / 2 fp32
+// accumulators a thread, S and dP BKV / 2 each).
 template <int HD>
 struct DqTile : Swizzle<HD> {
   static constexpr int BQ = 64;                       // query rows per block
-  static constexpr int BKV = HD == 128 ? 64 : 128;    // keys per ring stage
+  static constexpr int BKV = HD == 256 ? 32 : HD == 128 ? 64 : 128;
   static constexpr int Q_BYTES = BQ * HD * 2;         // Q or dO
   static constexpr int KV_BYTES = BKV * HD * 2;       // one K or V stage
   // Q, dO, K and V in 2 stages, 3 mbarriers, and room to align the base to
@@ -366,11 +393,16 @@ struct DqTile : Swizzle<HD> {
   static_assert(SMEM <= 232448, "over the shared memory a block can use");
 };
 
-// Tile plan of the dk/dv pass: a block is one warpgroup over 64 keys.
+// Tile plan of the dk/dv pass: a block is WG warpgroups over 64 keys.
+// dK and dV are 2 x HD / 2 fp32 accumulators a thread in one warpgroup,
+// too many at hd = 256: there two warpgroups each own CW = 128 of their
+// columns (and compute S^T and dP^T, 32 registers, each for itself).
 template <int HD>
 struct DkvTile : Swizzle<HD> {
   static constexpr int BKV = 64;                      // keys per block
-  static constexpr int BQ = HD == 128 ? 32 : 64;      // query rows per stage
+  static constexpr int BQ = HD >= 128 ? 32 : 64;      // query rows per stage
+  static constexpr int WG = HD == 256 ? 2 : 1;        // warpgroups per block
+  static constexpr int CW = HD / WG;                  // columns per warpgroup
   static constexpr int KV_BYTES = BKV * HD * 2;       // K or V
   static constexpr int Q_BYTES = BQ * HD * 2;         // one Q or dO stage
   // K, V, Q and dO in 2 stages, lse and delta in 2 stages, 3 mbarriers,
@@ -390,11 +422,14 @@ __device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int c) {
 }
 
 // Descriptor of the MN-major B operand at rows r .. r + 15 of a `rows`-row
-// tile, all hd columns (the transpose-B bit): LBO is the slab stride.
+// tile, its columns from c0 (a multiple of the slab width) on (the
+// transpose-B bit): LBO is the slab stride.
 template <int HD>
-__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int r) {
+__device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int r,
+                                             int c0 = 0) {
   using S = Swizzle<HD>;
-  return smem_desc(tile + r * S::SW, rows * S::SW, 8 * S::SW, S::LAYOUT);
+  return smem_desc(tile + (c0 / S::SWC) * rows * S::SW + r * S::SW,
+                   rows * S::SW, 8 * S::SW, S::LAYOUT);
 }
 
 // logits in log2 units from the raw dot product s, and dcap = d logits /
@@ -591,7 +626,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128, 1)
+__global__ void __launch_bounds__(128 * DkvTile<HD>::WG, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -604,6 +639,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            int causal, int window, int q_offset) {
   using T = DkvTile<HD>;
   constexpr int BQ = T::BQ, BKV = T::BKV, SW = T::SW, SWC = T::SWC;
+  constexpr int CW = T::CW;
 
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -630,7 +666,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - t0 : 0;
   const int n_tiles = G * n_qt;                  // query heads x query tiles
 
-  const int warp = tid / 32, lane = tid % 32;
+  const int wg = tid / 128;                      // owns columns c0 .. + CW
+  const int c0 = wg * CW;
+  const int warp = tid % 128 / 32, lane = tid % 32;
   const int r0 = 16 * warp + lane / 4;           // keys k0 + r0, k0 + r0 + 8
   const int cb = 2 * (lane % 4);                 // columns cb, cb + 1 of 8
 
@@ -669,9 +707,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     (tid < BQ ? lse_s : dl_s)[(t & 1) * BQ + tid % BQ] = x;
   };
 
-  float dka[HD / 2], dva[HD / 2];
+  float dka[CW / 2], dva[CW / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
+  for (int i = 0; i < CW / 2; ++i) {
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
@@ -757,17 +795,18 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       sa[i / 2][2 * (i & 1) + 1] = pack_bf16(dsv[2], dsv[3]);
     }
 
-    // dV += P^T dO and dK += dS^T Q: dO and Q are (rows, hd) with hd
-    // contiguous, read MN-major from the tiles S^T and dP^T read K-major
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's columns: dO and
+    // Q are (rows, hd) with hd contiguous, read MN-major from the tiles
+    // S^T and dP^T read K-major
     fence_regs(dva);
     fence_regs(dka);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs(dva, pa[kk], mn_major<HD>(do_tile, BQ, 16 * kk));
+      wgmma_rs(dva, pa[kk], mn_major<HD>(do_tile, BQ, 16 * kk, c0));
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      wgmma_rs(dka, sa[kk], mn_major<HD>(q_tile, BQ, 16 * kk));
+      wgmma_rs(dka, sa[kk], mn_major<HD>(q_tile, BQ, 16 * kk, c0));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(dva);
@@ -781,9 +820,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int half = 0; half < 2; ++half) {
     const int kp = k0 + r0 + 8 * half;
     if (kp >= Skv) continue;
-    const long long o = (((long long)b * Skv + kp) * Hkv + kvh) * HD + cb;
+    const long long o =
+        (((long long)b * Skv + kp) * Hkv + kvh) * HD + c0 + cb;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < CW / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * i) =
           __floats2bfloat162_rn(dka[4 * i + 2 * half] * scale,
                                 dka[4 * i + 2 * half + 1] * scale);
@@ -843,7 +883,7 @@ int launch_wgmma(int pass, const BwdArgs& a, cudaStream_t stream) {
     const cudaError_t e = allow_smem(kernel, T::SMEM, raised);
     if (e != cudaSuccess) return e;
     const dim3 grid(a.Hkv, a.B, (a.Skv + T::BKV - 1) / T::BKV);
-    kernel<<<grid, 128, T::SMEM, stream>>>(
+    kernel<<<grid, 128 * T::WG, T::SMEM, stream>>>(
         tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
         static_cast<__nv_bfloat16*>(a.dv), a.Sq, a.Skv, a.H, G, a.scale,
         a.softcap, a.causal, a.window, a.q_offset);
@@ -871,12 +911,14 @@ int run(int pass, int dtype, const void* q, const void* k, const void* v,
       case 32: return launch_f32<32>(pass, a, s);
       case 64: return launch_f32<64>(pass, a, s);
       case 128: return launch_f32<128>(pass, a, s);
+      case 256: return launch_f32<256>(pass, a, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
       case 32: return launch_wgmma<32>(pass, a, s);
       case 64: return launch_wgmma<64>(pass, a, s);
       case 128: return launch_wgmma<128>(pass, a, s);
+      case 256: return launch_wgmma<256>(pass, a, s);
     }
   }
   return cudaErrorInvalidValue;

@@ -11,7 +11,10 @@
 //   4 KV heads, hd = 64, causal) that is 12.9 GFLOP against 34 MB, so
 //   operations set the bound: 0.0130 ms. At the serving shapes (B = 1,
 //   one prompt of 96 to 700 tokens) bytes set it: 0.12 to 0.87 us, 0.48 us
-//   on average, well under the cost of a launch.
+//   on average, well under the cost of a launch. At recurrentgemma-2b's
+//   prefill (B = 4, S = 4096, 10 query heads on one KV head, hd = 256,
+//   window 2048: 6,292,480 live pairs a head) it is 258 GFLOP against
+//   185 MB: operations, 0.261 ms.
 //
 // Two bodies, chosen by dtype:
 //
@@ -34,20 +37,25 @@
 //     masks only on tiles that cross the causal diagonal, the window's
 //     edge or Skv; KV tiles no row of the block can see are skipped
 //     (the reference's _block_needed);
-//   * Q is copied once and K/V tiles of 128 rows (64 at hd = 128, for
+//   * Q is copied once and K/V tiles of 128 rows (64 from hd = 128 on, for
 //     registers) stream through a 2-stage ring by TMA, completion on
 //     mbarriers: one thread issues tile j+1's copies before the warpgroup
-//     computes on tile j. 128-byte swizzle at hd >= 64 (hd = 128 as two
-//     64-column boxes), 64-byte at hd = 32, matching the wgmma descriptors.
-//     TMA zero-fills rows past Sq and Skv, so a ragged edge needs only the
-//     mask. Tensor maps are encoded per call on the host through the
-//     runtime's driver entry point (no -lcuda) and passed as
-//     __grid_constant__ parameters.
+//     computes on tile j. 128-byte swizzle at hd >= 64 (hd = 128 and 256 as
+//     two and four 64-column boxes), 64-byte at hd = 32, matching the wgmma
+//     descriptors. TMA zero-fills rows past Sq and Skv, so a ragged edge
+//     needs only the mask. Tensor maps are encoded per call on the host
+//     through the runtime's driver entry point (no -lcuda) and passed as
+//     __grid_constant__ parameters;
+//   * hd = 256 (recurrentgemma-2b): O is 128 fp32 registers a thread beside
+//     S's 32, P.V one m64n256 product per 16 keys; Q and two stages of K and
+//     V take 161 KB of shared memory, so one block per SM.
 //
 // float32, on the CUDA cores (flash_fwd_f32_kernel): wgmma has no fp32
 //   operands and TF32 would miss the 5e-5 bar that the float32 parity
 //   checks rest on. One block per (32 query rows, head, batch row), 4
-//   threads per row, K and V tiles of 32 rows staged in shared memory.
+//   threads per row, K and V tiles of 32 rows staged in static shared
+//   memory (at hd = 256: 8 threads per row and tiles of 16 rows, inside its
+//   48 KB).
 //
 // Both: a row with no live key gives zeros and lse = -inf; any length
 // works with fixed tiles (the TPU wrapper shrank its tiles until they
@@ -55,7 +63,7 @@
 //
 // Later work: warp specialisation (a producer warp with setmaxnreg), an
 // explicit ping-pong of two warpgroups' softmax against each other's
-// products, a TMA store of O, and head_dim 256.
+// products, and a TMA store of O.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,12 +81,21 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int F32_BQ = 32;    // query rows per block
-constexpr int F32_BKV = 32;   // keys per staged tile
-constexpr int F32_TPR = 4;    // threads per query row
-constexpr int kF32Threads = F32_BQ * F32_TPR;
+
+// Tile plan of one head_dim's float32 instantiation: TPR threads share a
+// query row; K and V tiles of BKV rows are staged in static shared memory,
+// which holds at most 48 KB (so 16 rows at hd = 256, where 8 threads share
+// a row to keep q and the accumulator at 32 registers each).
+template <int HD>
+struct F32Tile {
+  static constexpr int TPR = HD == 256 ? 8 : 4;       // threads per row
+  static constexpr int BKV = HD == 256 ? 16 : 32;     // keys per staged tile
+  static constexpr int NT = F32_BQ * TPR;             // threads per block
+  static_assert(2 * BKV * HD * 4 <= 48 * 1024, "over static shared memory");
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(F32Tile<HD>::NT)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int Sq, int Skv, int H, int G,
@@ -86,25 +103,27 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long ksb, long long kss, long long ksh,
                      long long vsb, long long vss, long long vsh, float scale,
                      float softcap, int causal, int window, int q_offset) {
-  constexpr int DPT = HD / F32_TPR;      // head dims per thread
+  using P = F32Tile<HD>;
+  constexpr int TPR = P::TPR, BKV = P::BKV, NT = P::NT;
+  constexpr int DPT = HD / TPR;          // head dims per thread
   constexpr int VEC = 4;                 // floats per 16-byte load
   constexpr int CPR = HD / VEC;          // 16-byte chunks per row
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / G;
-  const int row = threadIdx.x / F32_TPR, part = threadIdx.x % F32_TPR;
+  const int row = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const int qi = qt * F32_BQ + row;
   const bool row_live = qi < Sq;
   const int qpos = qi + q_offset;
 
-  __shared__ float k_s[F32_BKV][HD];
-  __shared__ float v_s[F32_BKV][HD];
+  __shared__ float k_s[BKV][HD];
+  __shared__ float v_s[BKV][HD];
 
   float qr[DPT], acc[DPT];
   const float* qp =
       q + (long long)b * qsb + (long long)qi * qss + (long long)h * qsh;
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
-    qr[i] = row_live ? qp[i * F32_TPR + part] * scale : 0.f;
+    qr[i] = row_live ? qp[i * TPR + part] * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -117,9 +136,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + (long long)b * ksb + (long long)kvh * ksh;
   const float* vb = v + (long long)b * vsb + (long long)kvh * vsh;
-  for (int k0 = (kv_lo / F32_BKV) * F32_BKV; k0 < kv_hi; k0 += F32_BKV) {
+  for (int k0 = (kv_lo / BKV) * BKV; k0 < kv_hi; k0 += BKV) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < F32_BKV * CPR; i += kF32Threads) {
+    for (int i = threadIdx.x; i < BKV * CPR; i += NT) {
       const int r = i / CPR, c = (i % CPR) * VEC;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < Skv) {
@@ -131,16 +150,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[F32_BKV];
+    float s[BKV];
     float tmax = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < F32_BKV; ++j) {
+    for (int j = 0; j < BKV; ++j) {
       float d = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i)
-        d = fmaf(qr[i], k_s[j][i * F32_TPR + part], d);
-      d += __shfl_xor_sync(kFull, d, 1);
-      d += __shfl_xor_sync(kFull, d, 2);
+        d = fmaf(qr[i], k_s[j][i * TPR + part], d);
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) d += __shfl_xor_sync(kFull, d, o);
       if (softcap > 0.f) d = softcap * tanhf(d / softcap);
       const int kpos = k0 + j;
       bool ok = row_live && kpos < Skv;
@@ -156,12 +175,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
     float psum = 0.f;
 #pragma unroll
-    for (int j = 0; j < F32_BKV; ++j) {
+    for (int j = 0; j < BKV; ++j) {
       const float p = expf(s[j] - m_use);
       psum += p;
 #pragma unroll
       for (int i = 0; i < DPT; ++i)
-        acc[i] = fmaf(p, v_s[j][i * F32_TPR + part], acc[i]);
+        acc[i] = fmaf(p, v_s[j][i * TPR + part], acc[i]);
     }
     l = l * alpha + psum;
     m = m_new;
@@ -172,7 +191,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = out + (((long long)b * Sq + qi) * H + h) * HD;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) op[i * F32_TPR + part] = acc[i] / den;
+    for (int i = 0; i < DPT; ++i) op[i * TPR + part] = acc[i] / den;
     if (part == 0)
       lse[((long long)b * H + h) * Sq + qi] = l > 0.f ? m + logf(l) : -INFINITY;
   }
@@ -185,7 +204,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int causal, int window, int q_offset,
                        cudaStream_t stream) {
   const dim3 grid((Sq + F32_BQ - 1) / F32_BQ, H, B);
-  flash_fwd_f32_kernel<HD><<<grid, kF32Threads, 0, stream>>>(
+  flash_fwd_f32_kernel<HD><<<grid, F32Tile<HD>::NT, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), Sq, Skv, H, H / Hkv, st[0], st[1], st[2],
@@ -202,7 +221,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 template <int HD>
 struct Tile {
   static constexpr int BQ = 64;                       // query rows per block
-  static constexpr int BKV = HD == 128 ? 64 : 128;    // keys per ring stage
+  // keys per ring stage: 64 from hd = 128 on, for registers (O is HD / 2
+  // fp32 accumulators a thread, S is BKV / 2)
+  static constexpr int BKV = HD >= 128 ? 64 : 128;
   static constexpr int SW = HD == 32 ? 64 : 128;      // swizzle span = slab row, bytes
   static constexpr int SWC = SW / 2;                  // bf16 columns per slab
   static constexpr int SLABS = HD / SWC;
@@ -482,6 +503,10 @@ extern "C" int repro_flash_attention_fwd(
         return launch_f32<128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                                strides, scale, softcap, causal, window,
                                q_offset, s);
+      case 256:
+        return launch_f32<256>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
+                               strides, scale, softcap, causal, window,
+                               q_offset, s);
     }
     return cudaErrorInvalidValue;
   }
@@ -497,6 +522,10 @@ extern "C" int repro_flash_attention_fwd(
                                 q_offset, s);
       case 128:
         return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
+                                 strides, scale, softcap, causal, window,
+                                 q_offset, s);
+      case 256:
+        return launch_wgmma<256>(q, k, v, out, lse, B, Sq, Skv, H, Hkv,
                                  strides, scale, softcap, causal, window,
                                  q_offset, s);
     }

@@ -509,6 +509,18 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
                                                 _placements_of(x, axes))
 
 
+def splits_evenly(n: int, axis: str) -> bool:
+    """Whether a dim of size ``n`` under the logical ``axis`` is split by
+    the active rules' mesh axes: False where they would split it but do
+    not divide ``n`` (the dim then stays replicated, see :func:`shard`),
+    True otherwise, and without rules."""
+    st = _AXIS_RULES
+    if st.rules is None or st.mesh is None or st.rules.get(axis) is None:
+        return True
+    return resolve_spec((n,), (axis,), st.rules,
+                        mesh_sizes(st.mesh))[0] is not None
+
+
 def on_local_shards(fn: Callable[..., Any], args: Sequence[Any],
                     axes: Sequence[Sequence[str | None] | None],
                     outs: Sequence[tuple[Sequence[int],

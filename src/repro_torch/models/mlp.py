@@ -26,7 +26,8 @@ import math
 
 import torch
 
-from repro_torch.models.common import ModelConfig, ParamSpec, act_fn, shard
+from repro_torch.models.common import (ModelConfig, ParamSpec, act_fn,
+                                       shard, splits_evenly)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +113,14 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     n_groups = tokens // g
     cap = _capacity(cfg, g)
 
+    # groups that the data axes do not divide straddle two ranks' rows,
+    # which DTensor cannot reshape into (the reference's GSPMD pads them):
+    # there every rank takes the whole batch, and the output goes back to
+    # the batch's rows after the combine. One group (a decode step) holds
+    # every row already and reshapes as it is.
+    whole_groups = n_groups > 1 and not splits_evenly(n_groups, "moe_groups")
+    if whole_groups:
+        x = shard(x, None, None, None)
     xt = shard(x.reshape(n_groups, g, d), "moe_groups", None, None)
     # fp32 router (no TF32: a near-tie must stay a tie on every device)
     router_logits = torch.einsum("gtd,de->gte", xt.float(),
@@ -173,5 +182,7 @@ def moe_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     if cfg.moe_sharding == "expert":
         expert_out = shard(expert_out, "expert", "moe_groups", None, None)
     out = torch.einsum("gtec,egcd->gtd", combine.to(dt), expert_out)
-    out = shard(out, "moe_groups", None, None)
-    return out.reshape(b, s, d), aux_loss.float()
+    out = shard(out, "moe_groups", None, None).reshape(b, s, d)
+    if whole_groups:
+        out = shard(out, "batch", None, None)
+    return out, aux_loss.float()

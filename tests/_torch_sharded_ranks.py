@@ -11,7 +11,8 @@ script prints one ``RESULT:`` JSON line with each rank's findings:
 
 (``arch:H/Hkv`` serves the reduced config with H query and Hkv KV heads;
 ``arch:name=value+name=value`` overrides other fields of it, integers or
-strings. ``--fsdp`` places the parameters by FSDP's rules, the ``embed``
+strings, and ``rows`` and ``prompt`` the prompts' shape, (2, 8) unless
+given. ``--fsdp`` places the parameters by FSDP's rules, the ``embed``
 dim over ``data``.)
 
 The recipe is the reference's ``test_sharded_decode_matches_single_device``:
@@ -47,7 +48,7 @@ SCALAR_POS_FAMILIES = ("hybrid", "audio", "ssm")
 
 def _serve(bundle, params, cache, prompt, logits_out, scalar_pos=False):
     """Prefill + 4 decode steps through the serving steps; the tokens
-    (2, 5), each step's logits appended to ``logits_out``. The decode
+    (B, 5), each step's logits appended to ``logits_out``. The decode
     position is a (B,) vector, as the reference's test passes it, or with
     ``scalar_pos`` (always for :data:`SCALAR_POS_FAMILIES`) one scalar for
     every row. A family with extra inputs (whisper's frames) gets them
@@ -71,7 +72,8 @@ def _serve(bundle, params, cache, prompt, logits_out, scalar_pos=False):
         prompt.shape[0], np.random.default_rng(2), "cpu")}
     tok, cache = prefill(params, batch, cache)
     toks = [tok]
-    pos = torch.tensor(8 if scalar_pos else [8, 8], dtype=torch.int32)
+    rows, n = prompt.shape
+    pos = torch.tensor(n if scalar_pos else [n] * rows, dtype=torch.int32)
     for _ in range(4):
         tok, cache = decode(params, cache, tok, pos)
         toks.append(tok)
@@ -144,8 +146,10 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int,
         cfg = reduced_config(arch).replace(
             dtype="float32", kv_cache_dtype="float32", decode_impl="pallas",
             attn_impl="pallas", use_pallas=True)
+        rows, n = 2, 8
         if "=" in extra:
             kw = dict(kv.split("=") for kv in extra.split("+"))
+            rows, n = int(kw.pop("rows", rows)), int(kw.pop("prompt", n))
             cfg = cfg.replace(**{k: int(v) if v.isdigit() else v
                                  for k, v in kw.items()})
         elif extra:
@@ -154,14 +158,14 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int,
         bundle = build(cfg)
         params = bundle.init_params(0, "cpu")
         prompt = torch.from_numpy(np.random.default_rng(0).integers(
-            1, cfg.vocab_size, (2, 8)).astype(np.int32))
+            1, cfg.vocab_size, (rows, n)).astype(np.int32))
         single_logits, sharded_logits = [], []
-        single = _serve(bundle, params, bundle.init_cache(2, 32, "cpu"),
+        single = _serve(bundle, params, bundle.init_cache(rows, 32, "cpu"),
                         prompt, single_logits)
         rules = make_rules(cfg, mesh, fsdp=fsdp)
         notes: list[str] = []
         sp = distribute_tree(params, bundle.param_axes(), rules, mesh, notes)
-        sc = distribute_tree(bundle.init_cache(2, 32, "cpu"),
+        sc = distribute_tree(bundle.init_cache(rows, 32, "cpu"),
                              bundle.cache_axes(), rules, mesh, notes)
         seen.clear()
         capped.clear()
@@ -170,11 +174,11 @@ def serve_cases(rank: int, archs: list[str], data: int, model: int,
         on_mesh[0] = True
         with axis_rules(mesh, rules):
             sharded = _serve(bundle, sp, sc, prompt, sharded_logits)
-            # a cache of 12 = 8 + 4 positions: under sequence sharding the
-            # prefill and the decode steps write into every rank's shard
+            # a cache of the prompt + 4 positions: under sequence sharding
+            # the prefill and the decode steps write into every rank's shard
             tight = {scalar: _serve(bundle, sp, distribute_tree(
-                bundle.init_cache(2, 12, "cpu"), bundle.cache_axes(), rules,
-                mesh), prompt, [], scalar_pos=scalar).tolist()
+                bundle.init_cache(rows, n + 4, "cpu"), bundle.cache_axes(),
+                rules, mesh), prompt, [], scalar_pos=scalar).tolist()
                 for scalar in (False, True)}
         on_mesh[0] = False
         out[case] = {

@@ -19,8 +19,8 @@ has (DTensor's rules differ across versions):
     python tests/_torch_sharded_train_ranks.py --all --rendezvous-dir "$(mktemp -d)"
 
 A training case (``adamw``, ``adamw_chunked_ce``, ``adafactor``,
-``micro2``, ``moe``, ``vlm``, ``kv_whole``, ``kv_whole_fsdp``,
-``heads_whole_fsdp``, and the hybrid's, the ssm
+``micro2``, ``moe``, ``moe_uneven``, ``vlm``, ``kv_whole``,
+``kv_whole_fsdp``, ``heads_whole_fsdp``, and the hybrid's, the ssm
 family's and whisper's ``hybrid``, ``ssm``, ``whisper``: the table
 ``CASES``) takes a reduced config
 in float32 on the flash kernel's route (its plain versions
@@ -73,6 +73,10 @@ CASES = {
     "adafactor": ("aiida-demo-110m", "adafactor", 1, 4, 0),
     "micro2": ("aiida-demo-110m", "adamw", 2, 8, 0),
     "moe": ("moonshot-v1-16b-a3b", "adamw", 1, 4, 0),
+    # 12 x 16 tokens in 3 groups of 64 under FSDP on 2 x 2: the 2 data
+    # groups cannot split them (each rank's 96 tokens end inside a group),
+    # so the groups stay whole on every rank
+    "moe_uneven": ("moonshot-v1-16b-a3b", "adamw", 1, 12, 0),
     "vlm": ("llava-next-34b", "adamw", 1, 4, 0),
     # the list-of-layers families and the encoder-decoder, each at its
     # published attention sharding ("sequence"); the hybrid's scan on its
@@ -88,7 +92,7 @@ MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
               (1, 2): ("adamw", "kv_whole", "moe", "vlm", "hybrid",
                        "whisper"),
               (2, 2): ("adamw_chunked_ce", "kv_whole_fsdp",
-                       "heads_whole_fsdp")}
+                       "heads_whole_fsdp", "moe_uneven")}
 #: cases held row for row: the mesh splits the rows over ``data`` without
 #: FSDP (no parameter dim is split, so no product is summed in another
 #: order), and the one-device side runs the global batch in the mesh's

@@ -54,7 +54,7 @@ def _randn(gen, shape, dtype, device):
 
 
 @pytest.mark.parametrize("h,hkv,hd", [(12, 4, 64), (4, 2, 32), (8, 1, 128),
-                                      (16, 2, 64)])
+                                      (16, 2, 64), (10, 1, 256), (4, 2, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain_version(cuda, h, hkv, hd, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -92,6 +92,7 @@ def test_decode_kernel_reads_a_strided_cache_view(cuda):
     (16, 12, 4, 64, 1024),    # B * Hkv = 64: splits of 128
     (1, 8, 4, 128, 4096),     # B * Hkv = 4, a long cache
     (3, 8, 1, 32, 200),       # G = 8, hd 32
+    (4, 10, 1, 256, 2048),    # recurrentgemma-2b's heads and window
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_split_kv_matches_plain_version_at_split_edges(cuda, b, h,
@@ -146,11 +147,23 @@ def test_decode_workspace_serves_shapes_in_turn(cuda):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("hd", [48, 96, 160])
+def test_kernels_refuse_a_head_dim_they_do_not_take(cuda, hd):
+    """A head_dim outside (32, 64, 128, 256) raises on a CUDA tensor: no
+    call falls back to a plain version."""
+    q = torch.zeros(1, 8, 2, hd, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        da_ops.decode_attention(q[:, 0], q, q, 8)
+
+
 # (b, sq, skv, h, hkv, hd, options): lengths at the tensor-core body's tile
 # edges (64-row query tiles, 128-key tiles) and the serving path's prompts
-# (96, 250, 511, 700), hd 32/64/128, non-causal, more
+# (96, 250, 511, 700), hd 32/64/128/256, non-causal, more
 # keys than queries with q_offset = skv - sq, no keys, windows, softcap
-# with a window, G = 1/3/4, and q, k, v as views of one fused projection
+# with a window, G = 1/3/4/10, and q, k, v as views of one fused
+# projection
 FLASH_CASES = (
     [(1, s, s, 12, 4, 64, {}) for s in (1, 63, 64, 65, 96, 127, 128, 129,
                                          250, 511, 700, 1024)]
@@ -175,7 +188,14 @@ FLASH_CASES = (
     + [(2, 1, 1, 12, 4, 64, {}), (2, 37, 37, 12, 4, 64, {}),
        (2, 700, 700, 12, 4, 64, {}), (2, 200, 200, 12, 4, 64, {"window": 64}),
        (2, 130, 130, 12, 4, 64, {"softcap": 30.0}),
-       (2, 37, 42, 12, 4, 64, {"q_offset": 5})])
+       (2, 37, 42, 12, 4, 64, {"q_offset": 5})]
+    # hd 256: recurrentgemma-2b's 10 query heads on one KV head and its
+    # window of 2048 (past S, then within it), an odd length, G = 2
+    + [(1, s, s, 10, 1, 256, {"window": 2048}) for s in (333, 4096)]
+    + [(2, 37, 37, 2, 1, 256, {"window": 16, "softcap": 30.0}),
+       (1, 129, 129, 4, 2, 256, {"causal": False}),
+       (1, 65, 200, 4, 2, 256, {"q_offset": 135}),
+       (1, 129, 129, 10, 1, 256, {"strided": True})])
 
 
 def _flash_case(cuda, b, sq, skv, h, hkv, hd, opts, dtype):
@@ -266,6 +286,12 @@ def test_flash_kernel_takes_views_at_an_odd_offset(cuda, odd_q, odd_kv, hd,
     (1, 100, 100, 4, 4, 64, {"q_offset": 9, "window": 33}),  # G = 1
     (2, 40, 40, 12, 4, 32, {"q_offset": -10}),             # keyless rows
     (1, 250, 250, 16, 4, 64, {"softcap": 30.0, "window": 64}),
+    # hd 256 (two warpgroups in the dk/dv pass): recurrentgemma-2b's heads
+    # and window, an odd length, softcap, a query offset
+    (1, 333, 333, 10, 1, 256, {"window": 2048}),
+    (2, 1024, 1024, 10, 1, 256, {"window": 2048}),
+    (2, 37, 37, 2, 1, 256, {"softcap": 30.0, "window": 16}),
+    (1, 65, 200, 4, 2, 256, {"q_offset": 135}),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernels_match_plain_version(cuda, b, sq, skv, h, hkv, hd,

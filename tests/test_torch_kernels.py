@@ -67,6 +67,9 @@ def _decode_inputs(rng, b, h, hkv, hd, smax, dtype):
     (3, 8, 2, 64, 256),
     (1, 4, 1, 128, 512),
     (2, 12, 4, 64, 256),     # G = 3, the full-width aiida-demo-110m grouping
+    # recurrentgemma-2b's hd 256 and 10 query heads on one KV head; G = 2
+    pytest.param(3, 10, 1, 256, 128, id="hd256-g10"),
+    pytest.param(2, 4, 2, 256, 128, id="hd256-g2"),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_shapes(b, h, hkv, hd, smax, dtype):
@@ -351,17 +354,27 @@ def test_flash_attention_q_offset(sq, skv, q_offset, window):
     dict(window=16),
     dict(softcap=5.0),
     dict(scale=0.1),
+    # hd 256, recurrentgemma-2b's, on 2 query heads and one KV head; the
+    # reference's tiles of 64 take a 37-row length whole
+    pytest.param(dict(hd=256, s=37, window=16), id="hd256-s37-window16"),
+    pytest.param(dict(hd=256, s=64, window=32), id="hd256-s64-window32"),
+    pytest.param(dict(hd=256, s=37, softcap=5.0), id="hd256-s37-softcap5"),
+    pytest.param(dict(hd=256, s=64, window=16, softcap=5.0),
+                 id="hd256-s64-window16-softcap5"),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_lse_matches_reference_kernel(opts, dtype):
     rng = np.random.default_rng(15)
-    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(rng, 2, 64, 64, 6, 2, 32,
+    opts = dict(opts)
+    hd, s = opts.pop("hd", 32), opts.pop("s", 64)
+    h, hkv, block = (2, 1, 64) if hd == 256 else (6, 2, 32)
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(rng, 2, s, s, h, hkv, hd,
                                                dtype)
-    full = dict(window=0, scale=32 ** -0.5, softcap=0.0) | opts
+    full = dict(window=0, scale=hd ** -0.5, softcap=0.0) | opts
     out, lse = flash_attention_fwd(tq, tk, tv, causal=True, **full)
-    assert lse.dtype == torch.float32 and lse.shape == (2, 6, 64)
+    assert lse.dtype == torch.float32 and lse.shape == (2, h, s)
     j_out, j_lse = j_flash_kernel.flash_attention_fwd(
-        jq, jk, jv, causal=True, q_offset=0, block_q=32, block_kv=32,
+        jq, jk, jv, causal=True, q_offset=0, block_q=block, block_kv=block,
         interpret=True, **full)
     _close(out, j_out, dtype)
     _close(lse, j_lse, dtype)
@@ -469,6 +482,12 @@ BWD_CASES = [
     dict(b=1, s=65, h=2, hkv=1, hd=128),
     dict(b=1, s=129, h=4, hkv=2, hd=32, block=256),
     dict(b=1, s=40, skv=72, h=2, hkv=2, hd=32, q_offset=32, window=24),
+    # hd 256, recurrentgemma-2b's, on one KV head, windowed and softcapped;
+    # one reference tile over the 37-row length
+    dict(b=2, s=37, h=2, hkv=1, hd=256, window=16, block=64),
+    dict(b=2, s=64, h=2, hkv=1, hd=256, window=32),
+    dict(b=2, s=37, h=2, hkv=1, hd=256, softcap=5.0, block=64),
+    dict(b=2, s=64, h=2, hkv=1, hd=256, window=16, softcap=5.0),
 ]
 
 
@@ -508,7 +527,7 @@ def test_flash_attention_bwd_matches_reference_kernel(case, dtype):
                                    rtol=BWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (1, 3, 5)],
+@pytest.mark.parametrize("case", [BWD_CASES[i] for i in (1, 3, 5, 11, 13)],
                          ids=lambda c: "-".join(f"{k}{v}"
                                                 for k, v in c.items()))
 def test_flash_attention_autograd_matches_reference_vjp(case):
@@ -641,3 +660,4 @@ def test_tensor_core_rounding_stays_inside_the_bf16_bars():
                                    rtol=BWD_TOL["bfloat16"], err_msg=name)
         share = np.linalg.norm(g - w) / np.linalg.norm(w)
         assert share <= 1e-2, (name, share)
+

@@ -597,11 +597,22 @@ def test_windowed_decode_rejects_per_row_positions():
 # the reduced recurrentgemma-2b
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("attn_impl", ["direct", "chunked"])
-def test_griffin_forward_matches(attn_impl):
+#: the attention routes the whole-model tests take: the reference's
+#: Pallas kernel (interpret mode) against the flash wrapper's plain
+#: version, also at recurrentgemma-2b's head_dim of 256 (2 query heads on
+#: one KV head, the window of 32)
+ATTN_ROUTES = [pytest.param("direct", {}, id="direct"),
+               pytest.param("chunked", {}, id="chunked"),
+               pytest.param("pallas", {}, id="pallas"),
+               pytest.param("pallas", dict(num_heads=2, num_kv_heads=1,
+                                           head_dim=256), id="pallas-hd256")]
+
+
+@pytest.mark.parametrize("attn_impl,over", ATTN_ROUTES)
+def test_griffin_forward_matches(attn_impl, over):
     (jcfg, _, jp), (cfg, _, p) = _pair_models(use_pallas=True,
                                               attn_impl=attn_impl,
-                                              attn_kv_block=16)
+                                              attn_kv_block=16, **over)
     tokens = np.random.default_rng(5).integers(1, 500, (2, 40))
     want = jax.jit(lambda p, t: j_rg.griffin_forward(jcfg, p, {"tokens": t}))(
         jp, jnp.asarray(tokens))
@@ -611,15 +622,16 @@ def test_griffin_forward_matches(attn_impl):
     _close(got, want, LOGIT_TOL)
 
 
-@pytest.mark.parametrize("attn_impl", ["direct", "chunked"])
-def test_griffin_loss_and_gradients_match(attn_impl):
+@pytest.mark.parametrize("attn_impl,over", ATTN_ROUTES)
+def test_griffin_loss_and_gradients_match(attn_impl, over):
     """The loss and the gradient of every parameter leaf, through the scan
-    Function's backward and the config's remat policy."""
+    Function's backward (and the flash Function's under ``"pallas"``) and
+    the config's remat policy."""
     from repro_torch.training.train_step import value_and_grad
 
     (jcfg, jb, jp), (cfg, b, p) = _pair_models(use_pallas=True,
                                                attn_impl=attn_impl,
-                                               attn_kv_block=16)
+                                               attn_kv_block=16, **over)
     rng = np.random.default_rng(6)
     batch = {"tokens": rng.integers(1, 500, (2, 24)),
              "labels": rng.integers(1, 500, (2, 24)),
@@ -642,13 +654,13 @@ def test_griffin_loss_and_gradients_match(attn_impl):
         assert err <= GRAD_TOL * max(float(np.linalg.norm(w)), 1e-12), key
 
 
-@pytest.mark.parametrize("attn_impl", ["direct", "chunked"])
-def test_griffin_prefill_and_decode_match(attn_impl):
+@pytest.mark.parametrize("attn_impl,over", ATTN_ROUTES)
+def test_griffin_prefill_and_decode_match(attn_impl, over):
     """A 40-token prompt past the window of 32, then 4 greedy decode
     steps: the logits, the tokens and every state leaf after each step."""
     (jcfg, jb, jp), (cfg, b, p) = _pair_models(use_pallas=True,
                                                attn_impl=attn_impl,
-                                               attn_kv_block=16)
+                                               attn_kv_block=16, **over)
     n, max_len = 40, 48
     prompt = np.random.default_rng(8).integers(1, cfg.vocab_size, (2, n))
     jlogits, jstate = jax.jit(jb.prefill_fn)(

@@ -43,6 +43,10 @@ CASES = {
     "qwen2-3q1kv-fsdp-2x2-sequence": ("qwen2-0.5b:3/1", 2, 2, True),
     "qwen2-sequence-1x2": ("qwen2-0.5b", 1, 2),
     "moonshot-expert-1x2": ("moonshot-v1-16b-a3b", 1, 2),
+    # 12 prompts of 16 tokens in 3 MoE groups of 64, which the 2 data
+    # groups cannot split: the groups stay whole on every rank
+    "moonshot-uneven-groups-fsdp-2x2": (
+        "moonshot-v1-16b-a3b:rows=12+prompt=16", 2, 2, True),
     "grok-ffn-1x2": ("grok-1-314b", 1, 2),
     "recurrentgemma-rnn-1x2": ("recurrentgemma-2b", 1, 2),
     "recurrentgemma-2x2": ("recurrentgemma-2b", 2, 2),
