@@ -263,6 +263,10 @@ class BrokerServer:
             pass
         finally:
             self._drop_client(cid)
+            # close this end too: a connection the peer ended stays open
+            # here (asyncio keeps a half-closed stream), and ``stop()``'s
+            # ``wait_closed()`` waits for every connection (Python 3.12.1+)
+            writer.close()
 
     def _drop_client(self, cid: str, reason: str = "disconnected") -> None:
         """Full disconnect cleanup, run the moment a client's connection

@@ -542,7 +542,6 @@ def on_local_shards(fn: Callable[..., Any], args: Sequence[Any],
     st = _AXIS_RULES
     if st.rules is None or st.mesh is None:
         return fn(*args)
-    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = st.mesh
@@ -559,12 +558,52 @@ def on_local_shards(fn: Callable[..., Any], args: Sequence[Any],
         placed = [placements(resolve_spec(shape, ax, st.rules, sizes), mesh)
                   for shape, ax in outs]
         out, out_pls = placed[0], tuple(list(p) for p in placed)
-    grads = tuple(None if pl is None else tuple(
+    return local_map(fn, out_placements=out_pls, in_placements=ins,
+                     in_grad_placements=_grad_placements(ins, out),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _grad_placements(ins: Sequence[tuple | None], out: tuple) -> tuple:
+    """Each input's gradient placements under ``local_map`` (inputs placed
+    ``ins``, output ``out``): a replicated input's is a partial sum on
+    each mesh dim where the output is sharded."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple(None if pl is None else tuple(
         Partial() if isinstance(p, Replicate) and isinstance(o, Shard)
         else p for p, o in zip(pl, out)) for pl in ins)
-    return local_map(fn, out_placements=out_pls, in_placements=ins,
-                     in_grad_placements=grads, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+
+
+def on_rows(fn: Callable[..., torch.Tensor], x: torch.Tensor,
+            *weights: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *weights)`` for a function of each vector along ``x``'s last
+    dim (a norm). Without rules, ``fn(x, *weights)``. Under rules ``fn``
+    runs on every rank's local shard of ``x`` as it is placed (its last
+    dim whole, a partial sum reduced) with ``weights`` whole (FSDP's
+    all-gather), and its output is placed as that shard; the weights'
+    gradients are summed over the ranks' rows. Left to DTensor, the
+    norm's backward takes a gradient that is a partial sum over ``model``
+    (the column-parallel products' input gradient) and may reduce-scatter
+    it over the rows, which splits unevenly where ``model`` does not
+    divide a data group's rows (3 of 6 on 2 x 2); the reshapes behind it
+    then cannot take the uneven shards."""
+    st = _AXIS_RULES
+    if st.rules is None or st.mesh is None:
+        return fn(x, *weights)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = st.mesh
+    x = as_dtensor(x, mesh)
+    last = x.ndim - 1
+    out = tuple(Replicate() if isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim % x.ndim == last) else p
+        for p in x.placements)
+    ins = (out, *(((Replicate(),) * mesh.ndim,) * len(weights)))
+    return local_map(fn, out_placements=list(out), in_placements=ins,
+                     in_grad_placements=_grad_placements(ins, out),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, *(as_dtensor(w, mesh) for w in weights))
 
 
 def _rows(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -603,6 +642,12 @@ def mul_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in fp32, on each rank's rows under a mesh (:func:`on_rows`)."""
+    return on_rows(functools.partial(_rms_norm, eps=eps), x, weight)
+
+
+def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
+              ) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)

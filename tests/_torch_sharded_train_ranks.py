@@ -19,7 +19,8 @@ has (DTensor's rules differ across versions):
     python tests/_torch_sharded_train_ranks.py --all --rendezvous-dir "$(mktemp -d)"
 
 A training case (``adamw``, ``adamw_chunked_ce``, ``adafactor``,
-``micro2``, ``moe``, ``moe_uneven``, ``vlm``, ``kv_whole``,
+``micro2``, ``moe``, ``moe_uneven``, ``odd_rows``, ``moe_odd_rows``,
+``vlm``, ``kv_whole``,
 ``kv_whole_fsdp``, ``heads_whole_fsdp``, and the hybrid's, the ssm
 family's and whisper's ``hybrid``, ``ssm``, ``whisper``: the table
 ``CASES``) takes a reduced config
@@ -35,7 +36,8 @@ distance over its norm, and each leaf's local shape. ``save`` writes the
 mesh's state after the two steps of the first case as a checkpoint,
 ``save_lists`` a list-of-layers state per case (a training case's after
 its two steps, else its initial state placed on the mesh);
-``restore`` places a checkpoint on the mesh; ``probe`` records what the
+``restore`` places a checkpoint on the mesh; ``"fsdp": false`` trains
+without FSDP on a mesh with data > 1; ``probe`` records what the
 mesh's sites hand on (``probe_local_shards``). Every mesh also reports
 each rank's share of a whisper batch (``frames_by_rank``). Leaves are
 compared across processes by the SHA-256 of their bytes.
@@ -77,6 +79,10 @@ CASES = {
     # groups cannot split them (each rank's 96 tokens end inside a group),
     # so the groups stay whole on every rank
     "moe_uneven": ("moonshot-v1-16b-a3b", "adamw", 1, 12, 0),
+    # 6 x 16 tokens on 2 x 2 under FSDP: 3 rows per data group, which the
+    # model axis cannot split evenly
+    "odd_rows": ("aiida-demo-110m", "adamw", 1, 6, 0),
+    "moe_odd_rows": ("moonshot-v1-16b-a3b", "adamw", 1, 6, 0),
     "vlm": ("llava-next-34b", "adamw", 1, 4, 0),
     # the list-of-layers families and the encoder-decoder, each at its
     # published attention sharding ("sequence"); the hybrid's scan on its
@@ -92,7 +98,8 @@ MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
               (1, 2): ("adamw", "kv_whole", "moe", "vlm", "hybrid",
                        "whisper"),
               (2, 2): ("adamw_chunked_ce", "kv_whole_fsdp",
-                       "heads_whole_fsdp", "moe_uneven")}
+                       "heads_whole_fsdp", "moe_uneven", "odd_rows",
+                       "moe_odd_rows")}
 #: cases held row for row: the mesh splits the rows over ``data`` without
 #: FSDP (no parameter dim is split, so no product is summed in another
 #: order), and the one-device side runs the global batch in the mesh's
@@ -228,10 +235,11 @@ def _local_batch(batch, bundle, rules, mesh):
     return shard_batch(own, bundle.batch_axes(), rules, mesh)
 
 
-def train_case(case: str, mesh, data: int, on_mesh: list
+def train_case(case: str, mesh, data: int, on_mesh: list, fsdp: bool = True
                ) -> tuple[dict, dict]:
     """One device against the mesh: (findings, the mesh's state after two
-    steps). ``on_mesh[0]`` is set while the mesh runs."""
+    steps). ``on_mesh[0]`` is set while the mesh runs. ``fsdp=False``
+    keeps every parameter dim off the data axes."""
     from repro_torch.distributed.sharding import (make_rules, place_tree,
                                                   tree_placements)
     from repro_torch.models.common import axis_rules, tree_leaves
@@ -247,7 +255,8 @@ def train_case(case: str, mesh, data: int, on_mesh: list
 
     cfg, tcfg = case_config(case), train_config(case)
     bundle = build(cfg)
-    rules = make_rules(cfg, mesh, fsdp=data > 1 and case not in ROW_BLOCKED)
+    rules = make_rules(cfg, mesh, fsdp=fsdp and data > 1
+                       and case not in ROW_BLOCKED)
     pl = tree_placements(train_state_shapes(bundle, tcfg),
                          train_state_axes(bundle, tcfg), rules, mesh)
     state0 = initial_state(case)
@@ -441,7 +450,8 @@ def rank_cases(rank: int, data: int, model: int, spec: dict) -> dict:
     for case in spec.get("cases", []):
         seen.clear()
         scans.clear()
-        out[case], state = train_case(case, mesh, data, is_dtensor_input)
+        out[case], state = train_case(case, mesh, data, is_dtensor_input,
+                                      spec.get("fsdp", True))
         out[case]["mesh_bwd_inputs"] = sorted(set(seen))
         out[case]["mesh_bwd_calls"] = len(seen)
         out[case]["mesh_scan_inputs"] = sorted(set(scans))

@@ -470,6 +470,33 @@ def test_event_log_replays_missed_broadcasts(tmp_path):
     run(main())
 
 
+def test_broker_stops_after_a_client_it_already_dropped(tmp_path):
+    """A client whose connection ended before ``stop()`` (the broker has
+    seen its EOF and dropped it) does not keep ``stop()`` waiting: the
+    broker closes its own end of every connection that ends. The
+    reference's broker leaves that end open, and ``wait_closed()`` waits
+    for it (Python 3.12.1+), which hung its saturation tests' sync-client
+    cases whenever the client's EOF won the race with ``stop()``."""
+    import socket
+
+    async def main():
+        server = BrokerServer(str(tmp_path / "broker.db"))
+        await server.start()
+        sock = socket.create_connection((server.host, server.port))
+        t0 = time.monotonic()
+        while not server._clients:
+            assert time.monotonic() - t0 < 5, "the broker never saw the client"
+            await asyncio.sleep(0.01)
+        sock.close()
+        while server._clients:
+            assert time.monotonic() - t0 < 5, "the client was never dropped"
+            await asyncio.sleep(0.01)
+        assert server.stats["clients_dropped"] == 1
+        await asyncio.wait_for(server.stop(), 5)
+
+    run(main())
+
+
 # ---------------------------------------------------------------------------
 # the full stack: daemon worker + broker + controller kill (the daemon
 # half of the reference's CLI case; the CLI itself is not ported)

@@ -10,7 +10,13 @@ CPU) it prints the same state, exit and reports, writes the same node
 and link rows (less its ``device`` input) and input values, and has the
 same outline and exit codes. ``examples/serve_lm_torch.py`` serves its
 requests on the CPU, and ``scripts/daemon_crash_test_torch.py`` recovers
-its jobs from crashing workers.
+its jobs from crashing workers. ``examples/quickstart_torch.py`` and
+``examples/share_cache_torch.py`` print what their reference examples
+print (less times), ``scripts/daemon_e2e_torch.py`` runs its four jobs
+through a daemon on the CPU (and raises without a card and without
+``--device``), and ``scripts/check_fault_points_torch.py`` finds the
+port's fault points, scenarios and docs in sync, as the reference's lint
+finds its own.
 """
 
 import importlib.util
@@ -384,3 +390,87 @@ def test_crash_script_recovers_its_jobs_on_the_cpu(tmp_path):
     assert set(out["states"].values()) == {"finished"}, out["states"]
     assert set(out["exit_statuses"].values()) == {0}
     json.dumps(out["broker"])           # the stats travel as JSON
+
+
+def _masked(text):
+    """Printed lines less times (``0.06s``) and speed-ups (``2.2x``)."""
+    import re
+
+    return re.sub(r"\d+\.\d+(?=[sx]\b)", "<x>", text).splitlines()
+
+
+@pytest.mark.parametrize("example", ["quickstart", "share_cache"])
+def test_engine_example_prints_what_the_reference_prints(tmp_path, example):
+    """The example and its reference, each in its own working directory:
+    the same sections, values, node and link counts and cache hits; each
+    writes its stores under ``examples_out/`` there."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    ref_dir.mkdir()
+    port_dir.mkdir()
+    ref = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", f"{example}.py")],
+        cwd=ref_dir, env=dict(_env(), JAX_PLATFORMS="cpu"),
+        capture_output=True, text=True, timeout=300)
+    port = _run([os.path.join(ROOT, "examples", f"{example}_torch.py")],
+                cwd=port_dir)
+    assert ref.returncode == 0, ref.stderr
+    assert port.returncode == 0, port.stderr
+    assert _masked(port.stdout) == _masked(ref.stdout)
+    assert sorted(os.listdir(port_dir / "examples_out")) == sorted(
+        os.listdir(ref_dir / "examples_out"))
+    if example == "share_cache":
+        assert "12/12 cache hits" in port.stdout
+    else:
+        assert "process.workchain        3 nodes" in port.stdout
+
+
+def test_engine_example_takes_an_output_directory(tmp_path):
+    out = _run([os.path.join(ROOT, "examples", "share_cache_torch.py"),
+                "--out", "elsewhere"], cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "-> elsewhere/share_results.zip" in out.stdout
+    assert not (tmp_path / "examples_out").exists()
+    out = _run([os.path.join(ROOT, "examples", "quickstart_torch.py"),
+                "--out", "elsewhere"], cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert (tmp_path / "elsewhere" / "quickstart.db").exists()
+
+
+def test_daemon_e2e_script_passes_on_the_cpu(tmp_path):
+    import re
+
+    out = _run([os.path.join(ROOT, "scripts", "daemon_e2e_torch.py"),
+                "--device", "cpu"], cwd=tmp_path, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines()[-1] == "DAEMON E2E PASS"
+    jobs = re.findall(r"^(\d+) (\w+) exit: (\S+)$", out.stdout, re.M)
+    assert len(jobs) == 4
+    assert {(state, status) for _, state, status in jobs} == {
+        ("finished", "0")}
+
+
+def test_daemon_e2e_script_without_a_card_or_device_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script trains on it")
+    out = _run([os.path.join(ROOT, "scripts", "daemon_e2e_torch.py")],
+               cwd=tmp_path)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    assert "daemon started" not in out.stdout
+
+
+def test_fault_point_lint_passes_as_the_reference_lint_does():
+    import re
+
+    ref = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts",
+                                      "check_fault_points.py")],
+        env=dict(_env(), JAX_PLATFORMS="cpu"), capture_output=True,
+        text=True, timeout=120)
+    port = _run([os.path.join(ROOT, "scripts",
+                              "check_fault_points_torch.py")], cwd=ROOT)
+    assert ref.returncode == 0, ref.stdout
+    assert port.returncode == 0, port.stdout
+    counts = re.compile(r"OK \((\d+) points instrumented, (\d+) scenarios")
+    assert counts.search(port.stdout).groups() == counts.search(
+        ref.stdout).groups()
