@@ -68,14 +68,22 @@ then:
    training and prefill shapes with its window;
 7. trains ``aiida-demo-110m`` at full width (bf16 activations, fp32
    parameters, AdamW, the config's remat policy) for 6 steps of 8 x 1024
-   tokens through ``make_train_step`` and checks every loss is finite and
+   tokens through ``make_train_step`` (donated, as the launcher, the job
+   and the pretraining example take it) and checks every loss is finite and
    every step launched 24 flash forwards (forward + remat recompute), 12
    dq and 12 dk/dv passes, all on their tensor-core bodies; prints
    tokens/s, ms per step, peak memory and a profiled step;
 8. takes one full-width float32 train step's gradients on the card and on
    the CPU (plain versions) from the same parameters and batch, and holds
    loss, grad_norm (1e-4 relative) and every gradient leaf (1e-3 of its
-   norm) together;
+   norm) together; then holds the donated train step
+   (``make_train_step(..., donate=True)``) against the functional one on
+   the card: two steps each from clones of one state on the same batches,
+   full-width ``aiida-demo-110m`` (8 x 1024) and ``recurrentgemma-2b`` at
+   full width and 3 layers with its scan on the kernel (2 x 1024, 6 scan
+   launches per step): every leaf and metric ``torch.equal``, every
+   donated leaf's ``data_ptr`` unchanged, the same dict returned; prints
+   each run's peak memory above what was resident before it;
 9. holds the single-pass RG-LRU scan kernel against its plain sequential
    version (5e-5), forward and reversed (the backward's scan, called
    directly): B in 1/4, S in 1/37/1000/4096, D in 48/96/2560, fp32 and
@@ -222,20 +230,21 @@ then:
    layers of its 32 + 32 (the smoke's time: at full depth the job took
    301.70 s for 2 steps) for 2 steps, 4 x 448 tokens beside 1500 frames
    per row, drawn as the reference's job recipe draws them,
-   ``recurrentgemma-2b`` at 18 of its 26 layers (the card's memory: a
-   step holds the old and new fp32 parameters and AdamW moments beside
-   the gradients, ~75 GB at full depth) with its scan on the kernel, 2 x
+   ``recurrentgemma-2b`` at full depth (26 layers; the job's donated step
+   holds fp32 parameters, AdamW moments and one gradient, 16 bytes a
+   parameter, 42.8 GB of its 2.675 B) with its scan on the kernel, 2 x
    1024 tokens, and ``xlstm-350m`` at full depth on the plain chunkwise
    mLSTM (the kernel has no backward), 8 x 128 tokens, each for 3 steps:
    finished ok, finite
    losses, every flash forward, recompute, dq and dk/dv launch on the
    tensor-core bodies (16 / 8 / 8 per whisper step: its decoder's
-   self-attention; 12 / 6 / 6 per hybrid step: its 6 attention layers at
+   self-attention; 16 / 8 / 8 per hybrid step: its 8 attention layers at
    hd 256, ``attn_impl="pallas"``; none for the xLSTM), the hybrid's scan
    launched 3 times per
    recurrent layer and step (forward, remat recompute, the backward's
-   reversed scan), moonshot's aux loss finite and positive; prints
-   losses, aux, peak memory, wall;
+   reversed scan: 54 per step), moonshot's aux loss finite and positive;
+   prints losses, aux, peak memory (the hybrid's beside its estimate),
+   wall;
 22. serves ``whisper-large-v3`` (audio, encoder-decoder) at full width
    and depth (32 encoder and 32 decoder layers, 1.54 B parameters, bf16
    weights drawn on the card) through ``make_prefill_step`` /
@@ -290,7 +299,8 @@ then:
    1e-4 relative (bit equality printed), 24 / 12 / 12 flash launches per
    step both ways, all on the tensor cores, every local shard on the
    card, the step-2 checkpoint restored without a mesh leaf for leaf
-   bit-equal to the mesh's state, and one more step from each of the two
+   bit-equal to the mesh's state (kept as a clone: the launcher's step is
+   donated), and one more step from each of the two
    states with losses within 1e-4; prints the host ms per step both
    ways, peak memory and the phase's wall; then ``recurrentgemma-2b`` at
    full width and 3 of its 26 layers (the smoke's time: each run draws
@@ -305,10 +315,12 @@ then:
    (``scripts/dryrun_card_check.py``, each a fake group of 256 ranks; the
    production cell's started before phase 21 and run beside it): its
    world-1 traces of an ``aiida-demo-110m`` train cell (8 x 1024, AdamW,
-   ``nothing_saveable``) and decode cell (batch 4, cache 1024) against
-   the same steps run on the card: per-rank FLOPs and argument bytes
-   equal, predicted arguments + temp within 15% of
-   ``max_memory_allocated``, no collectives; ``qwen3-4b`` ``train_4k``
+   ``nothing_saveable``, the state donated) and decode cell (batch 4,
+   cache 1024) against the same steps run on the card: per-rank FLOPs
+   and argument bytes equal, the outputs aliasing the whole state (the
+   cache), predicted arguments + temp within 15% of
+   ``max_memory_allocated`` (printed beside the 0.59% the train cell
+   had before its state was donated), no collectives; ``qwen3-4b`` ``train_4k``
    on the 16 x 16 fake mesh under ``optimized`` (FSDP on) ok, its
    per-rank memory printed against the card's 80 GB; a CUDA-type fake
    mesh's collective counts and wire bytes equal to a CPU-type one's;
@@ -1512,7 +1524,7 @@ def train_phase(torch, cfg_full, fa_ops) -> dict:
     bundle = build(cfg)
     tcfg = TrainConfig()
     state = init_train_state(bundle, tcfg, 0, "cuda")
-    step_fn = make_train_step(bundle, tcfg)
+    step_fn = make_train_step(bundle, tcfg, donate=True)
     data = TokenStream(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=TRAIN_SEQ,
                                   batch_size=TRAIN_BATCH, seed=0))
@@ -1619,6 +1631,110 @@ def train_parity_phase(torch, cfg_full) -> dict:
     print(f"train parity f32: loss card {l_card:.7f} cpu {l_cpu:.7f}, "
           f"grad_norm card {n_card:.6f} cpu {n_cpu:.6f}, worst leaf "
           f"{result['worst_leaf_rel_err']:.3e}")
+    return result
+
+
+#: phase 8's hybrid: layers (two recurrent, one attention) and steps
+DONATION_HYBRID_LAYERS, DONATION_STEPS = 3, 2
+
+
+def donation_phase(torch, cfg_full, rg_ops) -> dict:
+    """The donated train step against the functional one on the card
+    (module docstring, item 8): for the full-width ``aiida-demo-110m``
+    and ``recurrentgemma-2b`` at 3 layers, two steps each way from clones
+    of one state on the same batches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import map_tree, tree_leaves
+    from repro_torch.models.registry import build
+    from repro_torch.models.rglru import layer_kinds
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    cases = {ARCH: (cfg_full, TRAIN_BATCH, TRAIN_SEQ),
+             HYBRID: (get_config(HYBRID).replace(
+                 num_layers=DONATION_HYBRID_LAYERS, use_pallas=True,
+                 attn_impl="pallas"), HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ)}
+    result = {}
+    for arch, (cfg, rows, seq) in cases.items():
+        free_card(torch)
+        bundle, tcfg = build(cfg), TrainConfig()
+        rng = np.random.default_rng(5)
+        batches = []
+        for _ in range(DONATION_STEPS):
+            r = rng.integers(0, cfg.vocab_size, (rows, seq + 1),
+                             dtype=np.int32)
+            batches.append({"tokens": torch.from_numpy(r[:, :-1].copy()),
+                            "labels": torch.from_numpy(r[:, 1:].copy())})
+        batches = [{k: v.to("cuda") for k, v in b.items()} for b in batches]
+        state = init_train_state(bundle, tcfg, 0, "cuda")
+        # one copy a run, held by nothing else: a run's peak above what
+        # is resident is its own steps' (the other run's copy resident
+        # both times)
+        copies = {"donated": map_tree(lambda t: t.clone(), state),
+                  "functional": state}
+        del state
+        donated = copies["donated"]
+        ptrs = {k: t.data_ptr() for k, t in tree_leaves(donated)}
+        runs = {}
+        for kind, step in (("donated", make_train_step(bundle, tcfg,
+                                                       donate=True)),
+                           ("functional", make_train_step(bundle, tcfg))):
+            cur = copies.pop(kind)
+            zero_counters((rg_ops.rglru_scan,))
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, same_dict = [], True
+            for batch in batches:
+                got, m = step(cur, batch)
+                same_dict &= got is cur
+                cur = got
+                metrics.append(m)
+            torch.cuda.synchronize()
+            runs[kind] = {"state": cur, "metrics": metrics,
+                          "same_dict": same_dict,
+                          "scans": rg_ops.rglru_scan.launches,
+                          "peak_above_resident_bytes":
+                              torch.cuda.max_memory_allocated() - resident}
+        want = dict(tree_leaves(runs["functional"]["state"]))
+        unequal = [k for k, t in tree_leaves(donated)
+                   if not torch.equal(t, want[k])]
+        moved = [k for k, t in tree_leaves(donated) if t.data_ptr() != ptrs[k]]
+        metrics_equal = all(
+            torch.equal(md[k], mf[k])
+            for md, mf in zip(runs["donated"]["metrics"],
+                              runs["functional"]["metrics"]) for k in md)
+        losses = [float(m["loss"]) for m in runs["donated"]["metrics"]]
+        scans = {k: r["scans"] for k, r in runs.items()}
+        check(not unequal, f"{arch}: donated leaves differ from the "
+                           f"functional step's: {unequal[:10]}")
+        check(not moved, f"{arch}: donated leaves left their storage: "
+                         f"{moved[:10]}")
+        check(runs["donated"]["same_dict"], f"{arch}: the donated step "
+                                            f"returned another dict")
+        check(metrics_equal, f"{arch}: donated metrics differ")
+        check(all(math.isfinite(x) for x in losses), f"{arch}: {losses}")
+        want_scans = (3 * layer_kinds(cfg).count("rglru") * DONATION_STEPS
+                      if arch == HYBRID else 0)
+        check(scans == {"donated": want_scans, "functional": want_scans},
+              f"{arch}: scan launches {scans} != {want_scans} each way")
+        result[arch] = {
+            "layers": cfg.num_layers, "rows": rows, "seq": seq,
+            "steps": DONATION_STEPS, "leaves": len(want), "unequal": unequal,
+            "moved": moved, "losses": losses, "scan_launches": scans,
+            "peak_above_resident_bytes": {
+                k: r["peak_above_resident_bytes"] for k, r in runs.items()}}
+        print(f"donation {arch} ({cfg.num_layers} layers, {rows} x {seq}): "
+              f"{len(want)} leaves torch.equal, none moved, losses "
+              f"{losses}, peak above resident donated "
+              f"{runs['donated']['peak_above_resident_bytes']} B, "
+              f"functional {runs['functional']['peak_above_resident_bytes']}"
+              f" B, scans {scans}")
+        del donated, runs, want, batches
+    print("donation: " + json.dumps(result))
     return result
 
 
@@ -3336,18 +3452,23 @@ FAMILY_JOBS = {
                           "num_layers": AUDIO_TRAIN_LAYERS,
                           "encoder_layers": AUDIO_TRAIN_LAYERS}},
 }
-# the hybrid at 18 of its 26 layers (six (recurrent, recurrent, local
-# attention) units), its scan on the kernel, 2 rows of 1024 tokens; the
-# xLSTM at full depth on the plain chunkwise mLSTM (the kernel has no
-# backward), 8 rows of 128 tokens (each sLSTM layer's per-step loop runs
-# forward, recomputed and backward: 256 tokens took 30.91 s for 3 steps)
-HYBRID_TRAIN_LAYERS = 18
+# the hybrid at full depth (26 layers: eight (recurrent, recurrent, local
+# attention) units and two recurrent layers), its scan on the kernel, 2
+# rows of 1024 tokens; the xLSTM at full depth on the plain chunkwise
+# mLSTM (the kernel has no backward), 8 rows of 128 tokens (each sLSTM
+# layer's per-step loop runs forward, recomputed and backward: 256 tokens
+# took 30.91 s for 3 steps)
 FAMILY_JOBS[HYBRID] = {"arch": HYBRID, "reduced": False,
                        "steps": FAMILY_TRAIN_STEPS,
                        "batch": HYBRID_TRAIN_BATCH, "seq": HYBRID_TRAIN_SEQ,
-                       "overrides": {"num_layers": HYBRID_TRAIN_LAYERS,
-                                     "use_pallas": True,
+                       "overrides": {"use_pallas": True,
                                      "attn_impl": "pallas"}}
+#: the hybrid job's expected peak, bytes: its donated step's fp32
+#: parameters, AdamW moments and one gradient (16 bytes a parameter),
+#: the update's temporaries of its largest leaf (the tied 256,000 x 2560
+#: embedding, 2.62 GB each in fp32) and 2 x 1024 tokens' activations
+#: under remat
+HYBRID_PEAK_ESTIMATE = (45e9, 55e9)
 FAMILY_JOBS[XLSTM] = {"arch": XLSTM, "reduced": False,
                       "steps": FAMILY_TRAIN_STEPS, "batch": 8, "seq": 128,
                       "overrides": {}}
@@ -3356,12 +3477,6 @@ FAMILY_TRAIN_CUTS = {
     MOE: "the card's memory: fp32 parameters, gradients and AdamW moments",
     VLM: "the card's memory: fp32 parameters, gradients and AdamW moments",
     AUDIO: "the smoke's time: the full-depth job took 301.70 s for 2 steps",
-    # 2.675 B parameters: a step holds the old and the new parameters and
-    # AdamW moments beside the gradients, 28 bytes a parameter, ~75 GB of
-    # the card's 80 at full depth; 18 layers are 2.05 B, ~57 GB
-    HYBRID: "the card's memory: a step's old and new fp32 parameters and "
-            "AdamW moments beside its gradients, 28 bytes a parameter, "
-            "~75 GB at full depth",
 }
 
 
@@ -3760,11 +3875,11 @@ def family_train_phase(torch, fa_ops, rg_ops) -> dict:
     """One ``GPUTrainJob`` per family through a ``Runner`` at full width,
     the MoE and the VLM at 2 layers (the card's memory: fp32 parameters,
     gradients and AdamW moments) for 3 steps, whisper at 8 + 8 layers (the
-    smoke's time) for 2, the hybrid at 18 of 26 layers (the card's
-    memory) and the xLSTM at full depth for 3: finished ok, finite
+    smoke's time) for 2, the hybrid and the xLSTM at full depth for 3:
+    finished ok, finite
     losses, every flash launch (forward, its remat recompute, dq
     and dk/dv; whisper's decoder self-attention only, its encoder and
-    cross-attention being on the chunked path; the hybrid's 6 attention
+    cross-attention being on the chunked path; the hybrid's 8 attention
     layers at head_dim 256 under ``attn_impl="pallas"``) on the
     tensor-core bodies, none for the xLSTM, the hybrid's scan launched
     three times per recurrent layer and step (forward, its remat
@@ -3823,7 +3938,7 @@ def family_train_phase(torch, fa_ops, rg_ops) -> dict:
                   f"{arch} train losses {losses}")
             cfg = get_config(arch).replace(**config["overrides"])
             layers = cfg.num_layers
-            # the hybrid's attention layers (6 of 18) take the flash
+            # the hybrid's attention layers (8 of 26) take the flash
             # kernels; the xLSTM has no attention
             if arch == HYBRID:
                 attn_layers = layer_kinds(cfg).count("attn")
@@ -3868,6 +3983,16 @@ def family_train_phase(torch, fa_ops, rg_ops) -> dict:
                   f"peak {result[arch]['peak_memory_bytes']} bytes, launches "
                   f"{launches}" + (f", aux min {min(aux):.6f} max "
                                    f"{max(aux):.6f}" if aux else ""))
+            if arch == HYBRID:
+                peak = result[arch]["peak_memory_bytes"]
+                print(f"family train {arch}: {layers} of "
+                      f"{get_config(arch).num_layers} layers, peak "
+                      f"{peak / 1e9:.2f} GB (cuda_peak_bytes {peak}) against "
+                      f"an estimate of {HYBRID_PEAK_ESTIMATE[0] / 1e9:.0f}-"
+                      f"{HYBRID_PEAK_ESTIMATE[1] / 1e9:.0f} GB and the "
+                      f"card's {card['total_bytes'] / 1e9:.2f} GB ({smi_line()})")
+                check(peak < card["total_bytes"],
+                      f"{arch} train peak {peak} >= {card['total_bytes']}")
             set_default_runner(None)
             store.close()
             configure_store(":memory:")
@@ -4507,7 +4632,11 @@ def mesh_train_run(torch, launch, args, cfg, counters, mesh: bool,
                 (t.to_local() if is_dtensor(t) else t).is_cuda
                 for _, t in tree_leaves(state))
         if step == keep_step:
-            out["kept"] = state
+            # the launcher's step is donated: the next step rewrites
+            # ``state``, so what is kept is a copy
+            from repro_torch.models.common import map_tree
+
+            out["kept"] = map_tree(lambda t: t.clone(), state)
         prev["t"], prev["n"] = time.perf_counter(), n
 
     zero_counters(counters)
@@ -4840,9 +4969,16 @@ def dryrun_phase(smi: str, production) -> dict:
         print(f"dryrun (a) {name} ({smi}): flops fake {c['fake_flops']:.6e} "
               f"real {c['real_flops']:.6e}, argument bytes fake "
               f"{c['fake_argument_bytes']} real {c['real_argument_bytes']}, "
+              f"aliased {c['fake_alias_bytes']} of donated "
+              f"{c['donated_bytes']}, "
               f"predicted peak {c['predicted_peak_bytes']} vs "
               f"max_memory_allocated {c['max_memory_allocated']} "
-              f"({100 * c['peak_rel_err']:.2f}%)")
+              f"({100 * c['peak_rel_err']:.2f}%"
+              + ("; before donation: 0.59%)"
+                 if name == "card_train" else ")"))
+        check(c["fake_alias_bytes"] == c["donated_bytes"] > 0,
+              f"dry run {name}: aliased bytes {c['fake_alias_bytes']} vs "
+              f"the donated argument's {c['donated_bytes']}")
         check(c["fake_flops"] == c["real_flops"] > 0,
               f"dry run {name}: FLOPs {c['fake_flops']} vs the card's "
               f"{c['real_flops']}")
@@ -4932,6 +5068,7 @@ def main() -> int:
                                _build.build_log("flash_attention_bwd"))
     trained = train_phase(torch, cfg_full, fa_ops)
     train_parity = train_parity_phase(torch, cfg_full)
+    donation = donation_phase(torch, cfg_full, rg_ops)
     kernels.append(rglru_phase(torch, rg_ops, rg_ref,
                                _build.build_log("rglru_scan")))
     cfg_rg = get_config(HYBRID).replace(use_pallas=True, attn_impl="pallas")
@@ -5055,7 +5192,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "device": device, "kernels": kernels,
          "serve": served, "parity": parity, "train": trained,
-         "train_parity": train_parity, "hybrid_serve": hybrid,
+         "train_parity": train_parity, "donation": donation,
+         "hybrid_serve": hybrid,
          "hybrid_parity": hybrid_parity, "ssm_serve": ssm,
          "ssm_parity": ssm_parity, "engine": engine,
          "workflow": workflow, "engine17": engine17, "moe_serve": moe,

@@ -96,7 +96,7 @@ class PretrainWorkChain(WorkChain):
                            warmup_steps=10,
                            total_steps=int(self.inputs["total_steps"].value))
         tcfg = TrainConfig(optim=ocfg)
-        self._step_fn = make_train_step(self._bundle, tcfg)
+        self._step_fn = make_train_step(self._bundle, tcfg, donate=True)
         self._data = TokenStream(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=self.ctx.seq_len,
             batch_size=self.ctx.batch, seed=17))

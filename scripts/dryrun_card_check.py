@@ -11,12 +11,14 @@ process, and prints one ``RESULT:`` JSON line:
 (a) world 1 against the card: the dry run's trace of two cells of
     ``aiida-demo-110m`` (its config under the ``baseline`` variant: AdamW,
     ``nothing_saveable``, no kernels) on a fake 1 x 1 mesh, a train cell
-    of 8 x 1024 and a decode cell of batch 4 with a cache of 1024, both
-    added to ``SHAPES``, and the same config and step run for real on the
-    card on zeros: the same counter's per-rank FLOPs and argument bytes,
-    the predicted arguments + temp against ``max_memory_allocated`` over
-    the step (reset just before it with only the arguments resident),
-    and the collectives (none) both ways;
+    of 8 x 1024 (the state donated) and a decode cell of batch 4 with a
+    cache of 1024, both added to ``SHAPES``, and the same config and step
+    run for real on the card on zeros: the same counter's per-rank FLOPs
+    and argument bytes, the fake trace's aliased bytes against the
+    donated argument's (state or cache), the predicted arguments + temp
+    against ``max_memory_allocated`` over the step (reset just before it
+    with only the arguments resident), and the collectives (none) both
+    ways;
 (b) one full-width production cell, ``qwen3-4b`` ``train_4k`` on the
     16 x 16 mesh under ``optimized`` (FSDP on): its per-rank memory
     against the card's 80 GB and its wall;
@@ -88,6 +90,8 @@ def world_one(torch, dr, mesh, cell) -> dict:
         "real_flops": float(counter.flops),
         "fake_argument_bytes": mem["argument_size_in_bytes"],
         "real_argument_bytes": dr.local_bytes(args),
+        "fake_alias_bytes": mem["alias_size_in_bytes"],
+        "donated_bytes": dr.local_bytes(args[dr.DONATED_ARG[cell.kind]]),
         "resident_before_step": resident,
         "predicted_peak_bytes": predicted,
         "max_memory_allocated": peak,

@@ -56,7 +56,8 @@ def gpu_train_executable(input_files: dict[str, bytes]) -> dict[str, bytes]:
         warmup_steps=max(1, steps // 10)))
     seed = config.get("seed", 0)
     state = init_train_state(bundle, tcfg, seed, device)
-    step_fn = make_train_step(bundle, tcfg)
+    # the state is donated, as the reference's step is jitted
+    step_fn = make_train_step(bundle, tcfg, donate=True)
 
     b, s = config.get("batch", 2), config.get("seq", 64)
     losses = []

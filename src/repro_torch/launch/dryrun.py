@@ -19,9 +19,13 @@ per rank, and written as one JSON per cell with the reference's keys:
 * ``memory_analysis``: ``argument_size_in_bytes`` and
   ``output_size_in_bytes``, the local bytes of the step's inputs and
   outputs; ``temp_size_in_bytes``, the peak of live local storage made
-  during the step (each storage once, views not at all: an eager train
-  step holds the old state, the new state and the gradients at once);
-  ``alias_size_in_bytes`` is 0 (eager PyTorch donates no argument) and
+  during the step (each storage once, views not at all);
+  ``alias_size_in_bytes``, the local bytes of the donated argument that
+  the outputs alias, as XLA counts the buffers a jitted step's
+  ``donate_argnums`` lets it reuse: the train state, which the train step
+  updates in place (``make_train_step(..., donate=True)``: the temp then
+  holds the gradients and one leaf's update, not a second state), and the
+  cache, which prefill and decode write in place; and
   ``generated_code_size_in_bytes`` 0 (nothing is compiled);
 * ``collectives``: every collective this rank issues, by kind, with the
   reference's ring model of its wire bytes (:func:`collective_stats`),
@@ -422,6 +426,27 @@ def local_bytes(tree: Any) -> int:
                for _, t in _tensor_leaves(tree))
 
 
+#: the argument each kind of step donates (the reference's
+#: ``donate_argnums``): the train state, or the cache
+DONATED_ARG = {"train": 0, "prefill": 2, "decode": 1}
+
+
+def aliased_bytes(donated: Any, out: Any) -> int:
+    """This rank's bytes of the leaves of ``donated`` whose storage a leaf
+    of ``out`` holds (each storage once)."""
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    held = {_storage_ref(local(t)) for _, t in _tensor_leaves(out)}
+    seen, total = set(), 0
+    for _, t in _tensor_leaves(donated):
+        ref = _storage_ref(local(t))
+        if ref in held and ref not in seen:
+            seen.add(ref)
+            total += _nbytes(local(t))
+    return total
+
+
 def trace_step(step, args: tuple, mesh=None, fake_mode=None):
     """``step(*args)`` under a :class:`StepCounter`: (its outputs, the
     counter). With ``fake_mode`` the args are fake local shards (the dry
@@ -587,7 +612,8 @@ def cell_inputs(bundle, cell, var: Variant, mesh, rules, make_local,
         state = placed(shapes, axes)
         batch = placed(bundle.batch_struct(cell), bundle.batch_axes("train"))
         step = make_train_step(bundle, tcfg, None if mesh is None else
-                               tree_placements(shapes, axes, rules, mesh))
+                               tree_placements(shapes, axes, rules, mesh),
+                               donate=True)
         return step, (state, batch)
     params = placed(bundle.param_shapes(), bundle.param_axes())
     cache_shapes = map_tree(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
@@ -641,7 +667,8 @@ def cell_stats(bundle, cell, var: Variant, mesh, rules=None, *,
             "argument_size_in_bytes": local_bytes(args),
             "output_size_in_bytes": local_bytes(out),
             "temp_size_in_bytes": counter.peak_bytes,
-            "alias_size_in_bytes": 0,
+            "alias_size_in_bytes": aliased_bytes(
+                args[DONATED_ARG[cell.kind]], out),
             "generated_code_size_in_bytes": 0,
         },
         "collectives": counter.collectives(),

@@ -103,7 +103,9 @@ def run(args: argparse.Namespace, *, cfg: ModelConfig | None = None,
     calls this) or, without one, on ``args.device``; returns the exit
     code, 0 or 310 for a NaN loss, the same on every rank. ``cfg``
     replaces the arch's config (a route such as ``attn_impl``);
-    ``on_step(step, state, metrics)`` sees every step's result."""
+    ``on_step(step, state, metrics)`` sees every step's result. The step
+    is donated, as the reference's: the state ``on_step`` sees is
+    rewritten by the next step, so a caller that keeps it clones it."""
     cfg = cfg or model_config(args)
     bundle = build(cfg)
     tcfg = train_config(args)
@@ -126,7 +128,7 @@ def run(args: argparse.Namespace, *, cfg: ModelConfig | None = None,
     # whisper's frames (a VLM's zero patches) beside the tokens, each data
     # group its own draws
     extra_rng = np.random.default_rng([args.seed, host_id])
-    step_fn = make_train_step(bundle, tcfg, state_pl)
+    step_fn = make_train_step(bundle, tcfg, state_pl, donate=True)
 
     start_step = 0
     if args.ckpt_dir and ckpt_mod.latest_step(args.ckpt_dir) is not None:

@@ -166,6 +166,27 @@ def _cols_sql(columns: Sequence[str] | None) -> str:
     return ", ".join(columns)
 
 
+#: seconds a new connection retries switching a fresh profile to WAL
+_WAL_TIMEOUT_S = 30.0
+
+
+def _set_wal(conn: sqlite3.Connection) -> None:
+    """Put the database in WAL mode. On a fresh profile that several
+    processes open at once, SQLite refuses the switch at once with
+    ``database is locked`` (it calls no busy handler for it) while
+    another connection holds its lock: retry until
+    :data:`_WAL_TIMEOUT_S`."""
+    deadline = time.monotonic() + _WAL_TIMEOUT_S
+    while True:
+        try:
+            conn.execute("PRAGMA journal_mode=WAL")
+            return
+        except sqlite3.OperationalError as exc:
+            if "locked" not in str(exc) or time.monotonic() > deadline:
+                raise
+            time.sleep(0.005)
+
+
 class ProvenanceStore:
     def __init__(self, path: str = ":memory:", *,
                  inline_threshold: int | None = None):
@@ -196,7 +217,12 @@ class ProvenanceStore:
 
     @staticmethod
     def _migrate(conn: sqlite3.Connection) -> None:
-        """Bring pre-existing databases up to the current schema."""
+        """Bring pre-existing databases up to the current schema. The read
+        of the columns and the ``ALTER``s run in one write transaction:
+        processes that open one fresh profile at once would otherwise each
+        read the column as missing and all but the first fail to add it
+        (``duplicate column name``). The caller commits."""
+        conn.execute("BEGIN IMMEDIATE")
         cols = {r[1] for r in conn.execute("PRAGMA table_info(nodes)")}
         if "node_hash" not in cols:
             conn.execute("ALTER TABLE nodes ADD COLUMN node_hash TEXT")
@@ -252,7 +278,7 @@ class ProvenanceStore:
         if conn is None:
             conn = sqlite3.connect(self.path, timeout=30.0)
             conn.row_factory = sqlite3.Row
-            conn.execute("PRAGMA journal_mode=WAL")
+            _set_wal(conn)
             conn.execute("PRAGMA busy_timeout=30000")
             conn.execute("PRAGMA synchronous=NORMAL")
             # hot-path tuning: a 16 MB page cache and a larger WAL before

@@ -49,12 +49,18 @@ SHARD_TIMEOUT_S = 600.0
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    """A host copy of ``leaf`` that shares no memory with it: a donated
+    train step may rewrite a CPU leaf while a thread writes its snapshot
+    (a card's leaf is copied by ``.cpu()`` already)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("a bfloat16 leaf has no numpy dtype without "
                             "ml_dtypes; checkpoint fp32 master copies")
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach()
+        if leaf.device.type != "cpu":
+            return leaf.cpu().numpy()
+        return leaf.numpy().copy()
+    return np.array(leaf, copy=True)
 
 
 class _Snapshot(NamedTuple):

@@ -3,8 +3,13 @@
 
 Counterpart of ``repro.training.optim``, formula for formula, with every
 update in fp32 (the bias corrections ``b1**t`` and ``b2**t`` too) and the
-result cast back to each leaf's dtype. Nothing is updated in place: each
-update returns new parameter and state trees.
+result cast back to each leaf's dtype. Each update returns new parameter
+and state trees; its counterpart with a trailing underscore
+(:func:`adamw_update_`, :func:`adafactor_update_`,
+:func:`clip_by_global_norm_`, :func:`opt_update_`) writes them into the
+trees it is given instead, leaf by leaf, the same ops in the same order
+on the same dtypes, so that its results are the functional update's bit
+for bit (the donated train step's update).
 
 Under a mesh the leaves are DTensors and the state is placed like the
 parameters (:func:`opt_state_axes`). A norm reduces each leaf's sum of
@@ -74,11 +79,39 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: Any, max_norm: float
                         ) -> tuple[Any, torch.Tensor]:
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return map_tree(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+
+
+def _f32_of(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when it is fp32 (an in-place op then writes ``x``),
+    else its fp32 copy."""
+    return x if x.dtype == torch.float32 else x.float()
+
+
+def _store(dst: torch.Tensor, src32: torch.Tensor) -> None:
+    """Write the fp32 result ``src32`` into ``dst``, rounded to its dtype
+    as ``.to(dst.dtype)`` rounds (nothing to do where it is ``dst``)."""
+    if src32 is not dst:
+        dst.copy_(src32)
+
+
+def clip_by_global_norm_(tree: Any, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm` written into ``tree``'s leaves, which
+    the caller owns (no view, no storage shared with another leaf or a
+    parameter); returns the norm."""
+    norm = global_norm(tree)
+    scale = _clip_scale(norm, max_norm)
+    for _, g in tree_leaves(tree):
+        _store(g, _f32_of(g).mul_(scale))
+    return norm
 
 
 def _zip_map(fn, params, *trees):
@@ -98,6 +131,19 @@ def _zip_map(fn, params, *trees):
     return fn(params, *trees)
 
 
+def _for_each(fn, params, *trees) -> None:
+    """``fn(p, *others)`` at every leaf ``p`` of ``params``, as
+    :func:`_zip_map` walks them, for its effects."""
+    if isinstance(params, dict):
+        for k in params:
+            _for_each(fn, params[k], *(t[k] for t in trees))
+    elif isinstance(params, list):
+        for i, p in enumerate(params):
+            _for_each(fn, p, *(t[i] for t in trees))
+    else:
+        fn(params, *trees)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -107,13 +153,17 @@ def adamw_init(params: Any) -> dict[str, Any]:
             "nu": map_tree(torch.zeros_like, params)}
 
 
+def _adamw_scalars(cfg: OptimConfig, step: torch.Tensor):
+    """The learning rate and the two bias corrections of ``step``."""
+    step = torch.as_tensor(step)
+    t = step.float() + 1.0
+    return (lr_schedule(cfg, step), 1.0 - _f32(cfg.b1, t) ** t,
+            1.0 - _f32(cfg.b2, t) ** t)
+
+
 def adamw_update(cfg: OptimConfig, grads: Any, opt_state: dict[str, Any],
                  params: Any, step: torch.Tensor):
-    step = torch.as_tensor(step)
-    lr = lr_schedule(cfg, step)
-    t = step.float() + 1.0
-    bc1 = 1.0 - _f32(cfg.b1, t) ** t
-    bc2 = 1.0 - _f32(cfg.b2, t) ** t
+    lr, bc1, bc2 = _adamw_scalars(cfg, step)
 
     def upd(p, g, mu, nu):
         g32 = g.float()
@@ -129,6 +179,31 @@ def adamw_update(cfg: OptimConfig, grads: Any, opt_state: dict[str, Any],
     new_params, new_mu, new_nu = _zip_map(upd, params, grads,
                                           opt_state["mu"], opt_state["nu"])
     return new_params, {"mu": new_mu, "nu": new_nu}, lr
+
+
+def adamw_update_(cfg: OptimConfig, grads: Any, opt_state: dict[str, Any],
+                  params: Any, step: torch.Tensor) -> torch.Tensor:
+    """:func:`adamw_update` written into ``params`` and ``opt_state``;
+    returns the learning rate."""
+    lr, bc1, bc2 = _adamw_scalars(cfg, step)
+
+    def upd(p, g, mu, nu):
+        g32 = g.float()
+        mu32, nu32 = _f32_of(mu), _f32_of(nu)
+        mu32.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+        nu32.mul_(cfg.b2).add_(g32.square().mul_(1 - cfg.b2))
+        del g32
+        delta = mu32 / bc1
+        delta.div_((nu32 / bc2).sqrt_().add_(cfg.eps))
+        _store(mu, mu32)
+        _store(nu, nu32)
+        del mu32, nu32
+        p32 = _f32_of(p)
+        delta.add_(cfg.weight_decay * p32)
+        _store(p, p32.sub_(delta.mul_(lr)))
+
+    _for_each(upd, params, grads, opt_state["mu"], opt_state["nu"])
+    return lr
 
 
 # ---------------------------------------------------------------------------
@@ -147,27 +222,38 @@ def adafactor_init(params: Any) -> dict[str, Any]:
     return {"fac": map_tree(row_col, params)}
 
 
+def _adafactor_moments(st: dict[str, torch.Tensor], g32: torch.Tensor,
+                       beta2: torch.Tensor
+                       ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """The new second moments of one leaf (row and column means of a
+    matrix's, or a vector's whole) and the update's denominator."""
+    sq = g32.square() + 1e-30
+    if g32.dim() >= 2:
+        vr = beta2 * st["vr"] + (1 - beta2) * sq.mean(dim=-1)
+        vc = beta2 * st["vc"] + (1 - beta2) * sq.mean(dim=-2)
+        del sq
+        denom = torch.sqrt(
+            vr[..., :, None] * vc[..., None, :]
+            / torch.clamp_min(vr.mean(dim=-1, keepdim=True)[..., None],
+                              1e-30))
+        return {"vr": vr, "vc": vc}, denom
+    v = beta2 * st["v"] + (1 - beta2) * sq
+    return {"v": v}, torch.sqrt(v)
+
+
+def _adafactor_scalars(cfg: OptimConfig, step: torch.Tensor):
+    """The learning rate and the second moment's decay of ``step``."""
+    step = torch.as_tensor(step)
+    return lr_schedule(cfg, step), 1.0 - (step.float() + 1.0) ** -0.8
+
+
 def adafactor_update(cfg: OptimConfig, grads: Any, opt_state: dict[str, Any],
                      params: Any, step: torch.Tensor):
-    step = torch.as_tensor(step)
-    lr = lr_schedule(cfg, step)
-    beta2 = 1.0 - (step.float() + 1.0) ** -0.8
+    lr, beta2 = _adafactor_scalars(cfg, step)
 
     def upd(p, g, st):
         g32 = g.float()
-        sq = g32.square() + 1e-30
-        if p.dim() >= 2:
-            vr = beta2 * st["vr"] + (1 - beta2) * sq.mean(dim=-1)
-            vc = beta2 * st["vc"] + (1 - beta2) * sq.mean(dim=-2)
-            denom = torch.sqrt(
-                vr[..., :, None] * vc[..., None, :]
-                / torch.clamp_min(vr.mean(dim=-1, keepdim=True)[..., None],
-                                  1e-30))
-            new_st = {"vr": vr, "vc": vc}
-        else:
-            v = beta2 * st["v"] + (1 - beta2) * sq
-            denom = torch.sqrt(v)
-            new_st = {"v": v}
+        new_st, denom = _adafactor_moments(st, g32, beta2)
         update = g32 / torch.clamp_min(denom, 1e-30)
         update = update / torch.clamp_min(
             global_norm(update) / (update.numel() ** 0.5), 1.0)
@@ -178,6 +264,34 @@ def adafactor_update(cfg: OptimConfig, grads: Any, opt_state: dict[str, Any],
     return new_params, {"fac": new_fac}, lr
 
 
+def adafactor_update_(cfg: OptimConfig, grads: Any,
+                      opt_state: dict[str, Any], params: Any,
+                      step: torch.Tensor) -> torch.Tensor:
+    """:func:`adafactor_update` written into ``params`` and ``opt_state``;
+    returns the learning rate. The factored moments are a matrix's row
+    and column sizes: they are made as the functional update makes them
+    (on a mesh, placed as DTensor places that update's) and copied into
+    the state; the parameter is updated in place."""
+    lr, beta2 = _adafactor_scalars(cfg, step)
+
+    def upd(p, g, st):
+        g32 = g.float()
+        new_st, denom = _adafactor_moments(st, g32, beta2)
+        for k, t in new_st.items():
+            st[k].copy_(t)
+        del new_st
+        update = g32 / denom.clamp_min_(1e-30)
+        del g32, denom
+        update.div_(torch.clamp_min(
+            global_norm(update) / (update.numel() ** 0.5), 1.0))
+        p32 = _f32_of(p)
+        update.add_(cfg.weight_decay * p32)
+        _store(p, p32.sub_(update.mul_(lr)))
+
+    _for_each(upd, params, grads, opt_state["fac"])
+    return lr
+
+
 def opt_init(cfg: OptimConfig, params: Any) -> dict[str, Any]:
     return adamw_init(params) if cfg.name == "adamw" else adafactor_init(params)
 
@@ -186,6 +300,15 @@ def opt_update(cfg: OptimConfig, grads, opt_state, params, step):
     if cfg.name == "adamw":
         return adamw_update(cfg, grads, opt_state, params, step)
     return adafactor_update(cfg, grads, opt_state, params, step)
+
+
+def opt_update_(cfg: OptimConfig, grads, opt_state, params, step
+                ) -> torch.Tensor:
+    """:func:`opt_update` written into ``params`` and ``opt_state``;
+    returns the learning rate."""
+    if cfg.name == "adamw":
+        return adamw_update_(cfg, grads, opt_state, params, step)
+    return adafactor_update_(cfg, grads, opt_state, params, step)
 
 
 def opt_state_axes(cfg: OptimConfig, param_axes: Any) -> dict[str, Any]:

@@ -6,6 +6,12 @@ Counterpart of ``repro.training.train_step``. The state is a dict
 returns a new state (the reference's is pure) and the metrics
 ``{loss, grad_norm, lr, ce_loss, aux_loss, tokens}`` as fp32 scalar
 tensors, left on the device so that a step never waits for the card.
+A donated step (``make_train_step(..., donate=True)``, the reference's
+``jax.jit(..., donate_argnums=(0,))``) writes the new state into the
+tensors of the state it is given, as XLA writes into a donated buffer:
+it holds the parameters, the optimizer's moments and one gradient (16
+bytes a parameter under AdamW in fp32) where a functional step holds the
+old and the new state beside the gradients (28).
 
 On a mesh (under :class:`~repro_torch.models.common.axis_rules`) the
 state's leaves are DTensors placed by :func:`train_state_axes` and the
@@ -126,13 +132,67 @@ def _accumulate(acc: Any, grads: Any, n: int) -> Any:
     return acc + grads.float() / n
 
 
+def _accumulate_(acc: Any, grads: Any, n: int) -> None:
+    """:func:`_accumulate` written into ``acc``."""
+    for (_, a), (_, g) in zip(tree_leaves(acc), tree_leaves(grads)):
+        a.add_(g.float() / n)
+
+
+def _storage_key(t: torch.Tensor):
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    return StorageWeakRef((t.to_local() if is_dtensor(t) else t)
+                          .untyped_storage())
+
+
+def _owned(grads: Any, params: Any) -> Any:
+    """``grads`` with every leaf that the in-place clip and update could
+    not write alone replaced by its copy: a tensor whose elements overlap
+    (autograd may hand back an expanded one) or whose storage a parameter
+    or an earlier gradient holds (an add's backward gives both operands
+    one tensor)."""
+    seen = {_storage_key(p) for _, p in tree_leaves(params)}
+
+    def own(g):
+        local = g.to_local() if is_dtensor(g) else g
+        key = _storage_key(g)
+        if key in seen or any(st == 0 and n > 1 for st, n in
+                              zip(local.stride(), local.shape)):
+            g = g.clone()
+            key = _storage_key(g)
+        seen.add(key)
+        return g
+
+    return map_tree(own, grads)
+
+
+def _unmoved(state: Any, placements: Any) -> None:
+    """Raise unless every DTensor leaf of ``state`` is placed as
+    ``placements`` says: a donated step's leaves keep their input's
+    placements, so there is nothing for :func:`conform_tree` to move."""
+    want = dict(tree_leaves(placements))
+    moved = [k for k, t in tree_leaves(state)
+             if tuple(t.placements) != tuple(want[k])]
+    if moved:
+        raise RuntimeError(f"a donated step left leaves placed otherwise "
+                           f"than the state's placements: {moved}")
+
+
 def make_train_step(bundle: ModelBundle, tcfg: TrainConfig,
-                    state_placements: Any = None):
+                    state_placements: Any = None, *, donate: bool = False):
     """``train_step(state, batch) -> (new_state, metrics)``. With
     ``state_placements`` (a mesh's, :func:`~repro_torch.distributed.
     sharding.tree_placements` of :func:`train_state_axes`) the new state
     is redistributed to them wherever an op left a leaf placed otherwise,
-    as the reference's jitted step fixes its ``out_shardings``."""
+    as the reference's jitted step fixes its ``out_shardings``.
+
+    With ``donate`` the step consumes its state, as a JAX step jitted
+    with ``donate_argnums=(0,)`` does: it writes the new step counter,
+    parameters and optimizer state into the given state's own tensors, one
+    leaf at a time, and returns that same dict, each leaf's storage its
+    input leaf's. The caller must not read the old state afterwards
+    expecting the values it had; to keep them, clone it first. The
+    results equal the functional step's bit for bit."""
     ocfg = tcfg.optim
     n = tcfg.microbatches
 
@@ -145,19 +205,36 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig,
                                device=state["step"].device)
             for mb in _split_microbatches(batch, n):
                 (mb_loss, metrics), g = value_and_grad(bundle, params, mb)
-                grads = _accumulate(grads, g, n)
+                if donate:
+                    _accumulate_(grads, g, n)
+                else:
+                    grads = _accumulate(grads, g, n)
                 loss = loss + mb_loss / n   # metrics: the last microbatch's
         else:
             (loss, metrics), grads = value_and_grad(bundle, params, batch)
 
-        grads, grad_norm = optim_mod.clip_by_global_norm(grads,
-                                                         ocfg.grad_clip)
-        new_params, new_opt, lr = optim_mod.opt_update(
-            ocfg, grads, state["opt"], params, state["step"])
-        new_state = {"step": state["step"] + 1, "params": new_params,
-                     "opt": new_opt}
-        if state_placements is not None:
-            new_state = conform_tree(new_state, state_placements)
+        if donate:
+            with torch.no_grad():
+                if n == 1:
+                    grads = _owned(grads, params)
+                grad_norm = optim_mod.clip_by_global_norm_(grads,
+                                                           ocfg.grad_clip)
+                lr = optim_mod.opt_update_(ocfg, grads, state["opt"],
+                                           params, state["step"])
+                del grads
+                state["step"].add_(1)
+            if state_placements is not None:
+                _unmoved(state, state_placements)
+            new_state = state
+        else:
+            grads, grad_norm = optim_mod.clip_by_global_norm(grads,
+                                                             ocfg.grad_clip)
+            new_params, new_opt, lr = optim_mod.opt_update(
+                ocfg, grads, state["opt"], params, state["step"])
+            new_state = {"step": state["step"] + 1, "params": new_params,
+                         "opt": new_opt}
+            if state_placements is not None:
+                new_state = conform_tree(new_state, state_placements)
         out_metrics = {
             "loss": loss.float(),
             "grad_norm": grad_norm,

@@ -20,7 +20,7 @@ has (DTensor's rules differ across versions):
 
 A training case (``adamw``, ``adamw_chunked_ce``, ``adafactor``,
 ``micro2``, ``moe``, ``moe_uneven``, ``odd_rows``, ``moe_odd_rows``,
-``vlm``, ``kv_whole``,
+``whisper_odd_rows``, ``ssm_odd_rows``, ``vlm``, ``kv_whole``,
 ``kv_whole_fsdp``, ``heads_whole_fsdp``, and the hybrid's, the ssm
 family's and whisper's ``hybrid``, ``ssm``, ``whisper``: the table
 ``CASES``) takes a reduced config
@@ -32,7 +32,10 @@ the attention projections fan-in scaled, and a global batch from numpy
 the gradients at the initial state, then two train steps, one device's
 and the mesh's (each rank feeds its data group's rows). It reports the
 loss and grad_norm both ways, each gradient and each state leaf's
-distance over its norm, and each leaf's local shape. ``save`` writes the
+distance over its norm, and each leaf's local shape; for the
+``DONATED_CASES``, also the same two mesh steps donated from a copy of
+the initial state (every local shard bit-equal to the functional steps',
+every leaf's storage and placements kept). ``save`` writes the
 mesh's state after the two steps of the first case as a checkpoint,
 ``save_lists`` a list-of-layers state per case (a training case's after
 its two steps, else its initial state placed on the mesh);
@@ -83,6 +86,9 @@ CASES = {
     # model axis cannot split evenly
     "odd_rows": ("aiida-demo-110m", "adamw", 1, 6, 0),
     "moe_odd_rows": ("moonshot-v1-16b-a3b", "adamw", 1, 6, 0),
+    # the same for whisper, whose norm is common.layer_norm (the xLSTM's
+    # is held by LAYER_NORM_PROBES: see layer_norm_probe)
+    "whisper_odd_rows": ("whisper-large-v3", "adamw", 1, 6, 0),
     "vlm": ("llava-next-34b", "adamw", 1, 4, 0),
     # the list-of-layers families and the encoder-decoder, each at its
     # published attention sharding ("sequence"); the hybrid's scan on its
@@ -99,7 +105,7 @@ MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
                        "whisper"),
               (2, 2): ("adamw_chunked_ce", "kv_whole_fsdp",
                        "heads_whole_fsdp", "moe_uneven", "odd_rows",
-                       "moe_odd_rows")}
+                       "moe_odd_rows", "whisper_odd_rows")}
 #: cases held row for row: the mesh splits the rows over ``data`` without
 #: FSDP (no parameter dim is split, so no product is summed in another
 #: order), and the one-device side runs the global batch in the mesh's
@@ -111,10 +117,18 @@ MESH_CASES = {(2, 1): ("adamw", "adafactor", "micro2", "ssm"),
 #: rounding in another order would swamp what the bars hold; row for row
 #: the mesh's gradients and states are one device's, bit for bit
 ROW_BLOCKED = ("ssm",)
+#: cases whose mesh steps are also taken donated, from a copy of the same
+#: state, and held bit-equal to the functional ones
+DONATED_CASES = ("adamw", "adafactor", "hybrid")
 #: the list-of-layers states that 1 x 2 saves per rank
 LIST_CASES = ("hybrid", "ssm")
 #: (data, model) -> the cases whose sites that mesh probes
 PROBE_CASES = {(1, 2): ("adamw", "moe", "vlm"), (2, 2): ("adamw_chunked_ce",)}
+#: (data, model) -> the cases whose common.layer_norm sites that mesh
+#: probes on odd rows under FSDP (layer_norm_probe)
+LAYER_NORM_PROBES = {(2, 2): ("ssm", "whisper")}
+#: the rows (3 per data group on 2 x 2) of a layer_norm probe's input
+LAYER_NORM_ROWS = 6
 #: loss (and grad_norm) rtol; each leaf's distance over its norm
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
 #: a leaf whose gradient is zero but for rounding (whisper's key biases:
@@ -305,6 +319,8 @@ def train_case(case: str, mesh, data: int, on_mesh: list, fsdp: bool = True
     single, mesh_step = (make_train_step(bundle, dataclasses.replace(
         tcfg, microbatches=data if case in ROW_BLOCKED else
         tcfg.microbatches)), make_train_step(bundle, tcfg, pl))
+    donated = (map_tree(lambda t: t.clone(), mesh_state)
+               if case in DONATED_CASES else None)
     s1, s2 = state0, mesh_state
     out["loss"], out["step_grad_norm"] = [], []
     lr_sum = 0.0
@@ -317,6 +333,9 @@ def train_case(case: str, mesh, data: int, on_mesh: list, fsdp: bool = True
         out["step_grad_norm"].append([float(m1["grad_norm"]),
                                       float(m2["grad_norm"])])
         assert not hasattr(m2["loss"], "full_tensor"), "metrics whole"
+    if donated is not None:
+        out["donated"] = donated_against(bundle, tcfg, pl, rules, mesh,
+                                         donated, s2, batches)
     want = dict(tree_leaves(s1))
     zero = set(out.get("zero_grad", ()))
 
@@ -338,6 +357,84 @@ def train_case(case: str, mesh, data: int, on_mesh: list, fsdp: bool = True
     out["local_shapes"] = {k: list(t.to_local().shape)
                            for k, t in tree_leaves(s2["params"])}
     return out, s2
+
+
+def donated_against(bundle, tcfg, pl, rules, mesh, state, want, batches
+                    ) -> dict:
+    """The mesh's donated steps on ``batches`` from ``state`` (a copy of
+    the functional steps' initial state) against the functional steps'
+    final state ``want``: the leaves whose local shard is not bit-equal,
+    those that left their storage or placements, and whether the step
+    returned the state it was given."""
+    from repro_torch.models.common import axis_rules, tree_leaves
+    from repro_torch.training.train_step import make_train_step
+
+    step = make_train_step(bundle, tcfg, pl, donate=True)
+    before = {k: (t.to_local().data_ptr(), tuple(t.placements))
+              for k, t in tree_leaves(state)}
+    same_dict = True
+    for b in batches:
+        with axis_rules(mesh, rules):
+            got, _ = step(state, _local_batch(b, bundle, rules, mesh))
+        same_dict &= got is state
+    ref = dict(tree_leaves(want))
+    leaves = tree_leaves(state)
+    return {"unequal": [k for k, t in leaves if not torch.equal(
+                t.to_local(), ref[k].to_local())],
+            "moved": [k for k, t in leaves if (t.to_local().data_ptr(),
+                                               tuple(t.placements))
+                      != before[k]],
+            "same_dict": same_dict}
+
+
+def layer_norm_probe(case: str, mesh, data: int) -> dict:
+    """``common.layer_norm`` as ``case``'s arch meets it, on odd rows
+    (``LAYER_NORM_ROWS``: 3 per data group on 2 x 2) under FSDP: the
+    residual stream (rows, SEQ, d_model) placed ("batch", "act_seq",
+    None), the norm's weight and bias ("embed",), and after it a
+    column-parallel product ("embed", "xlstm_inner") whose input gradient
+    is a partial sum over model, as the xLSTM's up-projection hands it
+    back. The output and the gradients of the input, weight and bias,
+    each's distance over its norm from one device's. (The reduced
+    xLSTM's whole-model steps on a model axis miss the leaf bar with even
+    rows too: its ~400x amplification of float32 rounding meets the
+    model axis's sums in another order; see ``ROW_BLOCKED``.)"""
+    from repro_torch.distributed.sharding import (make_rules, place_tree,
+                                                  tree_placements)
+    from repro_torch.models.common import (ShapeDtype, axis_rules,
+                                           layer_norm, shard)
+
+    cfg = case_config(case)
+    d, rows = cfg.d_model, LAYER_NORM_ROWS
+    gen = torch.Generator().manual_seed(3)
+    ins = {"x": torch.randn(rows, SEQ, d, generator=gen),
+           "w": 1.0 + 0.1 * torch.randn(d, generator=gen),
+           "b": 0.1 * torch.randn(d, generator=gen),
+           "proj": torch.randn(d, 4 * d, generator=gen) / d ** 0.5,
+           "up": torch.randn(rows, SEQ, 4 * d, generator=gen)}
+    axes = {"x": ("batch", "act_seq", None), "w": ("embed",),
+            "b": ("embed",), "proj": ("embed", "xlstm_inner"),
+            "up": ("batch", "act_seq", None)}
+
+    def run(t):
+        leaves = [t[k].requires_grad_(True) for k in ("x", "w", "b")]
+        y = layer_norm(*leaves, cfg.norm_eps)
+        loss = (shard(y @ t["proj"], "batch", "act_seq", None)
+                * t["up"]).sum()
+        return (y, *torch.autograd.grad(loss, leaves))
+
+    want = run({k: v.clone() for k, v in ins.items()})
+    rules = make_rules(cfg, mesh, fsdp=data > 1)
+    placed = place_tree(ins, tree_placements(
+        {k: ShapeDtype(tuple(v.shape), v.dtype) for k, v in ins.items()},
+        axes, rules, mesh), mesh)
+    with axis_rules(mesh, rules):
+        got = run(placed)
+    names = ("out", "grad_x", "grad_w", "grad_b")
+    return {"arch": cfg.name,
+            "err": {n: _rel(g, t) for n, g, t in zip(names, got, want)},
+            "placements": {k: [str(p) for p in t.placements]
+                           for k, t in placed.items()}}
 
 
 def probe_local_shards(case: str, mesh, data: int) -> dict:
@@ -461,6 +558,8 @@ def rank_cases(rank: int, data: int, model: int, spec: dict) -> dict:
             lists[case] = state
     for case in spec.get("probe", []):
         out[f"probe:{case}"] = probe_local_shards(case, mesh, data)
+    for case in spec.get("layer_norm_probe", []):
+        out[f"layer_norm:{case}"] = layer_norm_probe(case, mesh, data)
     if "save" in spec:
         ckpt.save_checkpoint(spec["save"], 2, saved)
         out["saved"] = digest(saved)
@@ -560,7 +659,9 @@ def mesh_specs(dirs: dict[str, str], reference: str | None = None
                      "restore": {**from_2x1, **({"reference": [
                          reference, "adamw"]} if reference else {})}},
             (2, 2): {"cases": MESH_CASES[(2, 2)],
-                     "probe": PROBE_CASES[(2, 2)], "restore": from_2x1}}
+                     "probe": PROBE_CASES[(2, 2)],
+                     "layer_norm_probe": LAYER_NORM_PROBES[(2, 2)],
+                     "restore": from_2x1}}
 
 
 def case_failures(case: str, found: list[dict]) -> list[str]:
@@ -600,7 +701,20 @@ def case_failures(case: str, found: list[dict]) -> list[str]:
         if not (c["step"] == 2 and c["placed_as_axes"]):
             out.append(f"rank {rank} {case}: step {c['step']}, placed as "
                        f"its axes {c['placed_as_axes']}")
+        d = c.get("donated")
+        if d is not None and (d["unequal"] or d["moved"]
+                              or not d["same_dict"]):
+            out.append(f"rank {rank} {case} donated step: {d}")
     return out
+
+
+def layer_norm_failures(case: str, found: list[dict]) -> list[str]:
+    """The ranks whose :func:`layer_norm_probe` of ``case`` is farther
+    than :data:`LOSS_RTOL` of its norm from one device's, in its output
+    or any gradient."""
+    return [f"rank {rank} layer_norm {case}: {r[f'layer_norm:{case}']}"
+            for rank, r in enumerate(found)
+            if not max(r[f"layer_norm:{case}"]["err"].values()) <= LOSS_RTOL]
 
 
 def probe_failures(case: str, found: list[dict], data: int, model: int
@@ -681,6 +795,9 @@ def run_all(root: str) -> int:
         for case in spec.get("probe", []):
             report(f"probe {mesh} {case}",
                    probe_failures(case, found, data, model))
+        for case in spec.get("layer_norm_probe", []):
+            report(f"layer_norm {mesh} {case}",
+                   layer_norm_failures(case, found))
         if "save" in spec:
             want["from_2x1"] = found[0]["saved"]
         for name in spec["restore"]:

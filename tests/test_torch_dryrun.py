@@ -213,7 +213,12 @@ def test_cli_writes_the_reference_keys(found):
         assert CELL_KEYS <= set(res), name
         assert "lower_s" not in res and "compile_s" not in res
         assert set(res["memory_analysis"]) == MEMORY_KEYS
-        assert res["memory_analysis"]["alias_size_in_bytes"] == 0
+        # the outputs alias the donated train state, or the cache a
+        # decode step writes in place (tests/test_torch_donation.py holds
+        # the bytes)
+        mem = res["memory_analysis"]
+        assert 0 < mem["alias_size_in_bytes"] < \
+            mem["argument_size_in_bytes"], mem
         assert {"flops", "bytes accessed"} <= set(res["cost_analysis"])
         assert set(res["collectives"]) == {"wire_bytes", "counts",
                                            "total_wire_bytes",

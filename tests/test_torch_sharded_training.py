@@ -61,6 +61,9 @@ import _torch_sharded_train_ranks as ranks  # noqa: E402
 
 MESH_CASES, PROBE_CASES = ranks.MESH_CASES, ranks.PROBE_CASES
 TRAIN_CASES = [(d, m, c) for (d, m), cs in MESH_CASES.items() for c in cs]
+DONATED = [(d, m, c) for d, m, c in TRAIN_CASES if c in ranks.DONATED_CASES]
+NORM_PROBES = [(d, m, c) for (d, m), cs in ranks.LAYER_NORM_PROBES.items()
+               for c in cs]
 
 
 def _run(tmp, data: int, model: int, spec: dict) -> list[dict]:
@@ -109,6 +112,29 @@ def test_mesh_training_matches_one_device(meshes, data, model, case):
         print(f"{data}x{model} {case} rank {rank}: worst gradient leaf "
               f"{max(c.get('grad_err', {'-': 0.0}).values()):.2e}, worst "
               f"state leaf {max(c['state_err'].values()):.2e}")
+
+
+@pytest.mark.parametrize("data,model,case", DONATED,
+                         ids=[f"{d}x{m}-{c}" for d, m, c in DONATED])
+def test_donated_mesh_step_equals_functional(meshes, data, model, case):
+    """The mesh's two steps taken donated (``make_train_step(...,
+    donate=True)``) from a copy of the state the functional steps start
+    from: every local shard bit-equal to the functional steps', each leaf
+    in its own storage and placements, the same dict returned."""
+    for r in meshes[(data, model)]:
+        assert r[case]["donated"] == {"unequal": [], "moved": [],
+                                      "same_dict": True}
+
+
+@pytest.mark.parametrize("data,model,case", NORM_PROBES,
+                         ids=[f"{d}x{m}-{c}" for d, m, c in NORM_PROBES])
+def test_layer_norm_on_odd_rows_matches_one_device(meshes, data, model,
+                                                   case):
+    """``common.layer_norm`` at the xLSTM's and whisper's widths on 6 rows
+    (3 per data group) under FSDP on 2 x 2, its output's gradient a
+    partial sum over model: the output and the gradients of its input,
+    weight and bias within 1e-5 of their norm of one device's."""
+    assert not ranks.layer_norm_failures(case, meshes[(data, model)])
 
 
 def test_microbatches_split_each_ranks_own_rows(meshes):

@@ -1006,3 +1006,46 @@ def test_reference_profile_reads_back_in_port(tmp_path):
                                               db)
     assert n_port == n and n_proc == 3
     _same_values(data, data_port)
+
+
+MIGRATION_PROCESSES, MIGRATION_ROUNDS = 8, 6
+
+
+def test_fresh_profile_opened_by_many_processes_at_once(tmp_path):
+    """Processes released together by a barrier open one fresh profile:
+    none raises (each runs the schema migration; with the read of the
+    columns and the ``ALTER`` apart, all but the first failed with
+    ``duplicate column name: lease_epoch``), and the profile has one
+    ``lease_epoch`` column. Repeated on a new profile each round."""
+    import multiprocessing as mp
+    import queue
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import _torch_store_race as race
+
+    ctx = mp.get_context("spawn")
+    for rnd in range(MIGRATION_ROUNDS):
+        path = str(tmp_path / f"fresh{rnd}.db")
+        barrier, errors = ctx.Barrier(MIGRATION_PROCESSES), ctx.Queue()
+        procs = [ctx.Process(target=race.open_profile,
+                             args=(path, barrier, errors))
+                 for _ in range(MIGRATION_PROCESSES)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=120)
+        raised = []
+        while True:
+            try:
+                raised.append(errors.get(timeout=0.5))
+            except queue.Empty:
+                break
+        assert [p.exitcode for p in procs] == [0] * len(procs)
+        assert not raised, (rnd, raised)
+        conn = sqlite3.connect(path)
+        cols = [r[1] for r in conn.execute("PRAGMA table_info(nodes)")]
+        conn.close()
+        assert cols.count("lease_epoch") == 1, cols
