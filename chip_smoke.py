@@ -1092,8 +1092,11 @@ def _profiled(torch, fn, n: int) -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
+    # a host range (the program's regions) shows on the device's timeline
+    # too, spanning the kernels it holds: it is no kernel
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     evs = kernels or [e for e in prof.key_averages() if dev_us(e) > 0]
     device = sum(dev_us(e) for e in evs) / 1e3 / n
     top, by_kind, count = {}, {}, {}
@@ -1108,7 +1111,8 @@ def _profiled(torch, fn, n: int) -> dict:
     # with another or cut short does not move
     spans = {}
     for e in prof.events():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
+        if getattr(e, "device_type", None) == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             spans.setdefault(kernel_kind(e.name), []).append(
                 (e.time_range.end - e.time_range.start) / 1e3)
     return {"wall_ms": wall, "device_ms": device,

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed.sharding import (local_slices, mesh_sizes,
                                               placements, resolve_spec)
+from repro_torch.observability import trace
 
 # ---------------------------------------------------------------------------
 # Devices
@@ -384,8 +385,12 @@ def stack_specs(specs: Mapping[str, Any], layers: int) -> Any:
 
 def layer_slice(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree (views, so in-place writes land in the
-    stacked tensors)."""
-    return map_tree(lambda t: t[i], tree)
+    stacked tensors). Each leaf's select is the region
+    ``model.layer_slice``; its backward fills a gradient of the whole
+    stack, which autograd then adds into the stacked leaf's."""
+    return map_tree(
+        lambda t: trace.bwd_region("model.layer_slice", t, lambda s: s[i]),
+        tree)
 
 
 # ---------------------------------------------------------------------------
@@ -642,8 +647,11 @@ def mul_scalar(x: torch.Tensor, c: float) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32, on each rank's rows under a mesh (:func:`on_rows`)."""
-    return on_rows(functools.partial(_rms_norm, eps=eps), x, weight)
+    """RMSNorm in fp32, on each rank's rows under a mesh (:func:`on_rows`);
+    the region ``model.norm``."""
+    return trace.bwd_region(
+        "model.norm", x,
+        lambda t: on_rows(functools.partial(_rms_norm, eps=eps), t, weight))
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float

@@ -29,6 +29,7 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     stack_specs,
 )
+from repro_torch.observability import trace
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +72,13 @@ def embed_tokens(cfg: ModelConfig, params: dict[str, Any],
                  tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table in the activation dtype. Under a mesh
     the table is gathered whole and each rank looks up its own rows of the
-    batch (:func:`~repro_torch.models.common.embed_rows`)."""
-    emb = params["embedding"].to(cfg.activation_dtype)
-    return mul_scalar(embed_rows(emb, tokens), cfg.embedding_multiplier)
+    batch (:func:`~repro_torch.models.common.embed_rows`). The region
+    ``model.embed``."""
+    def embed(table):
+        emb = table.to(cfg.activation_dtype)
+        return mul_scalar(embed_rows(emb, tokens), cfg.embedding_multiplier)
+
+    return trace.bwd_region("model.embed", params["embedding"], embed)
 
 
 def lm_logits(cfg: ModelConfig, params: dict[str, Any],
@@ -92,14 +97,17 @@ def lm_logits(cfg: ModelConfig, params: dict[str, Any],
 def _mlp_residual(cfg: ModelConfig, lp: dict[str, Any], h: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The MLP (or MoE) half of a block: (h + its residual, the MoE's aux
-    loss, None for a dense MLP)."""
+    loss, None for a dense MLP). The dense MLP with its residual scale is
+    the region ``model.mlp``."""
     hn = rms_norm(h, lp["ln_mlp"], cfg.norm_eps)
-    aux = None
     if cfg.family == "moe":
         m, aux = mlp_mod.moe_forward(cfg, lp["moe"], hn)
-    else:
-        m = mlp_mod.mlp_forward(cfg, lp["mlp"], hn)
-    return h + mul_scalar(m, cfg.residual_multiplier), aux
+        return h + mul_scalar(m, cfg.residual_multiplier), aux
+    m = trace.bwd_region(
+        "model.mlp", hn,
+        lambda t: mul_scalar(mlp_mod.mlp_forward(cfg, lp["mlp"], t),
+                             cfg.residual_multiplier))
+    return h + m, None
 
 
 # ---------------------------------------------------------------------------
@@ -110,11 +118,13 @@ def _layer_forward(cfg: ModelConfig, lp: dict[str, Any], x: torch.Tensor,
                    positions: torch.Tensor) -> tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Pre-norm block. Returns (x, the MoE's aux loss, None for a dense
-    MLP)."""
+    MLP). Attention with its residual scale is the region ``model.attn``."""
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    x = x + mul_scalar(attn.attn_forward(cfg, lp["attn"], h, positions,
-                                         causal=True),
-                       cfg.residual_multiplier)
+    x = x + trace.bwd_region(
+        "model.attn", h,
+        lambda t: mul_scalar(attn.attn_forward(cfg, lp["attn"], t, positions,
+                                               causal=True),
+                             cfg.residual_multiplier))
     x, aux = _mlp_residual(cfg, lp, x)
     return shard(x, "batch", "act_seq", None), aux
 
@@ -185,7 +195,8 @@ def _chunked_ce(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
     """Streamed CE: each sequence chunk's logits are computed under a
     checkpoint, so the (B, S, Vp) fp32 tensor never exists. The loss is
     the sum of the chunks' unnormalised sums over the sum of their
-    denominators, as in the reference."""
+    denominators, as in the reference. Each chunk, head included, is the
+    region ``model.ce``."""
     b, s, _ = x.shape
     c = min(cfg.ce_chunk, s)
     while s % c:
@@ -201,8 +212,11 @@ def _chunked_ce(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
     for i in range(0, s, c):
         mi = (mask[:, i:i + c] if mask is not None
               else torch.ones((b, c), dtype=torch.float32, device=x.device))
-        ls, dn = checkpoint(chunk_loss, x[:, i:i + c], labels[:, i:i + c],
-                            mi, use_reentrant=False)
+        li = labels[:, i:i + c]
+        ls, dn = trace.bwd_region(
+            "model.ce", x[:, i:i + c],
+            lambda xi: checkpoint(chunk_loss, xi, li, mi,
+                                  use_reentrant=False))
         tot, den = tot + ls, den + dn
     return tot / torch.clamp_min(den, 1.0), den
 
@@ -211,15 +225,19 @@ def lm_loss(cfg: ModelConfig, params: dict[str, Any],
             batch: dict[str, torch.Tensor]
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(CE + 0.01 aux, {ce_loss, aux_loss, tokens}) over ``batch``'s
-    tokens, labels and optional mask (and, for the VLM, patches)."""
+    tokens, labels and optional mask (and, for the VLM, patches). The
+    head and the CE are the region ``model.ce`` (a chunk of it each,
+    under ``ce_chunk``)."""
     labels = batch["labels"]
     mask = batch.get("mask")
     x, aux = _embed_and_stack(cfg, params, batch)
     if cfg.ce_chunk:
         loss, denom = _chunked_ce(cfg, params, x, labels, mask)
     else:
-        loss, denom = softmax_cross_entropy(lm_logits(cfg, params, x),
-                                            labels, mask, cfg.vocab_size)
+        loss, denom = trace.bwd_region(
+            "model.ce", x,
+            lambda t: softmax_cross_entropy(lm_logits(cfg, params, t),
+                                            labels, mask, cfg.vocab_size))
     total = loss + 0.01 * aux
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": denom}
 

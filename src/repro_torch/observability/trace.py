@@ -16,8 +16,19 @@ is near-zero-cost: ``span()`` returns a shared no-op singleton — no
 spans/timelines when tracing is on.
 
 Finished spans go to the current :class:`Timeline` sink (set by
-``Process.step_until_terminated`` for the duration of a run) or, when no
-sink is active, to a small bounded in-memory ring for inspection.
+``Process.step_until_terminated`` for the duration of a run); a span
+finished outside any Timeline is dropped.
+
+*Regions* put names on the device's work. ``region(name)`` enters a
+``torch.profiler`` range while a torch profiler records and is the no-op
+singleton otherwise; ``bwd_region(name, x, fn)`` also gives the
+backward of ``fn(x)`` a range ``<name>.bwd`` on the thread that runs it.
+Regions are read from the profiler's trace and never enter a Timeline: a
+training job of many steps would write millions of them. A ``span``
+enters a range of its own name too while a profiler records, so engine
+spans land on the device trace's clock. The check is one read of torch's
+own profiler flag; this module imports torch only inside the calls that
+enter a range.
 """
 
 from __future__ import annotations
@@ -28,8 +39,8 @@ import inspect
 import itertools
 import os
 import random
+import sys
 import time
-from collections import deque
 from typing import Any, Callable
 
 ENV_VAR = "REPRO_TRACE"
@@ -43,9 +54,6 @@ _CURRENT: contextvars.ContextVar["Span | None"] = \
 #: where finished spans are collected (a per-process Timeline, usually)
 _SINK: contextvars.ContextVar["Timeline | None"] = \
     contextvars.ContextVar("TRACE_SINK", default=None)
-
-#: fallback ring for spans finished outside any timeline
-_RECENT: deque = deque(maxlen=1000)
 
 _enabled: bool | None = None  # None = not yet resolved from the env
 _sample: float = 1.0
@@ -81,10 +89,9 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Back to env-resolved state; clears the in-memory ring (tests)."""
+    """Back to env-resolved state (tests)."""
     global _enabled
     _enabled = None
-    _RECENT.clear()
 
 
 def _sampled() -> bool:
@@ -95,7 +102,7 @@ class Span:
     """One named wall-clock interval. Use via :func:`span`, not directly."""
 
     __slots__ = ("name", "span_id", "parent", "start", "end", "attrs",
-                 "_token")
+                 "_token", "_range")
 
     def __init__(self, name: str, attrs: dict | None):
         self.name = name
@@ -111,17 +118,18 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _CURRENT.set(self)
+        self._range = region(self.name)
+        self._range.__enter__()
         self.start = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         self.end = time.perf_counter()
+        self._range.__exit__(*exc)
         _CURRENT.reset(self._token)
         sink = _SINK.get()
         if sink is not None:
             sink.append(self)
-        else:
-            _RECENT.append(self)
 
     def to_dict(self) -> dict:
         d = {"name": self.name, "id": self.span_id,
@@ -148,13 +156,110 @@ _NOOP = _NoopSpan()
 
 
 def span(name: str, **attrs: Any):
-    """Open a span (context manager). Returns the shared no-op singleton
-    when tracing is disabled or this would-be root span is sampled out."""
+    """Open a span (context manager). When tracing is disabled or this
+    would-be root span is sampled out it is :func:`region` of its name:
+    the shared no-op singleton unless a torch profiler records."""
     if not (_enabled if _enabled is not None else _resolve()):
-        return _NOOP
+        return region(name)
     if _sample < 1.0 and _CURRENT.get() is None and not _sampled():
-        return _NOOP
+        return region(name)
     return Span(name, attrs or None)
+
+
+# ---------------------------------------------------------------------------
+# Regions — named ranges on a torch profiler's trace
+# ---------------------------------------------------------------------------
+
+def _profiler():
+    """torch's profiler module while one of its profilers records, else
+    None (torch not loaded means no profiler)."""
+    mod = sys.modules.get("torch.autograd.profiler")
+    return mod if mod is not None and mod._is_profiler_enabled else None
+
+
+def region(name: str):
+    """A ``torch.profiler`` range named ``name`` (context manager) while a
+    torch profiler records; the shared no-op singleton otherwise."""
+    prof = _profiler()
+    return _NOOP if prof is None else prof.record_function(name)
+
+
+class _BwdRange:
+    """The ``<name>.bwd`` range of one :func:`bwd_region` call."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def open(self) -> None:
+        prof = _profiler()
+        if self._range is None and prof is not None:
+            self._range = prof.record_function(self.name)
+            self._range.__enter__()
+
+    def close(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+
+@functools.cache
+def _edge():
+    """The identity autograd function at a region's input and outputs
+    (built on first use: this module does not import torch). Forward, a
+    view of its input; backward, the gradient as it came, after calling
+    the range's ``open`` or ``close`` it was given."""
+    import torch
+
+    class RegionEdge(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, on_backward):
+            ctx.on_backward = on_backward
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.on_backward()
+            return g, None
+
+    return RegionEdge
+
+
+def bwd_region(name: str, x: Any, fn: Callable[[Any], Any]) -> Any:
+    """``fn(x)`` inside :func:`region` ``name``. While a torch profiler
+    records and ``x`` takes a gradient, identity nodes at ``x`` and at
+    each output tensor of ``fn`` that takes one put the backward of
+    ``fn`` inside a range ``<name>.bwd`` on the thread that runs it:
+    opened when the first output's gradient arrives, closed when ``x``'s
+    leaves. The identities return views and launch nothing; with no
+    profiler nothing is added to the graph.
+
+    Work that autograd does between nodes after the close (adding this
+    gradient into others bound for the same tensor) runs in no range; the
+    trace's reader gives it to the ``.bwd`` range that closed last on its
+    thread (``cardbench/spans.py``)."""
+    prof = _profiler()
+    if prof is None:
+        return fn(x)
+    import torch
+
+    with prof.record_function(name):
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return fn(x)
+        edge = _edge()
+        rng = _BwdRange(name + ".bwd")
+        out = fn(edge.apply(x, rng.close))
+
+        def wrap(t):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return edge.apply(t, rng.open)
+            return t
+
+        if isinstance(out, tuple):
+            return tuple(wrap(t) for t in out)
+        return wrap(out)
 
 
 def traced(name: str | None = None, **attrs: Any) -> Callable:
@@ -180,11 +285,6 @@ def traced(name: str | None = None, **attrs: Any) -> Callable:
 
 def current_span() -> Span | None:
     return _CURRENT.get()
-
-
-def recent_spans() -> list[Span]:
-    """Spans finished outside any timeline (newest last)."""
-    return list(_RECENT)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,11 @@ state's leaves are DTensors placed by :func:`train_state_axes` and the
 batch is sharded over the data axes
 (:func:`~repro_torch.distributed.sharding.shard_batch`); the metrics come
 back as plain tensors that every rank holds whole.
+
+Under a torch profiler a step's phases are named regions
+(:func:`~repro_torch.observability.trace.region`): ``train.step``,
+``train.forward``, ``train.backward``, ``train.own``, ``train.clip`` and
+``train.optimizer``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from repro_torch.distributed.sharding import conform_tree
 from repro_torch.models.common import (ShapeDtype, is_dtensor, map_tree,
                                        resolve_device, tree_leaves, whole)
 from repro_torch.models.registry import ModelBundle
+from repro_torch.observability import trace
 from repro_torch.training import optim as optim_mod
 from repro_torch.training.optim import OptimConfig
 
@@ -108,9 +114,11 @@ def value_and_grad(bundle: ModelBundle, params: Any,
     parameter's, summed over the ranks that read it) is reduced here, once,
     rather than wherever the optimizer's first op needs it."""
     live = map_tree(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = bundle.loss_fn(live, batch)
+    with trace.region("train.forward"):
+        loss, metrics = bundle.loss_fn(live, batch)
     leaves = [t for _, t in tree_leaves(live)]
-    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    with trace.region("train.backward"):
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     grad_of = dict(zip(map(id, leaves), grads))
 
     def placed(t):
@@ -197,6 +205,10 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig,
     n = tcfg.microbatches
 
     def train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]):
+        with trace.region("train.step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: dict[str, Any], batch: dict[str, torch.Tensor]):
         params = state["params"]
         if n > 1:
             grads = map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32),
@@ -216,23 +228,28 @@ def make_train_step(bundle: ModelBundle, tcfg: TrainConfig,
         if donate:
             with torch.no_grad():
                 if n == 1:
-                    grads = _owned(grads, params)
-                grad_norm = optim_mod.clip_by_global_norm_(grads,
-                                                           ocfg.grad_clip)
-                lr = optim_mod.opt_update_(ocfg, grads, state["opt"],
-                                           params, state["step"])
-                del grads
-                state["step"].add_(1)
+                    with trace.region("train.own"):
+                        grads = _owned(grads, params)
+                with trace.region("train.clip"):
+                    grad_norm = optim_mod.clip_by_global_norm_(
+                        grads, ocfg.grad_clip)
+                with trace.region("train.optimizer"):
+                    lr = optim_mod.opt_update_(ocfg, grads, state["opt"],
+                                               params, state["step"])
+                    del grads
+                    state["step"].add_(1)
             if state_placements is not None:
                 _unmoved(state, state_placements)
             new_state = state
         else:
-            grads, grad_norm = optim_mod.clip_by_global_norm(grads,
-                                                             ocfg.grad_clip)
-            new_params, new_opt, lr = optim_mod.opt_update(
-                ocfg, grads, state["opt"], params, state["step"])
-            new_state = {"step": state["step"] + 1, "params": new_params,
-                         "opt": new_opt}
+            with trace.region("train.clip"):
+                grads, grad_norm = optim_mod.clip_by_global_norm(
+                    grads, ocfg.grad_clip)
+            with trace.region("train.optimizer"):
+                new_params, new_opt, lr = optim_mod.opt_update(
+                    ocfg, grads, state["opt"], params, state["step"])
+                new_state = {"step": state["step"] + 1, "params": new_params,
+                             "opt": new_opt}
             if state_placements is not None:
                 new_state = conform_tree(new_state, state_placements)
         out_metrics = {

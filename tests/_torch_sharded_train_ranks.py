@@ -34,8 +34,9 @@ and the mesh's (each rank feeds its data group's rows). It reports the
 loss and grad_norm both ways, each gradient and each state leaf's
 distance over its norm, and each leaf's local shape; for the
 ``DONATED_CASES``, also the same two mesh steps donated from a copy of
-the initial state (every local shard bit-equal to the functional steps',
-every leaf's storage and placements kept). ``save`` writes the
+the initial state, the second under ``torch.profiler`` so that the
+regions' identity nodes run on DTensors (every local shard bit-equal to
+the functional steps', every leaf's storage and placements kept). ``save`` writes the
 mesh's state after the two steps of the first case as a checkpoint,
 ``save_lists`` a list-of-layers state per case (a training case's after
 its two steps, else its initial state placed on the mesh);
@@ -49,6 +50,7 @@ compared across processes by the SHA-256 of their bytes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -362,10 +364,12 @@ def train_case(case: str, mesh, data: int, on_mesh: list, fsdp: bool = True
 def donated_against(bundle, tcfg, pl, rules, mesh, state, want, batches
                     ) -> dict:
     """The mesh's donated steps on ``batches`` from ``state`` (a copy of
-    the functional steps' initial state) against the functional steps'
-    final state ``want``: the leaves whose local shard is not bit-equal,
-    those that left their storage or placements, and whether the step
-    returned the state it was given."""
+    the functional steps' initial state), the last under a profiler,
+    against the functional steps' final state ``want``: the leaves whose
+    local shard is not bit-equal, those that left their storage or
+    placements, and whether the step returned the state it was given."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.models.common import axis_rules, tree_leaves
     from repro_torch.training.train_step import make_train_step
 
@@ -373,8 +377,10 @@ def donated_against(bundle, tcfg, pl, rules, mesh, state, want, batches
     before = {k: (t.to_local().data_ptr(), tuple(t.placements))
               for k, t in tree_leaves(state)}
     same_dict = True
-    for b in batches:
-        with axis_rules(mesh, rules):
+    for i, b in enumerate(batches):
+        profiled = (profile(activities=[ProfilerActivity.CPU])
+                    if i == len(batches) - 1 else contextlib.nullcontext())
+        with axis_rules(mesh, rules), profiled:
             got, _ = step(state, _local_batch(b, bundle, rules, mesh))
         same_dict &= got is state
     ref = dict(tree_leaves(want))
