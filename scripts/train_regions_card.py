@@ -8,7 +8,8 @@ Card only. Builds the cell's train state and donated step as
 check steps, then:
 
 1. times ``trace_steps`` steps without a profiler and as many under one,
-   each between two synchronizes;
+   each between two synchronizes, and reads what the model's
+   ``layer_slice`` counters moved by a step over both sets;
 2. reduces the traced steps with ``cardbench.devtrace`` (device time by
    kernel kind, launches, idle) and ``cardbench.spans`` (device time by
    the region that owns it);
@@ -73,7 +74,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from cardbench import bench, devtrace, inputs, spans
-    from repro_torch.models.common import map_tree, tree_leaves
+    from repro_torch.models.common import layer_slice, map_tree, tree_leaves
     from repro_torch.models.registry import build
     from repro_torch.training import optim
     from repro_torch.training.train_step import TrainConfig, make_train_step
@@ -107,6 +108,7 @@ def main(argv=None) -> int:
 
     # 1. and 2. steps untraced, then traced as the benchmark traces them
     n = traffic["trace_steps"]
+    counted = (layer_slice.gathered, layer_slice.selected)
     sync()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -125,6 +127,9 @@ def main(argv=None) -> int:
             sync()
             out["step_s_traced"] = (time.perf_counter() - t0) / n
     out["peak_bytes_traced"] = torch.cuda.max_memory_allocated()
+    out["layer_slice_per_step"] = {
+        "gathered": (layer_slice.gathered - counted[0]) / (2 * n),
+        "selected": (layer_slice.selected - counted[1]) / (2 * n)}
     tr = devtrace.from_profiler(prof, bench.kinds())
     sp = spans.from_profiler(prof)
     ms = {k: 1e3 * v / n for k, v in sp.by_owner.items()}
@@ -175,7 +180,8 @@ def main(argv=None) -> int:
     del plain
 
     for k in ("bit_equal", "step_s_untraced", "step_s_traced",
-              "peak_bytes_untraced", "peak_bytes_traced"):
+              "peak_bytes_untraced", "peak_bytes_traced",
+              "layer_slice_per_step"):
         print(k, out[k])
     for k in ("launches_per_step", "step_device_ms", "device_idle",
               "largest_gaps_ms"):

@@ -27,10 +27,13 @@ import dataclasses
 import functools
 import math
 import sys
-from typing import Any, Callable, Mapping, NamedTuple, Sequence
+import weakref
+from typing import (Any, Callable, Iterator, Mapping, NamedTuple,
+                    Sequence)
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -383,14 +386,108 @@ def stack_specs(specs: Mapping[str, Any], layers: int) -> Any:
     return map_tree(lambda s: stacked(s, layers), specs)
 
 
+class _StackGather:
+    """The gradient of one stacked leaf's slices taken in one forward.
+
+    Each slice's backward adds its gradient into its layer's slice of one
+    buffer of the stack's shape, allocated (zeros: a layer whose slice is
+    not used reads zero) by the first of them to run in a backward pass.
+    The last of the slices that the pass runs hands the whole buffer on as
+    the leaf's gradient; every other returns none. Handed on only once
+    every slice is written, the buffer may meet other gradients bound for
+    the leaf (a second pass through the stack in the same graph), which
+    autograd adds out of place. So the stack's gradient costs one fill and
+    one add of each slice, where a select's backward fills and adds a
+    tensor of the whole stack for every layer."""
+
+    __slots__ = ("shape", "dtype", "device", "nodes", "buf", "left")
+
+    def __init__(self, t: torch.Tensor):
+        self.shape, self.dtype, self.device = t.shape, t.dtype, t.device
+        self.nodes: list[weakref.ref] = []   # each slice's backward node
+        self.buf: torch.Tensor | None = None
+        self.left = 0
+
+    def slice(self, s: torch.Tensor, i: int) -> torch.Tensor:
+        out = _GatherSlice.apply(s, self, i)
+        self.nodes.append(weakref.ref(out.grad_fn))
+        return out
+
+    def write(self, i: int, g: torch.Tensor) -> torch.Tensor | None:
+        if self.buf is None:
+            self.buf = torch.zeros(self.shape, dtype=self.dtype,
+                                   device=self.device)
+            self.left = sum(1 for r in self.nodes if (n := r()) is not None
+                            and torch._C._will_engine_execute_node(n))
+        self.buf[i].add_(g)
+        layer_slice.gathered += 1
+        self.left -= 1
+        if self.left:
+            return None
+        buf, self.buf = self.buf, None
+        return buf
+
+
+class _GatherSlice(torch.autograd.Function):
+    """``s[i]`` (the same view) whose backward writes into the gather's
+    buffer (:class:`_StackGather`)."""
+
+    @staticmethod
+    def forward(ctx, s, gather, i):
+        ctx.gather, ctx.i = gather, i
+        return s[i]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return ctx.gather.write(ctx.i, g), None, None
+
+
+def _select(s: Any, i: int) -> Any:
+    return s[i]
+
+
+def _counted_select(s: torch.Tensor, i: int) -> torch.Tensor:
+    layer_slice.selected += 1
+    return s[i]
+
+
+def _slicer(t: Any) -> Callable[[int], Any]:
+    """How this forward takes layer ``i`` of the stacked leaf ``t``, each
+    slice in the region ``model.layer_slice``: a view ``t[i]``, in-place
+    writes landing in the stack, where ``t`` takes no gradient; the select
+    for a DTensor; else through one :class:`_StackGather` for all of
+    ``t``'s slices."""
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        take = _select
+    elif is_dtensor(t):
+        take = _counted_select
+    else:
+        take = _StackGather(t).slice
+    return lambda i: trace.bwd_region("model.layer_slice", t,
+                                      lambda s: take(s, i))
+
+
+def layer_slices(tree: Any, n: int) -> Iterator[Any]:
+    """Layers ``0 .. n - 1`` of a stacked tree, one by one, each sliced as
+    the loop asks for it, so that its slices' backward runs as soon as its
+    layer's has (autograd runs the nodes made last first). The slices of
+    one leaf share a :class:`_StackGather`."""
+    slicers = map_tree(_slicer, tree)
+    for i in range(n):
+        yield map_tree(lambda f: f(i), slicers)
+
+
 def layer_slice(tree: Any, i: int) -> Any:
-    """Layer ``i`` of a stacked tree (views, so in-place writes land in the
-    stacked tensors). Each leaf's select is the region
-    ``model.layer_slice``; its backward fills a gradient of the whole
-    stack, which autograd then adds into the stacked leaf's."""
-    return map_tree(
-        lambda t: trace.bwd_region("model.layer_slice", t, lambda s: s[i]),
-        tree)
+    """Layer ``i`` of a stacked tree, sliced as by :func:`layer_slices`.
+    ``layer_slice.gathered`` counts the slice gradients written into a
+    gather's buffer, ``layer_slice.selected`` the slices taken by a select
+    while taking a gradient (a DTensor's)."""
+    return map_tree(lambda t: _slicer(t)(i), tree)
+
+
+layer_slice.gathered = 0
+layer_slice.selected = 0
 
 
 # ---------------------------------------------------------------------------

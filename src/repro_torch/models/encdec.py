@@ -45,6 +45,7 @@ from repro_torch.models.common import (
     is_dtensor,
     layer_norm,
     layer_slice,
+    layer_slices,
     maybe_remat,
     on_local_shards,
     shard,
@@ -168,8 +169,8 @@ def encode(cfg: ModelConfig, params: dict[str, Any],
     positions = torch.arange(x.shape[1], device=x.device)
     body = maybe_remat(lambda h, p: _enc_layer(cfg, p, h, positions),
                        cfg.remat_policy)
-    for i in range(_encoder_layers(cfg)):
-        x = body(x, layer_slice(params["enc_layers"], i))
+    for p in layer_slices(params["enc_layers"], _encoder_layers(cfg)):
+        x = body(x, p)
     return _ln(cfg, params["enc_ln"], x)
 
 
@@ -200,8 +201,8 @@ def decode_train(cfg: ModelConfig, params: dict[str, Any],
     body = maybe_remat(
         lambda h, p, e: _dec_layer(cfg, p, h, e, positions, enc_positions),
         cfg.remat_policy)
-    for i in range(cfg.num_layers):
-        x = body(x, layer_slice(params["dec_layers"], i), enc_out)
+    for p in layer_slices(params["dec_layers"], cfg.num_layers):
+        x = body(x, p, enc_out)
     return _logits(cfg, params, x)
 
 

@@ -21,6 +21,7 @@ from repro_torch.models.common import (
     ModelConfig,
     ParamSpec,
     layer_slice,
+    layer_slices,
     maybe_remat,
     embed_rows,
     mul_scalar,
@@ -140,8 +141,8 @@ def _stack_forward(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
         lambda h, lp: _layer_forward(cfg, lp, h, positions),
         cfg.remat_policy)
     aux = None
-    for i in range(cfg.num_layers):
-        x, a = body(x, layer_slice(params["layers"], i))
+    for lp in layer_slices(params["layers"], cfg.num_layers):
+        x, a = body(x, lp)
         if a is not None:
             aux = a if aux is None else aux + a
     if aux is None:

@@ -209,14 +209,16 @@ class _BwdRange:
 def _edge():
     """The identity autograd function at a region's input and outputs
     (built on first use: this module does not import torch). Forward, a
-    view of its input; backward, the gradient as it came, after calling
-    the range's ``open`` or ``close`` it was given."""
+    view of its input; backward, the gradient as it came (none stays none,
+    never a tensor of zeros), after calling the range's ``open`` or
+    ``close`` it was given."""
     import torch
 
     class RegionEdge(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x, on_backward):
             ctx.on_backward = on_backward
+            ctx.set_materialize_grads(False)
             return x.view_as(x)
 
         @staticmethod
